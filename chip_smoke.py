@@ -8,11 +8,14 @@ Phases (each prints its own line; any failure exits non-zero):
 2. build   — compile every kernel in src/repro_torch/csrc/ with nvcc, in
              parallel, and print the build time.
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
-             at the serving slice's shapes: CAC bit-exact; paged attention
-             within 2e-5 (fp32 and int8 pools, decode and chunk). Times the
-             kernel, its plain version and, where one exists, a library call
-             that computes the same function (gather + SDPA for attention;
-             timed here only, the port never calls it).
+             at the shapes of the path that runs it: CAC bit-exact; paged
+             attention within 2e-5 (fp32 and int8 pools, decode and chunk);
+             the training CAC forward bit-exact and its STE backward (fused,
+             and the split dx + dw pair) within atol = rtol = 1e-4 off the
+             |pre| = 1 window edge, at M = 512 and two ragged shapes. Times
+             the kernel, its plain version and, where one exists, a library
+             call that computes the same function (gather + SDPA for
+             attention; timed here only, the port never calls it).
 4. path    — ServeEngine.from_trained on full-width smollm-360m in bika mode
              with packed signs (random train-form weights from a seed),
              paged engine, fused route: 8 requests x 16 new tokens, run twice
@@ -24,6 +27,17 @@ Phases (each prints its own line; any failure exits non-zero):
              prefill and decode logits against a CPU run of the port (plain
              versions), with the activation codes held equal at half-way
              ties (see phase_parity).
+6. train   — Trainer on full-width, full-depth smollm-360m in bika mode
+             (remat on), batch 4 x seq 128: 3 steps with the fused backward
+             and 1 with the split pair, launch counts exact per step (448
+             forward, 224 fused; 224 dx + 224 dw on the split step), finite
+             losses; ms per step, peak memory, and one more step under
+             torch.profiler (device busy, idle share, top kernels).
+7. train parity — one train step of the same model cut to 2 layers on the
+             card and on the CPU plain path, CAC outputs held equal where
+             the two split a Sign at a near-zero pre-activation (see
+             phase_train_parity); loss, gradients and updated parameters
+             within the stated tolerances.
 
 Before the last line come the card's name and power limit as nvidia-smi
 prints them, then the kernels JSON; the last line is
@@ -33,6 +47,7 @@ port's package is not beside this file.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -52,6 +67,18 @@ ATTN_TOL = 2e-5
 PARITY_ATOL = 1e-3  # logits, once the activation codes agree; see phase_parity
 SPIN_CYCLES = 4_000_000  # ~2 ms at the H100's clock: longer than any call's enqueue
 PARITY_TIE = 1e-3  # code units from a half-way point where the codes may differ
+# training CAC: the path's (K, N) projections at M = batch 4 x seq 128, and
+# two ragged shapes that cut every tile edge
+TRAIN_SHAPES = [(512, 960, 960), (512, 960, 320), (512, 960, 2560), (512, 2560, 960)]
+TRAIN_RAGGED = [(37, 100, 130), (129, 968, 65)]
+TRAIN_TOL = 1e-4  # atol = rtol for dx/dw/dbeta, the reference's own STE-backward bound
+WINDOW_EPS = 1e-4  # |pre| within this of 1: the reference leaves the element out
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3
+TRAIN_SIGN_TIE = 1e-6  # |pre| within this of 0: a Sign the two devices may split
+TRAIN_PARITY_LOSS = 1e-5  # relative loss difference, card vs CPU, codes held
+TRAIN_PARITY_REL = 1e-4  # per-leaf relative L2 difference of gradients and parameters
+_NO_LAUNCHES = {"cac_hw": 0, "cac_train_bwd_dw": 0, "cac_train_bwd_dx": 0,
+                "cac_train_bwd_fused": 0, "cac_train_fwd": 0, "paged_attn": 0}
 
 
 def fail(msg: str) -> None:
@@ -229,6 +256,102 @@ def phase_paged(torch, np, dev, flush):
     return rows
 
 
+def _window_clear(torch, x, w, beta, rows=8):
+    """(dx_keep (M, K), dw_keep (K, N)): gradient elements whose reduction
+    touches no pre-activation within WINDOW_EPS of |pre| = 1."""
+    dx_keep = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    dw_keep = torch.ones(w.shape, dtype=torch.bool, device=x.device)
+    for a in range(0, x.shape[0], rows):
+        near = ((x[a:a + rows, :, None] * w[None] + beta[None]).abs() - 1.0).abs() <= WINDOW_EPS
+        dx_keep[a:a + rows] = ~near.any(dim=2)
+        dw_keep &= ~near.any(dim=0)
+    return dx_keep, dw_keep
+
+
+def _close_err(torch, got, want, keep):
+    """max |got - want| over kept elements, and whether every kept element
+    is within TRAIN_TOL + TRAIN_TOL * |want|."""
+    d = torch.where(keep, (got - want).abs(), 0)
+    ok = bool((d <= TRAIN_TOL + TRAIN_TOL * want.abs()).all())
+    return float(d.max()), ok
+
+
+def phase_train_kernels(torch, np, dev, flush):
+    """Kernels 2-5 against their plain versions: forward bit-exact; dx, dw,
+    dbeta of the fused kernel and of the split pair within TRAIN_TOL of the
+    plain fused backward and of each other, off the |pre| = 1 window edge.
+    Inputs as the reference's kernel tests draw them (x, g ~ N(0, 1); w,
+    beta ~ N(0, 0.25)). Timed at the path's shapes. Operations per (m, k, n):
+    4 in the forward (mul, add, compare, count), 6 for dx (mul, add,
+    abs-compare, select, multiply-add), 7 for dw+dbeta (the same, a
+    multiply-add and an add), 9 fused; the CUDA-core rate stands in for
+    them. Library call: none (no single PyTorch call computes Sign(x w +
+    beta) summed over K)."""
+    from repro_torch.kernels import cac_matmul as cac
+
+    rng = np.random.default_rng(SEED + 2)
+    rows = []
+    for m, k, n in TRAIN_SHAPES + TRAIN_RAGGED:
+        x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
+        w = torch.from_numpy((rng.normal(size=(k, n)) * 0.5).astype(np.float32)).to(dev)
+        beta = torch.from_numpy((rng.normal(size=(k, n)) * 0.5).astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)).to(dev)
+        y = cac.cac_train_fwd_call(x, w, beta)
+        fused = cac.cac_train_bwd_fused_call(x, w, beta, g)
+        split = (cac.cac_train_bwd_dx_call(x, w, beta, g),) + cac.cac_train_bwd_dw_call(
+            x, w, beta, g)
+        torch.cuda.synchronize()
+        fwd_err = float((y - cac.cac_train_fwd_plain(x, w, beta)).abs().max())
+        if fwd_err != 0.0:
+            fail(f"cac_train_fwd M={m} K={k} N={n}: max |kernel - plain| = {fwd_err} "
+                 f"(must be 0)")
+        plain = cac.cac_train_bwd_fused_plain(x, w, beta, g)
+        dx_keep, dw_keep = _window_clear(torch, x, w, beta)
+        row = {"M": m, "K": k, "N": n, "fwd_max_abs_err": fwd_err,
+               "left_out": {"dx": int((~dx_keep).sum()), "dw": int((~dw_keep).sum())}}
+        for name, a, b, c, keep in zip(("dx", "dw", "dbeta"), fused, split, plain,
+                                       (dx_keep, dw_keep, dw_keep)):
+            for which, got, want in (("fused", a, c), ("split", b, c), ("fused-split", a, b)):
+                err, ok = _close_err(torch, got, want, keep)
+                row[f"{name}_{which}_max_abs_err"] = err
+                if not ok:
+                    fail(f"cac_train {which} {name} M={m} K={k} N={n}: beyond atol = rtol = "
+                         f"{TRAIN_TOL} (max |diff| {err:.3e})")
+        if (m, k, n) in TRAIN_SHAPES:
+            timed = {
+                "fwd": (lambda: cac.cac_train_fwd_call(x, w, beta),
+                        lambda: cac.cac_train_fwd_plain(x, w, beta),
+                        4, m * k + 2 * k * n + m * n),
+                "bwd_fused": (lambda: cac.cac_train_bwd_fused_call(x, w, beta, g),
+                              lambda: cac.cac_train_bwd_fused_plain(x, w, beta, g),
+                              9, 2 * m * k + 4 * k * n + m * n),
+                "bwd_dx": (lambda: cac.cac_train_bwd_dx_call(x, w, beta, g),
+                           lambda: cac.cac_train_bwd_dx_plain(x, w, beta, g),
+                           6, 2 * m * k + 2 * k * n + m * n),
+                "bwd_dw": (lambda: cac.cac_train_bwd_dw_call(x, w, beta, g),
+                           lambda: cac.cac_train_bwd_dw_plain(x, w, beta, g),
+                           7, m * k + 4 * k * n + m * n),
+            }
+            for name, (kern, plain_fn, ops_per, n_floats) in timed.items():
+                t_bytes = 4.0 * n_floats / HBM_BYTES_S * 1e3
+                t_ops = float(ops_per) * m * k * n / CUDA_CORE_OPS_S * 1e3
+                row[name] = {
+                    "ms": time_ms(torch, kern, flush=flush),
+                    "plain_ms": time_ms(torch, plain_fn, iters=3, warmup=1, flush=flush),
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                }
+        rows.append(row)
+        errs = " ".join(f"{nm}={row[nm + '_fused_max_abs_err']:.2e}" for nm in ("dx", "dw", "dbeta"))
+        times = "".join(f" {nm} {row[nm]['ms']:.4f} ms (plain {row[nm]['plain_ms']:.3f}, bound "
+                        f"{row[nm]['bound_ms']:.6f} {row[nm]['bound_by']})"
+                        for nm in ("fwd", "bwd_fused", "bwd_dx", "bwd_dw") if nm in row)
+        print(f"[kernels] cac_train M={m} K={k} N={n}: fwd bit-exact; bwd fused/split within "
+              f"{TRAIN_TOL} ({errs}; left out dx {row['left_out']['dx']}, dw "
+              f"{row['left_out']['dw']}){times}")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the serving path
 # ---------------------------------------------------------------------------
@@ -308,11 +431,11 @@ def phase_path(torch, np, arch, dev):
               f"goodput={summ['goodput_tok_s']:.1f} tok/s"
               + (f"; launches {counts}" if counts else ""))
         if counts is not None:
-            if min(counts.values()) <= 0:
+            if min(counts["cac_hw"], counts["paged_attn"]) <= 0:
                 fail(f"a kernel of the path was never launched: {counts}")
             expect_cac = 7 * arch.n_layers * (summ["decode_steps"] + summ["prefill_chunks"])
             expect_attn = arch.n_layers * (summ["decode_steps"] + summ["prefill_chunks"])
-            if counts != {"cac_hw": expect_cac, "paged_attn": expect_attn}:
+            if counts != dict(_NO_LAUNCHES, cac_hw=expect_cac, paged_attn=expect_attn):
                 fail(f"launch counts {counts} != 7 CAC + 1 attention per layer per step "
                      f"({expect_cac}, {expect_attn})")
             result["launches"] = counts
@@ -330,21 +453,39 @@ def phase_profile(torch, np, arch, train, dev):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, wall, summ = _serve(np, train, arch, False, dev, label="serve_drain")
-    out_dir = os.path.join(ROOT, "build", "profile")
-    os.makedirs(out_dir, exist_ok=True)
-    trace_path = os.path.join(out_dir, "serve_drain.json")
-    prof.export_chrome_trace(trace_path)
-    with open(trace_path) as fh:
-        events = json.load(fh).get("traceEvents", [])
-    window = [e for e in events if e.get("name") == "serve_drain" and e.get("ph") == "X"]
-    gpu = [e for e in events if e.get("ph") == "X"
-           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     ticks = summ["decode_steps"] + summ["prefill_chunks"]
     result = {"wall_s": wall, "ticks": ticks, "ms_per_tick": wall / ticks * 1e3}
-    if not window or not gpu:
+    share = _device_share(prof, "serve_drain")
+    if share is None:
         print("[profile] device busy share: not measured (the trace holds no drain window "
               "or no device events)")
         return result
+    result.update(share)
+    print(f"[profile] fp-KV drain under torch.profiler: window {result['window_ms']:.1f} ms, "
+          f"{ticks} ticks ({result['ms_per_tick']:.2f} ms/tick host clock), device busy "
+          f"{result['device_busy_ms']:.2f} ms, idle share {result['idle_share']:.4f}")
+    for row in result["top_kernels"]:
+        print(f"[profile]   {row['ms']:9.3f} ms {row['count']:6d}x {row['name']}")
+    return result
+
+
+def _device_share(prof, label):
+    """Device busy time, idle share and top kernels inside the profiler
+    window named ``label``: busy is the union of the kernel, memcpy and
+    memset intervals in the window. The trace stays under build/profile/
+    (gitignored). None when the trace holds no such window or no device
+    events."""
+    out_dir = os.path.join(ROOT, "build", "profile")
+    os.makedirs(out_dir, exist_ok=True)
+    trace_path = os.path.join(out_dir, f"{label}.json")
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    window = [e for e in events if e.get("name") == label and e.get("ph") == "X"]
+    gpu = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not window or not gpu:
+        return None
     t0 = float(window[0]["ts"])
     t1 = t0 + float(window[0]["dur"])
     spans = sorted((max(float(e["ts"]), t0), min(float(e["ts"]) + float(e["dur"]), t1))
@@ -366,15 +507,9 @@ def phase_profile(torch, np, arch, train, dev):
             n, d = by_name.get(key, (0, 0.0))
             by_name[key] = (n + 1, d + float(e["dur"]))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    result.update(window_ms=(t1 - t0) / 1e3, device_busy_ms=busy / 1e3,
-                  idle_share=1.0 - busy / (t1 - t0),
-                  top_kernels=[{"name": k, "count": n, "ms": d / 1e3} for k, (n, d) in top])
-    print(f"[profile] fp-KV drain under torch.profiler: window {result['window_ms']:.1f} ms, "
-          f"{ticks} ticks ({result['ms_per_tick']:.2f} ms/tick host clock), device busy "
-          f"{result['device_busy_ms']:.2f} ms, idle share {result['idle_share']:.4f}")
-    for row in result["top_kernels"]:
-        print(f"[profile]   {row['ms']:9.3f} ms {row['count']:6d}x {row['name']}")
-    return result
+    return {"window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / (t1 - t0),
+            "top_kernels": [{"name": k, "count": n, "ms": d / 1e3} for k, (n, d) in top]}
 
 
 # ---------------------------------------------------------------------------
@@ -530,6 +665,221 @@ def phase_parity(torch, np, arch, serve_params, dev):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the training path
+# ---------------------------------------------------------------------------
+
+
+def _train_step(torch, ops, trainer, params, opt, step, expect):
+    """One timed Trainer step with the launch counters zeroed just before
+    and read just after; ``expect`` is the exact count of each kernel."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    params, opt, met = trainer.train_step(params, opt, step)
+    loss = float(met["loss"])  # waits for the step
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    if counts != dict(_NO_LAUNCHES, **expect):
+        fail(f"train step {step}: launch counts {counts}, expected {expect} and 0 elsewhere")
+    if not math.isfinite(loss) or float(met["skipped"]) != 0.0:
+        fail(f"train step {step}: loss {loss}, skipped {float(met['skipped'])}")
+    return params, opt, {"step": step, "loss": loss, "ms": ms,
+                         "grad_norm": float(met["grad_norm"]), "launches": counts}
+
+
+def phase_train_path(torch, np, dev):
+    """Trainer on full-width, full-depth smollm-360m in bika mode (random
+    train-form weights from seed 42, remat on), batch 4 x seq 128: 3 steps
+    with the fused backward, 1 with the split pair, then 1 more fused step
+    under torch.profiler. Per step, with remat, 7 projections x 32 layers
+    launch kernel 2 twice (forward, then the recompute in the backward) and
+    the backward once each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import OptimizerSpec
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    arch = get_config("smollm-360m", compute_mode="bika")
+    n_proj = 7 * arch.n_layers
+    cfg = TrainConfig(arch=arch, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      steps=TRAIN_STEPS + 2)
+    trainer = Trainer(cfg, OptimizerSpec(total_steps=cfg.steps), device=dev)
+    t0 = time.perf_counter()
+    params, opt, _ = trainer.init()
+    torch.cuda.synchronize()
+    print(f"[train] smollm-360m bika, {arch.n_layers} layers, d_model {arch.d_model}, "
+          f"remat={arch.remat}: init {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    fused = {"cac_train_fwd": 2 * n_proj, "cac_train_bwd_fused": n_proj}
+    split = {"cac_train_fwd": 2 * n_proj, "cac_train_bwd_dx": n_proj, "cac_train_bwd_dw": n_proj}
+    steps = []
+    for step in range(TRAIN_STEPS):
+        params, opt, row = _train_step(torch, ops, trainer, params, opt, step, fused)
+        steps.append(row)
+    ops.FUSED_BWD_DEFAULT = False
+    try:
+        params, opt, row = _train_step(torch, ops, trainer, params, opt, TRAIN_STEPS, split)
+    finally:
+        ops.FUSED_BWD_DEFAULT = True
+    steps.append(dict(row, split=True))
+    peak = torch.cuda.max_memory_allocated()
+    for r in steps:
+        print(f"[train] step {r['step']}{' (split backward)' if r.get('split') else ''}: "
+              f"loss {r['loss']:.5f} grad_norm {r['grad_norm']:.4f} {r['ms']:.1f} ms "
+              f"launches {r['launches']}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("train_step"):
+            params, opt, row = _train_step(torch, ops, trainer, params, opt, TRAIN_STEPS + 1,
+                                           fused)
+    result = {"steps": steps, "profiled_step": row, "max_memory_allocated": peak,
+              "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ}
+    share = _device_share(prof, "train_step")
+    print(f"[train] peak memory {peak / 2**30:.2f} GiB; fused steps "
+          f"{[round(r['ms'], 1) for r in steps[:TRAIN_STEPS]]} ms, split step "
+          f"{steps[-1]['ms']:.1f} ms")
+    if share is None:
+        print("[train] device busy share: not measured (no window or no device events)")
+        return result
+    result["profile"] = share
+    print(f"[train] one step under torch.profiler: window {share['window_ms']:.1f} ms, "
+          f"device busy {share['device_busy_ms']:.2f} ms, idle share {share['idle_share']:.4f}")
+    for r in share["top_kernels"]:
+        print(f"[train]   {r['ms']:9.3f} ms {r['count']:6d}x {r['name']}")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 7: card vs CPU, one train step of 2 layers at full width
+# ---------------------------------------------------------------------------
+
+
+def _sign_hooks(torch):
+    """Hooks on ``ops.cac_train_matmul`` (the route every bika training
+    projection takes) for the train parity run. The card's records every
+    CAC output it makes (forward and remat recompute, in call order); the
+    CPU's computes its own and compares. Where the two differ, each
+    difference must be even and at most twice the number of the CPU's
+    pre-activations in that output's reduction within TRAIN_SIGN_TIE of 0
+    (a Sign that float noise may flip either way); the CPU then takes the
+    card's value (the STE backward is unchanged). Any other difference
+    fails."""
+    from repro_torch.kernels import ops
+
+    route = ops.cac_train_matmul
+    queue = []
+    stats = {"outputs": 0, "held": 0, "near_zero": 0}
+
+    def record(x, w, beta, **kw):
+        y = route(x, w, beta, **kw)
+        queue.append(y.detach().cpu())
+        return y
+
+    def follow(x, w, beta, **kw):
+        y = route(x, w, beta, **kw)
+        card, yd = queue.pop(0), y.detach()
+        stats["outputs"] += yd.numel()
+        diff = card != yd
+        if not bool(diff.any()):
+            return y
+        x2, w, beta = x.detach().reshape(-1, x.shape[-1]), w.detach(), beta.detach()
+        d2, c2, y2 = diff.reshape(-1, w.shape[1]), card.reshape(-1, w.shape[1]), yd.reshape(
+            -1, w.shape[1])
+        for r in d2.any(dim=1).nonzero()[:, 0].tolist():
+            near = ((x2[r, :, None] * w + beta).abs() <= TRAIN_SIGN_TIE).sum(dim=0)
+            d = (c2[r] - y2[r]).abs()
+            bad = d2[r] & ((d > 2 * near) | (torch.remainder(d, 2) != 0))
+            if bool(bad.any()):
+                fail(f"train parity: {int(bad.sum())} CAC outputs differ between card and CPU "
+                     f"by more than their near-zero pre-activations explain")
+            stats["near_zero"] += int(near[d2[r]].sum())
+        stats["held"] += int(diff.sum())
+        return y + torch.where(diff, card - yd, 0)
+
+    def install(side):
+        ops.cac_train_matmul = record if side == "card" else follow
+
+    def restore():
+        ops.cac_train_matmul = route
+
+    return install, restore, queue, stats
+
+
+def _tree_np(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_np(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def phase_train_parity(torch, np, dev):
+    """One train step (loss, gradients, AdamW update) of the same 2-layer,
+    full-width bika model on the card and on the CPU plain path: the same
+    numpy params (seed 3) and the same batch (2 x 64 tokens).
+
+    The CAC outputs are integers, but the float parts (RMSNorm, softmax, the
+    head) differ between the two devices by ~1e-7 relative, and a
+    pre-activation within that noise of 0 may take either Sign: one flip
+    moves an output by 2 gamma / sqrt(K), and later layers follow. So the
+    CPU side takes the card's CAC output wherever the two differ at genuine
+    near-zero pre-activations (``_sign_hooks``) and fails on any other
+    difference. The STE window |pre| <= 1 may differ the same way at an
+    element within the noise of 1; that moves one term of a gradient sum and
+    does not cascade. The tolerances: loss within TRAIN_PARITY_LOSS
+    relative; each gradient leaf and each updated parameter leaf within
+    TRAIN_PARITY_REL of its L2 norm (the CPU rehearsal behind these numbers
+    is in PERF.md)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.convert import from_reference
+    from repro_torch.data.lm import LMDataConfig, lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import OptimizerSpec, make_optimizer, tree_leaves
+    from repro_torch.train.steps import loss_and_grads
+
+    arch = get_config("smollm-360m", compute_mode="bika", n_layers=2)
+    api = build_model(arch, phase="train")
+    np_params = _tree_np(api.init(3, device="cpu"))
+    batch = lm_batch(LMDataConfig(vocab=arch.vocab, seq_len=64, global_batch=2, seed=5), 0)
+    install, restore, queue, stats = _sign_hooks(torch)
+    out = {}
+    try:
+        for side, where in (("card", dev), ("cpu", torch.device("cpu"))):  # the card first
+            install(side)
+            params = from_reference(np_params, device=where)
+            t0 = time.perf_counter()
+            met, grads = loss_and_grads(api, params, {k: v.to(where) for k, v in batch.items()})
+            init, upd = make_optimizer(OptimizerSpec(peak_lr=1e-3, warmup=0, total_steps=10))
+            params, _, _ = upd(grads, init(params), params)
+            loss = float(met["loss"])
+            out[side] = (loss, [t.cpu() for t in tree_leaves(grads)],
+                         [t.cpu() for t in tree_leaves(params)], time.perf_counter() - t0)
+    finally:
+        restore()
+    if queue:
+        fail(f"train parity: the CPU side left {len(queue)} card outputs untaken")
+    (lc, gc, pc, tc), (lp, gp, pp, tp) = out["card"], out["cpu"]
+    loss_rel = abs(lc - lp) / abs(lp)
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
+    g_rel = max(rel(a, b) for a, b in zip(gc, gp))
+    p_rel = max(rel(a, b) for a, b in zip(pc, pp))
+    if not (np.isfinite(lc) and loss_rel <= TRAIN_PARITY_LOSS):
+        fail(f"train parity: loss card {lc} cpu {lp} (relative {loss_rel:.3e} > "
+             f"{TRAIN_PARITY_LOSS})")
+    if not (g_rel <= TRAIN_PARITY_REL and p_rel <= TRAIN_PARITY_REL):
+        fail(f"train parity: worst leaf relative L2 gradient {g_rel:.3e}, parameter "
+             f"{p_rel:.3e} (limit {TRAIN_PARITY_REL})")
+    print(f"[train-parity] 2 layers at full width, one train step, card vs CPU plain path: "
+          f"loss {lc:.6f} vs {lp:.6f} (relative {loss_rel:.2e}, limit {TRAIN_PARITY_LOSS}); "
+          f"worst leaf relative L2 gradient {g_rel:.2e}, parameter {p_rel:.2e} (limit "
+          f"{TRAIN_PARITY_REL}); {stats['held']} of {stats['outputs']} CAC outputs held to "
+          f"the card's at {stats['near_zero']} pre-activations within {TRAIN_SIGN_TIE} of 0; "
+          f"card {tc:.1f} s, CPU {tp:.1f} s")
+    return {"loss_card": lc, "loss_cpu": lp, "loss_rel": loss_rel, "grad_rel": g_rel,
+            "param_rel": p_rel, **stats}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -557,6 +907,7 @@ def main() -> int:
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
     cac_rows = phase_cac(torch, np, dev, flush)
     attn_rows = phase_paged(torch, np, dev, flush)
+    train_rows = phase_train_kernels(torch, np, dev, flush)
     del flush
     from repro_torch.configs import get_config
     from repro_torch.core.convert import tree_to_serve
@@ -568,6 +919,9 @@ def main() -> int:
     serve_params = tree_to_serve(train, arch.linear_spec())
     del train
     phase_parity(torch, np, arch, serve_params, dev)
+    del serve_params
+    training = phase_train_path(torch, np, dev)
+    training["parity"] = phase_train_parity(torch, np, dev)
 
     main_cac = next(r for r in cac_rows if (r["M"], r["K"], r["N"]) == (4, 960, 2560))
     main_attn = next(r for r in attn_rows if r["case"] == "decode" and not r["int8"])
@@ -590,9 +944,34 @@ def main() -> int:
          "shape": "decode B=4 C=1 Hq=15 Hkv=5 D=64 bs=16 T=8 fp32 pool",
          "shapes": attn_rows},
     ]
+    main_train = next(r for r in train_rows if (r["M"], r["K"], r["N"]) == (512, 960, 2560))
+    per_step = training["steps"][0]["launches"]
+    split_step = training["steps"][-1]["launches"]
+    for name, key, launches, replaces in (
+            ("cac_train_fwd", "fwd", per_step["cac_train_fwd"], 160),
+            ("cac_train_bwd_dx", "bwd_dx", split_step["cac_train_bwd_dx"], 222),
+            ("cac_train_bwd_dw", "bwd_dw", split_step["cac_train_bwd_dw"], 284),
+            ("cac_train_bwd_fused", "bwd_fused", per_step["cac_train_bwd_fused"], 383)):
+        grads = {"bwd_dx": ("dx",), "bwd_dw": ("dw", "dbeta")}.get(key, ("dx", "dw", "dbeta"))
+        errs = [r[f"{nm}_{which}_max_abs_err"] for r in train_rows for nm in grads
+                for which in (("fused", "fused-split") if key == "bwd_fused" else ("split",))]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/cac_train.cu",
+            "replaces": f"src/repro/kernels/cac_matmul.py:{replaces}",
+            "launches": launches,
+            "max_abs_err": (max(r["fwd_max_abs_err"] for r in train_rows) if key == "fwd"
+                            else max(errs)),
+            "ms": main_train[key]["ms"], "plain_ms": main_train[key]["plain_ms"],
+            "bound_ms": main_train[key]["bound_ms"], "bound_by": main_train[key]["bound_by"],
+            "library_ms": None,
+            "shape": "M=512 K=960 N=2560 (gate/up, batch 4 x seq 128); launches per "
+                     + ("split-backward step" if key in ("bwd_dx", "bwd_dw") else "fused step"),
+            "shapes": [{k: v for k, v in r.items() if k in ("M", "K", "N", key)}
+                       for r in train_rows if key in r]})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
-        json.dump({"device": smi, "kernels": kernels, "path": path}, fh, indent=1,
+        json.dump({"device": smi, "kernels": kernels, "path": path, "training": training,
+                   "train_kernels": train_rows}, fh, indent=1,
                   sort_keys=True)
     print(smi)
     print(json.dumps({"kernels": kernels}, sort_keys=True))

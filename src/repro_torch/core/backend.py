@@ -1,7 +1,8 @@
-"""Quantized-backend registry, serve slice (port of ``repro/core/backend.py``).
+"""Quantized-backend registry (port of ``repro/core/backend.py``).
 
 Every projection mode implements one contract — ``init_train`` /
-``init_serve`` / ``to_serve`` / ``train_param_keys`` / ``apply_serve`` —
+``init_serve`` / ``to_serve`` / ``train_param_keys`` / ``apply_train`` /
+``apply_serve`` / ``kernel_route`` —
 and ``nn/linear.py`` dispatches on ``LinearSpec.mode`` through the registry.
 This slice registers ``dense`` and ``bika``; ``bnn`` and ``qnn8`` wait for
 their kernels.
@@ -125,8 +126,16 @@ class QuantBackend:
     def train_param_keys(self, spec) -> Tuple[frozenset, frozenset]:
         raise NotImplementedError
 
+    def apply_train(self, params, x: torch.Tensor, spec) -> torch.Tensor:
+        raise NotImplementedError
+
     def apply_serve(self, params, x: torch.Tensor, spec) -> torch.Tensor:
         raise NotImplementedError
+
+    def kernel_route(self, spec, phase: str = "train") -> Optional[str]:
+        """Name of the route in ``kernels.ops.KERNEL_ROUTES`` this backend
+        takes in ``phase`` (None: plain PyTorch)."""
+        return None
 
 
 _REGISTRY: Dict[str, QuantBackend] = {}
@@ -163,11 +172,13 @@ class DenseBackend(QuantBackend):
     def train_param_keys(self, spec):
         return frozenset({"w"}), frozenset({"b"})
 
-    def apply_serve(self, params, x, spec):
+    def apply_train(self, params, x, spec):
         y = x @ params["w"].to(x.dtype)
         if "b" in params:
             y = y + params["b"].to(x.dtype)
         return y
+
+    apply_serve = apply_train
 
 
 class BikaBackend(QuantBackend):
@@ -202,6 +213,30 @@ class BikaBackend(QuantBackend):
 
     def train_param_keys(self, spec):
         return frozenset({"w", "beta", "gamma"}), frozenset()
+
+    def apply_train(self, params, x, spec):
+        """Training-form projection y = gamma * sum_k SignSTE(x w + beta) /
+        sqrt(m K). Every call goes through ``kernels.ops.cac_train_matmul``
+        whatever ``spec.impl`` says: on CUDA the hand-written training CAC
+        kernels (forward and STE backward), on the CPU their plain versions.
+        That is the function the reference computes on each of its
+        ``fused``/``cvjp``/``pallas`` routes (its default ``cvjp`` is XLA).
+        With m > 1 the fold feeds it K' = m*K."""
+        from repro_torch.kernels.ops import cac_train_matmul
+
+        cd = x.dtype
+        w, beta = params["w"].to(cd), params["beta"].to(cd)
+        m, k = w.shape[0], w.shape[1]
+        if spec.fold_m and m > 1:
+            wf, bf = bika_core.fold_m_axis(w, beta)
+            y = cac_train_matmul(bika_core.tile_m_axis(x, m), wf, bf)
+        else:
+            y = sum(cac_train_matmul(x, w[j], beta[j]) for j in range(m))
+        y = _out_scale(y.to(cd), m * k, spec)
+        return y * params["gamma"].to(cd)
+
+    def kernel_route(self, spec, phase="train"):
+        return "cac_train" if phase == "train" else "cac_hw"
 
     def apply_serve(self, params, x, spec):
         """Hardware-form CAC projection. Every call goes through

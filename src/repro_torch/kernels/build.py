@@ -6,7 +6,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles with
 
 into ``build/kernels/lib<name>-<hash>.so`` at the repository root (the
 hash is of the source, so an edited kernel rebuilds). No ``--use_fast_math``:
-the paged-attention tolerance relies on accurate ``expf``. Nothing is
+the paged-attention tolerance relies on accurate ``expf``, and the training
+CAC on IEEE-rounded ``__fmul_rn``/``__fadd_rn``. Nothing is
 built at import time; ``load(name)`` builds on first use and ``build_all``
 compiles every source in parallel (one ``nvcc`` each, all started together).
 """
@@ -24,7 +25,7 @@ __all__ = ["CSRC", "BUILD_DIR", "KERNEL_SOURCES", "build_all", "load"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_PKG)), "build", "kernels")
-KERNEL_SOURCES = ("cac_matmul", "paged_attn")
+KERNEL_SOURCES = ("cac_matmul", "cac_train", "paged_attn")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

@@ -1,4 +1,5 @@
-"""Hardware-form CAC: the CUDA kernel's wrapper and its plain version.
+"""The CAC kernels' wrappers and their plain versions: the hardware form
+(serve) and the training form with its STE backward.
 
 The kernel (``csrc/cac_matmul.cu``) replaces the reference's Pallas
 ``cac_matmul_kernel_call`` (``repro/kernels/cac_matmul.py``). It reads int8
@@ -6,18 +7,41 @@ activations and thresholds and the packed ``(K'/8, N)`` sign planes of the
 serve form directly, so no per-call unpack happens on the card, and masks
 its own ragged M, N and K' edges (the Pallas s=0 padding contract does not
 carry over).
+
+The training kernels (``csrc/cac_train.cu``) replace the reference's
+``cac_train_fwd_call``, ``cac_train_bwd_dx_call``, ``cac_train_bwd_dw_call``
+and ``cac_train_bwd_fused_call``. All four are bound by operations on the
+CUDA cores at the training path's shapes (no tensor-core form of a
+compare-select; the source says how each reduces across blocks). Each
+wrapper takes float32 (M, K) x, (K, N) w and beta (and (M, N) g), launches
+on PyTorch's current stream, raises on a CPU tensor or a failed launch, and
+counts its launches; its ``*_plain`` twin computes the same function in
+plain PyTorch, a few rows of M at a time.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from . import build, ref
 
-__all__ = ["cac_matmul_kernel_call", "cac_matmul_plain"]
+__all__ = [
+    "cac_matmul_kernel_call",
+    "cac_matmul_plain",
+    "cac_train_bwd_dw_call",
+    "cac_train_bwd_dw_plain",
+    "cac_train_bwd_dx_call",
+    "cac_train_bwd_dx_plain",
+    "cac_train_bwd_fused_call",
+    "cac_train_bwd_fused_plain",
+    "cac_train_fwd_call",
+    "cac_train_fwd_plain",
+]
 
 _M_CHUNK = 8  # rows per slice of the plain version's (M, K, N) broadcast
+_TRAIN_CHUNK_ELEMS = 1 << 24  # (rows, K, N) elements per slice of the plain training versions
 
 
 def _check(x_int: torch.Tensor, tau: torch.Tensor, s_packed: torch.Tensor) -> None:
@@ -86,3 +110,148 @@ def cac_matmul_kernel_call(x_int: torch.Tensor, tau: torch.Tensor,
 
 
 cac_matmul_kernel_call.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Training form: y = sum_k Sign(x w + beta) and its STE backward
+# ---------------------------------------------------------------------------
+
+
+def _check_train(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
+                 g: torch.Tensor = None) -> None:
+    ops = (x, w, beta) if g is None else (x, w, beta, g)
+    if any(t.dim() != 2 for t in ops):
+        raise ValueError("the training CAC wants x (M, K), w and beta (K, N), g (M, N)")
+    if any(t.dtype != torch.float32 for t in ops):
+        raise TypeError(f"the training CAC takes float32; got {[t.dtype for t in ops]}")
+    m, k = x.shape
+    if w.shape[0] != k or beta.shape != w.shape or (g is not None and
+                                                    tuple(g.shape) != (m, w.shape[1])):
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, w {tuple(w.shape)}, beta "
+            f"{tuple(beta.shape)}" + ("" if g is None else f", g {tuple(g.shape)}"))
+
+
+def _row_chunks(m: int, k: int, n: int):
+    step = max(1, _TRAIN_CHUNK_ELEMS // max(k * n, 1))
+    return [(i, min(m, i + step)) for i in range(0, m, step)]
+
+
+def cac_train_fwd_plain(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch kernel 2: ``ref.cac_train_fwd_ref`` a few rows at a time."""
+    _check_train(x, w, beta)
+    out = torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
+    for a, b in _row_chunks(*x.shape, w.shape[1]):
+        out[a:b] = ref.cac_train_fwd_ref(x[a:b], w, beta)
+    return out
+
+
+def _bwd_plain(x, w, beta, g, want_dx: bool, want_dw: bool):
+    _check_train(x, w, beta, g)
+    m, k = x.shape
+    dx = torch.empty_like(x) if want_dx else None
+    dw = torch.zeros_like(w) if want_dw else None
+    db = torch.zeros_like(w) if want_dw else None
+    for a, b in _row_chunks(m, k, w.shape[1]):
+        cdx, cdw, cdb = ref.cac_train_bwd_ref(x[a:b], w, beta, g[a:b])
+        if want_dx:
+            dx[a:b] = cdx
+        if want_dw:
+            dw += cdw
+            db += cdb
+    return dx, dw, db
+
+
+def cac_train_bwd_dx_plain(x, w, beta, g) -> torch.Tensor:
+    """Plain PyTorch kernel 3: dx = sum_n g * 1[|x w + beta| <= 1] * w."""
+    return _bwd_plain(x, w, beta, g, True, False)[0]
+
+
+def cac_train_bwd_dw_plain(x, w, beta, g) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch kernel 4: (dw, dbeta) = sum_m g * mask * (x, 1)."""
+    _, dw, db = _bwd_plain(x, w, beta, g, False, True)
+    return dw, db
+
+
+def cac_train_bwd_fused_plain(x, w, beta, g):
+    """Plain PyTorch kernel 5: (dx, dw, dbeta) from one mask per row slice."""
+    return _bwd_plain(x, w, beta, g, True, True)
+
+
+def _train_lib(name: str):
+    fn = getattr(build.load("cac_train"), name)
+    if fn.argtypes is None:  # declare once: pointers must not pass as 32-bit ints
+        n_ptr = 4 if name == "cac_train_fwd_launch" else 7
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _on_card(what: str, *ts: torch.Tensor):
+    if not all(t.is_cuda for t in ts):
+        raise ValueError(f"{what} needs CUDA tensors")
+    return [t.contiguous() for t in ts]
+
+
+def cac_train_fwd_call(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """Launch kernel 2: (M, N) float32 y = sum_k Sign(x w + beta), exact
+    integers. Adds one to ``cac_train_fwd_call.launches`` per launch."""
+    _check_train(x, w, beta)
+    x, w, beta = _on_card("cac_train_fwd_call", x, w, beta)
+    m, k = x.shape
+    n = w.shape[1]
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return y
+    if k == 0:
+        return y.zero_()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _train_lib("cac_train_fwd_launch")(x.data_ptr(), w.data_ptr(), beta.data_ptr(),
+                                             y.data_ptr(), m, n, k, stream)
+    if err != 0:
+        raise RuntimeError(f"cac_train_fwd kernel launch failed: CUDA error {err}")
+    cac_train_fwd_call.launches += 1
+    return y
+
+
+def _bwd_call(fn, x, w, beta, g, want_dx: bool, want_dw: bool):
+    _check_train(x, w, beta, g)
+    x, w, beta, g = _on_card(fn.__name__, x, w, beta, g)
+    m, k = x.shape
+    n = w.shape[1]
+    dx = torch.empty_like(x) if want_dx else None  # the launch zeroes its outputs
+    dw = torch.empty_like(w) if want_dw else None
+    db = torch.empty_like(w) if want_dw else None
+    if m == 0 or k == 0 or n == 0:
+        return tuple(None if t is None else t.zero_() for t in (dx, dw, db))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _train_lib("cac_train_bwd_launch")(x.data_ptr(), w.data_ptr(), beta.data_ptr(),
+                                             g.data_ptr(), ptr(dx), ptr(dw), ptr(db),
+                                             m, n, k, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {err}")
+    fn.launches += 1
+    return dx, dw, db
+
+
+def cac_train_bwd_dx_call(x, w, beta, g) -> torch.Tensor:
+    """Launch kernel 3: dx (M, K). Adds one to ``.launches`` per launch."""
+    return _bwd_call(cac_train_bwd_dx_call, x, w, beta, g, True, False)[0]
+
+
+def cac_train_bwd_dw_call(x, w, beta, g) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel 4: (dw, dbeta), each (K, N). Adds one to ``.launches``."""
+    _, dw, db = _bwd_call(cac_train_bwd_dw_call, x, w, beta, g, False, True)
+    return dw, db
+
+
+def cac_train_bwd_fused_call(x, w, beta, g):
+    """Launch kernel 5: (dx, dw, dbeta) from one mask recompute. Adds one to
+    ``.launches`` per launch."""
+    return _bwd_call(cac_train_bwd_fused_call, x, w, beta, g, True, True)
+
+
+for _fn in (cac_train_fwd_call, cac_train_bwd_dx_call, cac_train_bwd_dw_call,
+            cac_train_bwd_fused_call):
+    _fn.launches = 0

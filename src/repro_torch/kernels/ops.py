@@ -1,11 +1,12 @@
-"""Public kernel wrappers (port of ``repro/kernels/ops.py``, serve slice).
+"""Public kernel wrappers (port of ``repro/kernels/ops.py``): the serve
+routes and the training CAC ``cac_train_matmul``.
 
 Each wrapper takes its plain PyTorch version only because the tensors it
 was given lie on the CPU; on CUDA tensors it launches the hand-written
 kernel or raises — there is no fallback. Launches are counted on the
 kernel calls (``cac_matmul_kernel_call.launches``,
-``paged_attn_kernel_call.launches``); ``launch_counts``/``reset_launches``
-read and zero them.
+``paged_attn_kernel_call.launches``, ``cac_train_fwd_call.launches``, ...);
+``launch_counts``/``reset_launches`` read and zero them.
 """
 from __future__ import annotations
 
@@ -14,12 +15,15 @@ from typing import Dict, Optional
 import torch
 
 from . import ref
+from . import cac_matmul as _cac
 from .cac_matmul import cac_matmul_kernel_call, cac_matmul_plain
 from .paged_attn import paged_attn_kernel_call
 
 __all__ = [
     "KERNEL_ROUTES",
+    "FUSED_BWD_DEFAULT",
     "cac_matmul",
+    "cac_train_matmul",
     "kernel_route",
     "launch_counts",
     "paged_attention",
@@ -57,12 +61,68 @@ def paged_attention(
     return ref.paged_attention_ref(q, k, v, tables, q_pos, k_scale, v_scale)
 
 
+# The one-pass fused STE backward (kernel 5) is the default; False takes the
+# split pair (kernels 3 + 4), as the reference's flag of the same name does.
+FUSED_BWD_DEFAULT = True
+
+
+class _CacTrain(torch.autograd.Function):
+    """y = sum_k Sign(x w + beta) with the STE backward. Saves only (x, w,
+    beta): the backward kernel recomputes the hard-tanh mask, so no (M, K, N)
+    tensor outlives the forward. On CUDA tensors both directions launch the
+    hand-written kernels; on CPU tensors they take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x2, w, beta, fused: bool):
+        ctx.save_for_backward(x2, w, beta)
+        ctx.fused = fused
+        if x2.is_cuda:
+            return _cac.cac_train_fwd_call(x2, w, beta)
+        return _cac.cac_train_fwd_plain(x2, w, beta)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, beta = ctx.saved_tensors
+        g = g.contiguous()
+        if x2.is_cuda:
+            if ctx.fused:
+                dx, dw, db = _cac.cac_train_bwd_fused_call(x2, w, beta, g)
+            else:
+                dx = _cac.cac_train_bwd_dx_call(x2, w, beta, g)
+                dw, db = _cac.cac_train_bwd_dw_call(x2, w, beta, g)
+        elif ctx.fused:
+            dx, dw, db = _cac.cac_train_bwd_fused_plain(x2, w, beta, g)
+        else:
+            dx = _cac.cac_train_bwd_dx_plain(x2, w, beta, g)
+            dw, db = _cac.cac_train_bwd_dw_plain(x2, w, beta, g)
+        return dx, dw, db, None
+
+
+def cac_train_matmul(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor, *,
+                     fused_bwd: Optional[bool] = None) -> torch.Tensor:
+    """Training CAC with the STE backward. x (..., K); w, beta (K, N) ->
+    (..., N) float32. ``fused_bwd=None`` reads ``FUSED_BWD_DEFAULT``."""
+    fused = FUSED_BWD_DEFAULT if fused_bwd is None else fused_bwd
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    y = _CacTrain.apply(x2, w.to(torch.float32), beta.to(torch.float32), bool(fused))
+    return y.reshape(lead + (w.shape[1],))
+
+
 KERNEL_ROUTES: dict = {
     "cac_hw": cac_matmul,
+    "cac_train": cac_train_matmul,
     "paged_attn": paged_attention,
 }
 
-_COUNTED = {"cac_hw": cac_matmul_kernel_call, "paged_attn": paged_attn_kernel_call}
+_COUNTED = {
+    "cac_hw": cac_matmul_kernel_call,
+    "cac_train_bwd_dw": _cac.cac_train_bwd_dw_call,
+    "cac_train_bwd_dx": _cac.cac_train_bwd_dx_call,
+    "cac_train_bwd_fused": _cac.cac_train_bwd_fused_call,
+    "cac_train_fwd": _cac.cac_train_fwd_call,
+    "paged_attn": paged_attn_kernel_call,
+}
 
 
 def kernel_route(name: str):

@@ -3,11 +3,11 @@
 holds each CUDA kernel against them on the card."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["cac_matmul_ref", "paged_attention_ref"]
+__all__ = ["cac_matmul_ref", "cac_train_bwd_ref", "cac_train_fwd_ref", "paged_attention_ref"]
 
 
 def cac_matmul_ref(x: torch.Tensor, tau: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -18,6 +18,36 @@ def cac_matmul_ref(x: torch.Tensor, tau: torch.Tensor, s: torch.Tensor) -> torch
     cmp = x[:, :, None] >= tau[None]  # (M, K, N)
     si = s.to(torch.int32)[None]
     return torch.where(cmp, si, -si).sum(dim=1, dtype=torch.int32).to(torch.float32)
+
+
+def _pre(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """x[m,k] * w[k,n] + beta[k,n] as an (M, K, N) tensor: a rounded product,
+    then a rounded sum (two eager ops, never one fused multiply-add)."""
+    return x[:, :, None] * w[None] + beta[None]
+
+
+def cac_train_fwd_ref(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """Training CAC: y[m,n] = sum_k Sign(x[m,k]*w[k,n] + beta[k,n]); Sign(0)=+1.
+    The +-1 terms are summed in int32 (exact), then cast to float32."""
+    neg = (~(_pre(x, w, beta) >= 0)).sum(dim=1, dtype=torch.int32)  # NaN -> -1
+    return (x.shape[1] - 2 * neg).to(torch.float32)
+
+
+def cac_train_bwd_ref(
+    x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """STE backward (hard-tanh window on the pre-activation):
+    mask = 1[|x w + beta| <= 1];
+    dx[m,k]    = sum_n g[m,n] mask[m,k,n] w[k,n]
+    dw[k,n]    = sum_m g[m,n] mask[m,k,n] x[m,k]
+    dbeta[k,n] = sum_m g[m,n] mask[m,k,n]
+    """
+    mask = (_pre(x, w, beta).abs() <= 1.0).to(g.dtype)
+    gm = g[:, None, :] * mask  # (M, K, N)
+    dx = (gm * w[None]).sum(dim=2)
+    dw = (gm * x[:, :, None]).sum(dim=0)
+    dbeta = gm.sum(dim=0)
+    return dx, dw, dbeta
 
 
 def paged_attention_ref(

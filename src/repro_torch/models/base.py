@@ -1,15 +1,19 @@
-"""Architecture config and the paged-KV layout contract (port of
-``repro/models/base.py``: ``ArchConfig``, ``PagedKVLayout``,
-``paged_kv_layout``). Layers run as a Python loop, so the reference's
-``scan_blocks*`` helpers have no counterpart here."""
+"""Architecture config, the paged-KV layout contract and the training layer
+loop (port of ``repro/models/base.py``: ``ArchConfig``, ``PagedKVLayout``,
+``paged_kv_layout``, ``scan_blocks_aux``). Layers run as a Python loop;
+``scan_blocks_aux`` is the training forward's, with
+``torch.utils.checkpoint`` around each layer when ``remat`` is set."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.backend import LinearSpec
 
-__all__ = ["ArchConfig", "ModelAPI", "PagedKVLayout", "paged_kv_layout"]
+__all__ = ["ArchConfig", "ModelAPI", "PagedKVLayout", "paged_kv_layout", "scan_blocks_aux"]
 
 
 class PagedKVLayout(NamedTuple):
@@ -70,6 +74,7 @@ class ArchConfig:
     pack_signs: bool = False
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    block_q: int = 256  # blockwise attention query tile (training)
     remat: bool = True
     # paged serving attention: "fused" block-table kernel | "gather" oracle
     paged_attn_route: str = "fused"
@@ -97,8 +102,26 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
+def scan_blocks_aux(layers: Sequence[Any], x: torch.Tensor, body: Callable, *,
+                    remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x -> body(params_i, x) for each layer's params, where ``body`` returns
+    (x, aux scalar); returns (x, the aux summed in float32). With ``remat``
+    each layer runs under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward instead of kept, as the
+    reference's ``jax.checkpoint`` body does."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in layers:
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(body, p, x, use_reentrant=False)
+        else:
+            x, a = body(p, x)
+        aux = aux + a.to(torch.float32)
+    return x, aux
+
+
 class ModelAPI(NamedTuple):
-    """What the serving runtime consumes (paged subset of the reference's)."""
+    """What the trainer and the serving runtime consume (the reference's,
+    cut to the paged serve path and the training forward)."""
 
     init: Callable[..., Any]  # (seed, device) -> params
     init_cache: Callable[..., Any]  # (n_phys_blocks, block_size, quantized, device)
@@ -107,3 +130,5 @@ class ModelAPI(NamedTuple):
     # (params, chunk (1,C), pool, table (1,T), start (1,), last_in_chunk (1,))
     # -> (last-token logits (1,1,V), pool)
     prefill_chunk: Callable[..., Any]
+    apply: Optional[Callable[..., Any]] = None  # (params, batch) -> logits
+    apply_aux: Optional[Callable[..., Any]] = None  # (params, batch) -> (logits, aux)

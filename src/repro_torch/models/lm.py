@@ -1,6 +1,6 @@
-"""Decoder-only LM, paged serve path (port of ``repro/models/lm.py``:
-``init``, ``init_cache`` for the paged pool, ``decode_paged`` and
-``prefill_chunk``).
+"""Decoder-only LM (port of ``repro/models/lm.py``: ``init``, the
+training forward ``apply`` / ``apply_aux``, and the paged serve path:
+``init_cache`` for the paged pool, ``decode_paged`` and ``prefill_chunk``).
 
 Parameters keep the reference's tree: ``{"embed", "layers", "ln_f"}`` with
 every ``layers`` leaf stacked ``(L, ...)``. The layer loop is a Python loop
@@ -17,6 +17,7 @@ from repro_torch.device import resolve_device
 from repro_torch.nn import embedding
 from repro_torch.nn.attention import (
     AttnConfig,
+    attn_apply,
     attn_decode_step_paged,
     attn_init,
     attn_prefill_chunk,
@@ -24,7 +25,7 @@ from repro_torch.nn.attention import (
 from repro_torch.nn.mlp import mlp_apply, mlp_init
 from repro_torch.nn.norms import rmsnorm_apply, rmsnorm_init
 
-from .base import ArchConfig, ModelAPI
+from .base import ArchConfig, ModelAPI, scan_blocks_aux
 
 __all__ = ["build_lm", "split_layers"]
 
@@ -40,6 +41,7 @@ def _attn_cfg(cfg: ArchConfig) -> AttnConfig:
         rope_theta=cfg.rope_theta,
         window=cfg.window,
         qkv_bias=cfg.qkv_bias,
+        block_q=cfg.block_q,
         paged_route=cfg.paged_attn_route,
     )
 
@@ -99,6 +101,30 @@ def _layer_ffn(p, x: torch.Tensor, cfg: ArchConfig, phase: str) -> torch.Tensor:
     return x + mlp_apply(p["mlp"], h, cfg.linear_spec(), activation=cfg.activation, phase=phase)
 
 
+def _unbind_layers(layers) -> List[Dict]:
+    """Per-layer views of stacked ``(L, ...)`` leaves through one
+    ``torch.unbind`` per leaf, whose backward stacks the layers' gradients
+    in one op (indexing each layer would add a full-size zero-filled
+    gradient per layer and leaf)."""
+    if isinstance(layers, list):
+        return layers
+    n = next(iter(_leaves(layers))).shape[0]
+
+    def split(node):
+        if isinstance(node, dict):
+            parts = {k: split(v) for k, v in node.items()}
+            return [{k: parts[k][i] for k in parts} for i in range(n)]
+        return list(torch.unbind(node))
+
+    return split(layers)
+
+
+def _layer_apply(p, x: torch.Tensor, cfg: ArchConfig, phase: str):
+    x = x + attn_apply(p["attn"], rmsnorm_apply(p["ln1"], x), _attn_cfg(cfg),
+                       cfg.linear_spec(), phase=phase)
+    return _layer_ffn(p, x, cfg, phase), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def _pool_layer(cache, i: int):
     return {name: leaf[i] for name, leaf in cache.items()}
 
@@ -122,6 +148,19 @@ def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
                               for _ in range(cfg.n_layers)]),
             "ln_f": rmsnorm_init(cfg.d_model, device=device),
         }
+
+    def apply_aux(params, batch: Dict[str, Any]):
+        """Training forward: batch["tokens"] (B, S) -> (logits (B, S, V')
+        float32, aux loss / n_layers). V' is the padded vocab, as in the
+        reference; the aux loss of a model without experts is 0."""
+        x = embedding.embed_apply(params["embed"], batch["tokens"], cdtype)
+        x, aux = scan_blocks_aux(_unbind_layers(params["layers"]), x,
+                                 lambda p, h: _layer_apply(p, h, cfg, phase), remat=cfg.remat)
+        x = rmsnorm_apply(params["ln_f"], x)
+        return embedding.unembed_apply(params["embed"], x), aux / max(cfg.n_layers, 1)
+
+    def apply(params, batch: Dict[str, Any]) -> torch.Tensor:
+        return apply_aux(params, batch)[0]
 
     def init_cache(n_phys_blocks: int, block_size: int, *, quantized: bool = False,
                    dtype=None, device=None):
@@ -172,4 +211,4 @@ def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
         return embedding.unembed_apply(params["embed"], x), cache
 
     return ModelAPI(init=init, init_cache=init_cache, decode_paged=decode_paged,
-                    prefill_chunk=prefill_chunk)
+                    prefill_chunk=prefill_chunk, apply=apply, apply_aux=apply_aux)

@@ -1,7 +1,9 @@
-"""Grouped-query attention over a paged KV block pool (port of the paged
-serve subset of ``repro/nn/attention.py``): ``AttnConfig``,
-``dot_attention`` (the gather route), int8 KV quantization,
+"""Grouped-query attention (port of ``repro/nn/attention.py``): the
+full-sequence training forward ``attn_apply`` over ``dot_attention`` /
+``blockwise_attention``, and the paged serve path: int8 KV quantization,
 ``paged_gather``, ``attn_decode_step_paged`` and ``attn_prefill_chunk``.
+The score math is plain PyTorch (einsum and softmax), as the reference
+leaves it to XLA.
 
 Projections route through the switchable linear layer, so attention runs in
 dense and bika mode alike; score math and softmax stay float32.
@@ -15,6 +17,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kernel_ops
 from .linear import LinearSpec, linear_apply, linear_init
@@ -22,7 +25,9 @@ from .rotary import apply_rope
 
 __all__ = [
     "AttnConfig",
+    "attn_apply",
     "attn_init",
+    "blockwise_attention",
     "attn_decode_step_paged",
     "attn_prefill_chunk",
     "dot_attention",
@@ -42,6 +47,7 @@ class AttnConfig:
     window: Optional[int] = None
     qkv_bias: bool = False
     causal: bool = True
+    block_q: int = 256  # blockwise attention query tile (training)
     # "fused": the block-table kernel (default); "gather": paged_gather +
     # dot_attention, the bit-parity oracle
     paged_route: str = "fused"
@@ -70,6 +76,7 @@ def dot_attention(
     q_positions: torch.Tensor,
     kv_positions: torch.Tensor,
     causal: bool = True,
+    window: Optional[int] = None,
     kv_valid_len: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Unblocked GQA attention. q: (B,Sq,Hq,D); k,v: (B,Skv,Hkv,D);
@@ -85,6 +92,8 @@ def dot_attention(
     mask = kp[:, None, :] >= 0
     if causal:
         mask = mask & (kp[:, None, :] <= qp[:, :, None])
+    if window is not None:
+        mask = mask & (kp[:, None, :] > qp[:, :, None] - window)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=q.device)
     scores = torch.where(mask[:, None, None], scores, neg)
     if kv_valid_len is not None:
@@ -93,6 +102,43 @@ def dot_attention(
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgst,bthd->bshgd", p, v.to(p.dtype))
     return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        block_q: int = 256) -> torch.Tensor:
+    """Self-attention over aligned positions 0..S-1 with bounded memory:
+    query tiles of ``block_q`` rows, each recomputed in the backward
+    (``torch.utils.checkpoint``) instead of keeping its score tile."""
+    b, s, hq, d = q.shape
+    pos = torch.arange(s, dtype=torch.int32, device=q.device)
+    if s <= block_q:
+        return dot_attention(q, k, v, q_positions=pos, kv_positions=pos, causal=causal,
+                             window=window)
+    if s % block_q:
+        raise ValueError(f"sequence {s} is not a multiple of block_q {block_q}")
+
+    def tile(qblk, qpos):
+        return dot_attention(qblk, k, v, q_positions=qpos, kv_positions=pos, causal=causal,
+                             window=window)
+
+    outs = [torch.utils.checkpoint.checkpoint(tile, q[:, i:i + block_q], pos[i:i + block_q],
+                                              use_reentrant=False)
+            for i in range(0, s, block_q)]
+    return torch.cat(outs, dim=1)
+
+
+def attn_apply(params, x: torch.Tensor, cfg: AttnConfig, spec: LinearSpec, *,
+               phase: str = "train") -> torch.Tensor:
+    """Full-sequence (training) causal self-attention. x: (B, S, D)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, spec, phase)
+    pos = torch.arange(s, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    out = blockwise_attention(q, k, v, causal=cfg.causal, window=cfg.window,
+                              block_q=cfg.block_q)
+    return linear_apply(params["wo"], out.reshape(b, s, -1), spec, phase=phase)
 
 
 def _quantize_kv(x: torch.Tensor):

@@ -22,11 +22,14 @@ def linear_init(gen: torch.Generator, k: int, n: int, spec: LinearSpec, *,
 
 def linear_apply(params, x: torch.Tensor, spec: LinearSpec, *,
                  phase: str = "serve") -> torch.Tensor:
-    """x: (..., K) -> (..., N). The port runs the serve phase only."""
-    if phase != "serve":
-        raise NotImplementedError("training forwards wait for the training slice")
+    """x: (..., K) -> (..., N) in ``phase`` form ("serve" or "train")."""
     be = _backend.get_backend(spec.mode)
-    return be.apply_serve(params, x.to(spec.cdtype), spec)
+    x = x.to(spec.cdtype)
+    if phase == "serve":
+        return be.apply_serve(params, x, spec)
+    if phase == "train":
+        return be.apply_train(params, x, spec)
+    raise ValueError(f"unknown phase {phase!r}")
 
 
 def linear_to_serve(params, spec: LinearSpec):

@@ -2,7 +2,13 @@
 card-only tests can import them on a machine without JAX)."""
 import numpy as np
 
-__all__ = ["PAGED_CASES", "cac_case", "paged_case"]
+__all__ = ["PAGED_CASES", "TRAIN_KERNEL_SHAPES", "cac_case", "cac_train_case", "paged_case",
+           "window_clear"]
+
+# the training path's (K, N) projections at M = batch 4 x seq 128, and two
+# ragged shapes that cut every tile edge
+TRAIN_KERNEL_SHAPES = [(512, 960, 960), (512, 960, 320), (512, 960, 2560),
+                       (512, 2560, 960), (37, 100, 130), (129, 968, 65)]
 
 
 def cac_case(rng, m, k, n):
@@ -10,6 +16,32 @@ def cac_case(rng, m, k, n):
     tau = rng.integers(-128, 128, size=(k, n)).astype(np.int8)
     s = np.where(rng.random((k, n)) < 0.5, 1, -1).astype(np.int8)
     return x, tau, s
+
+
+def cac_train_case(rng, m, k, n, scale=0.5):
+    """Training CAC operands as the reference's kernel tests draw them:
+    x, g ~ N(0, 1) and w, beta ~ N(0, scale^2), float32."""
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * scale).astype(np.float32)
+    beta = (rng.normal(size=(k, n)) * scale).astype(np.float32)
+    g = rng.normal(size=(m, n)).astype(np.float32)
+    return x, w, beta, g
+
+
+def window_clear(x, w, beta, eps=1e-4, rows=8):
+    """Torch tensors x (M, K), w and beta (K, N) -> (dx_keep (M, K), dw_keep
+    (K, N)): the gradient elements whose reduction touches no pre-activation
+    within ``eps`` of the STE window edge |pre| = 1 (where a reassociated
+    product may fall on either side), computed a few rows at a time."""
+    import torch
+
+    dx_keep = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    dw_keep = torch.ones(w.shape, dtype=torch.bool, device=x.device)
+    for a in range(0, x.shape[0], rows):
+        near = ((x[a:a + rows, :, None] * w[None] + beta[None]).abs() - 1.0).abs() <= eps
+        dx_keep[a:a + rows] = ~near.any(dim=2)
+        dw_keep &= ~near.any(dim=0)
+    return dx_keep, dw_keep
 
 
 def paged_case(rng, b, c, hq, hkv, d, bs, t, quantized):

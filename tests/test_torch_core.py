@@ -176,6 +176,11 @@ def test_port_imports_neither_jax_nor_reference():
     bad = []
     files = _port_files()
     assert len(files) > 20
+    rel = {os.path.relpath(f, os.path.join(ROOT, "src", "repro_torch")) for f in files}
+    for module in ("core/ste.py", "kernels/cac_matmul.py", "kernels/ops.py", "train/steps.py",
+                   "train/trainer.py", "train/loss.py", "optim/adamw.py", "optim/schedule.py",
+                   "data/lm.py", "launch/train.py"):
+        assert module in rel, module
     for path in files:
         with open(path, encoding="utf-8") as fh:
             tree = ast.parse(fh.read(), filename=path)

@@ -7,13 +7,18 @@ machine without the reference installed:
 
 Without a GPU every test here skips. CAC is held bit-exact; paged attention
 at 2e-5, the bound the reference holds its fused kernel to against the
-gather oracle."""
+gather oracle. The training CAC forward is bit-exact (the kernel rounds the
+product and then the sum, as plain PyTorch does); its STE backward within
+atol/rtol 1e-4 off the |pre| = 1 window edge, split and fused alike (the
+kernels sum in another order, with float atomics)."""
 import numpy as np
 import pytest
 import torch
-from _torch_cases import PAGED_CASES, cac_case, paged_case
+from _torch_cases import (PAGED_CASES, TRAIN_KERNEL_SHAPES, cac_case, cac_train_case,
+                          paged_case, window_clear)
 
 from repro_torch.core.backend import pack_signs
+from repro_torch.kernels import cac_matmul as cac
 from repro_torch.kernels import ref
 from repro_torch.kernels.cac_matmul import cac_matmul_kernel_call, cac_matmul_plain
 from repro_torch.kernels.paged_attn import paged_attn_kernel_call
@@ -50,3 +55,27 @@ def test_paged_attention_kernel_on_card(cuda, b, c, hq, hkv, d, bs, t, quantized
     got = paged_attn_kernel_call(*dev[:5], k_scale=dev[5], v_scale=dev[6])
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", TRAIN_KERNEL_SHAPES)
+def test_cac_train_kernels_on_card(cuda, m, k, n):
+    rng = np.random.default_rng(m * 3 + k + n)
+    x, w, beta, g = (torch.from_numpy(a).to(cuda) for a in cac_train_case(rng, m, k, n))
+    counts = [f.launches for f in (cac.cac_train_fwd_call, cac.cac_train_bwd_fused_call,
+                                   cac.cac_train_bwd_dx_call, cac.cac_train_bwd_dw_call)]
+    y = cac.cac_train_fwd_call(x, w, beta)
+    fused = cac.cac_train_bwd_fused_call(x, w, beta, g)
+    split = (cac.cac_train_bwd_dx_call(x, w, beta, g),) + cac.cac_train_bwd_dw_call(x, w, beta, g)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (cac.cac_train_fwd_call, cac.cac_train_bwd_fused_call,
+                                 cac.cac_train_bwd_dx_call, cac.cac_train_bwd_dw_call)] == [
+        c + 1 for c in counts]
+    assert torch.equal(y, cac.cac_train_fwd_plain(x, w, beta))
+    plain = cac.cac_train_bwd_fused_plain(x, w, beta, g)
+    dx_keep, dw_keep = window_clear(x, w, beta)
+    for name, a, b, c, keep in zip(("dx", "dw", "dbeta"), fused, split, plain,
+                                   (dx_keep, dw_keep, dw_keep)):
+        for got in (a, b):
+            torch.testing.assert_close(torch.where(keep, got, 0), torch.where(keep, c, 0),
+                                       atol=1e-4, rtol=1e-4, msg=name)

@@ -1,0 +1,431 @@
+"""PyTorch port vs the JAX reference: the training slice on the CPU (plain
+versions of the kernels).
+
+The same numpy inputs go through both packages. The reference reaches its
+Pallas kernels as its own tests run them (interpret mode). Tolerances:
+
+- the training CAC forward is bit-exact on every output whose K reduction
+  holds no pre-activation within 1e-6 of 0, where a fused multiply-add on
+  one side and a rounded product on the other may take opposite signs
+  (the reference's convention, ``tests/test_kernels.py:_sign_nonboundary_out_mask``);
+- the STE backward agrees within atol/rtol 1e-4 off the ``|pre| = 1``
+  boundary (``tests/test_kernel_stack.py``'s convention);
+- losses and metrics within 1e-6 relative, and the whole SMOKE train step's
+  gradients within 1e-4 relative plus 1e-5 of each leaf's largest entry
+  (the parameters after its AdamW update within 1e-5 relative plus
+  1e-2 * lr, except where |g| is near AdamW's eps: see the test):
+  the two packages compute the float parts (RMSNorm, RoPE, softmax, the
+  head) with other kernels and summation orders, which leaves ~1e-7 relative.
+  At this seed no pre-activation lands within those ulps of a Sign or STE
+  boundary; one that did would move a whole ±1 term and fail the check.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_cases import cac_train_case
+
+from repro.configs import get_smoke as jax_get_smoke
+from repro.core import bika as jbika
+from repro.core import ste as jste
+from repro.data.lm import LMDataConfig as JaxLMDataConfig
+from repro.data.lm import lm_batch as jax_lm_batch
+from repro.kernels import ops as jops
+from repro.models import build_model as jax_build_model
+from repro.nn.module import unbox
+from repro.optim.adamw import OptimizerSpec as JaxOptimizerSpec
+from repro.optim.adamw import make_optimizer as jax_make_optimizer
+from repro.optim import schedule as jschedule
+from repro.train import steps as jsteps
+from repro.train.loss import softmax_xent as jax_softmax_xent
+from repro_torch.core import backend as tbackend
+from repro_torch.core import bika as tbika
+from repro_torch.core import ste as tste
+from repro_torch.core.convert import from_reference
+from repro_torch.data.lm import LMDataConfig, lm_batch
+from repro_torch.kernels import cac_matmul as tcac
+from repro_torch.kernels import ops
+from repro_torch.launch import train as launch_train
+from repro_torch.models import build_model
+from repro_torch.models.base import ArchConfig
+from repro_torch.optim.adamw import OptimizerSpec, make_optimizer, tree_leaves
+from repro_torch.optim.schedule import cosine_warmup
+from repro_torch.train.loss import softmax_xent
+from repro_torch.train.steps import loss_and_grads, make_train_step
+from repro_torch.train.trainer import TrainConfig, Trainer
+
+TRAIN_SHAPES = [(8, 16, 8), (33, 100, 17), (64, 96, 40), (5, 7, 130)]
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))  # a writable, contiguous copy
+
+
+def _pre(x, w, beta):
+    return x[:, :, None] * w[None] + beta[None]
+
+
+def _sign_clear_rows(x, w, beta, eps=1e-6):
+    """(M, N) outputs whose K reduction holds no |pre| <= eps."""
+    return (np.abs(_pre(x, w, beta)) > eps).all(axis=1)
+
+
+def _window_clear(x, w, beta, eps=1e-4):
+    """(M, K, N): elements not within eps of the |pre| = 1 window edge."""
+    return np.abs(np.abs(_pre(x, w, beta)) - 1.0) > eps
+
+
+@pytest.mark.parametrize("m,k,n", TRAIN_SHAPES)
+def test_cac_train_fwd_plain_matches_reference_kernel(m, k, n):
+    x, w, beta, _ = cac_train_case(np.random.default_rng(m * 31 + n), m, k, n)
+    got = tcac.cac_train_fwd_plain(_t(x), _t(w), _t(beta)).numpy()
+    want = np.asarray(jops.cac_train_matmul(jnp.asarray(x), jnp.asarray(w), jnp.asarray(beta),
+                                            interpret=True))
+    clear = _sign_clear_rows(x, w, beta)
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(np.where(clear, got, 0), np.where(clear, want, 0))
+    # the port's reference oracle is the same function
+    np.testing.assert_array_equal(
+        got, tcac.ref.cac_train_fwd_ref(_t(x), _t(w), _t(beta)).numpy())
+    assert np.all(got == np.round(got)) and np.all(np.abs(got) <= k)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("m,k,n", TRAIN_SHAPES)
+def test_cac_train_matmul_vjp_matches_reference(m, k, n, fused):
+    """ops.cac_train_matmul's backward (CPU: the fused plain version, or the
+    split dx + dw pair) against jax.vjp of the reference's op."""
+    x, w, beta, g = cac_train_case(np.random.default_rng(m + 7 * k + n), m, k, n)
+    _, pull = jax.vjp(lambda *a: jops.cac_train_matmul(*a, interpret=True, fused_bwd=fused),
+                      jnp.asarray(x), jnp.asarray(w), jnp.asarray(beta))
+    want = [np.asarray(a) for a in pull(jnp.asarray(g))]
+    tx, tw, tb = (_t(a).requires_grad_(True) for a in (x, w, beta))
+    before = ops.launch_counts()
+    y = ops.cac_train_matmul(tx, tw, tb, fused_bwd=fused)
+    y.backward(_t(g))
+    assert ops.launch_counts() == before  # the CPU takes the plain versions
+    clear = _window_clear(x, w, beta)
+    masks = (clear.all(axis=2), clear.all(axis=0), clear.all(axis=0))
+    for name, got, ref, keep in zip(("dx", "dw", "dbeta"), (tx.grad, tw.grad, tb.grad),
+                                    want, masks):
+        np.testing.assert_allclose(np.where(keep, got.numpy(), 0), np.where(keep, ref, 0),
+                                   atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+def test_fused_and_split_plain_backward_agree():
+    x, w, beta, g = (_t(a) for a in cac_train_case(np.random.default_rng(3), 20, 48, 36))
+    dx, dw, db = tcac.cac_train_bwd_fused_plain(x, w, beta, g)
+    np.testing.assert_allclose(dx, tcac.cac_train_bwd_dx_plain(x, w, beta, g),
+                               atol=1e-5, rtol=1e-5)
+    dw2, db2 = tcac.cac_train_bwd_dw_plain(x, w, beta, g)
+    np.testing.assert_allclose(dw, dw2, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(db, db2, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError):  # the kernels need CUDA tensors
+        tcac.cac_train_fwd_call(x, w, beta)
+    with pytest.raises(ValueError):
+        tcac.cac_train_bwd_fused_call(x, w, beta, g)
+    with pytest.raises(TypeError):
+        tcac.cac_train_fwd_plain(x.double(), w, beta)
+
+
+def test_plain_versions_chunk_over_m(monkeypatch):
+    """Slicing M into few-row chunks changes nothing but the dw/dbeta sum order."""
+    x, w, beta, g = (_t(a) for a in cac_train_case(np.random.default_rng(4), 37, 24, 18))
+    whole_y = tcac.cac_train_fwd_plain(x, w, beta)
+    whole = tcac.cac_train_bwd_fused_plain(x, w, beta, g)
+    monkeypatch.setattr(tcac, "_TRAIN_CHUNK_ELEMS", 24 * 18 * 5)  # 5 rows a slice
+    np.testing.assert_array_equal(tcac.cac_train_fwd_plain(x, w, beta), whole_y)
+    for a, b in zip(tcac.cac_train_bwd_fused_plain(x, w, beta, g), whole):
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["sign_ste", "round_ste", "clip_ste"])
+def test_ste_functions_match_reference(name):
+    """Forward values and gradients, with points on every boundary: Sign(0)
+    = +1, the inclusive |x| <= 1 window, round-half-to-even, clip edges."""
+    edges = np.float32([0.0, -0.0, 1.0, -1.0, 0.5, -0.5, 1.5, 2.5, -2.5, 0.3, -0.3])
+    nudged = np.nextafter(np.float32([1.0, -1.0]), np.float32([2.0, -2.0]))
+    x = np.concatenate([edges, nudged, np.random.default_rng(0).normal(size=20)
+                        .astype(np.float32) * 2])
+    g = np.random.default_rng(1).normal(size=x.shape).astype(np.float32)
+    args = (-0.5, 1.5) if name == "clip_ste" else ()
+    y, pull = jax.vjp(lambda a: getattr(jste, name)(a, *args), jnp.asarray(x))
+    (dx,) = pull(jnp.asarray(g))
+    tx = _t(x).requires_grad_(True)
+    ty = getattr(tste, name)(tx, *args)
+    ty.backward(_t(g))
+    np.testing.assert_array_equal(ty.detach().numpy(), np.asarray(y))
+    np.testing.assert_array_equal(tx.grad.numpy(), np.asarray(dx))
+
+
+@pytest.mark.parametrize("chunk", [None, 16, 24])
+def test_bika_matmul_forms_match_reference(chunk):
+    """core/bika.py training forms (fused, K-chunked with the padding
+    constant, custom-VJP) against the reference's, values and gradients."""
+    x, w, beta, g = cac_train_case(np.random.default_rng(9), 12, 40, 10)
+    x = x.reshape(3, 4, 40)
+    g = g.reshape(3, 4, 10)
+    jfn = lambda *a: jbika.bika_matmul(*a, chunk=chunk)
+    y, pull = jax.vjp(jfn, jnp.asarray(x), jnp.asarray(w), jnp.asarray(beta))
+    want = [np.asarray(a) for a in pull(jnp.asarray(g))]
+    x2 = x.reshape(12, 40)
+    clear_y = _sign_clear_rows(x2, w, beta).reshape(3, 4, 10)
+    clear = _window_clear(x2, w, beta)
+    masks = (clear.all(axis=2).reshape(3, 4, 40), clear.all(axis=0), clear.all(axis=0))
+    for fn in (lambda *a: tbika.bika_matmul(*a, chunk=chunk), tbika.bika_matmul_cvjp):
+        tx, tw, tb = (_t(a).requires_grad_(True) for a in (x, w, beta))
+        ty = fn(tx, tw, tb)
+        ty.backward(_t(g))
+        np.testing.assert_array_equal(np.where(clear_y, ty.detach().numpy(), 0),
+                                      np.where(clear_y, np.asarray(y), 0))
+        for got, ref, keep in zip((tx.grad, tw.grad, tb.grad), want, masks):
+            np.testing.assert_allclose(np.where(keep, got.numpy(), 0), np.where(keep, ref, 0),
+                                       atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("m,impl", [(1, "cvjp"), (2, "fused"), (2, "pallas")])
+def test_bika_apply_train_matches_reference(m, impl):
+    """BikaBackend.apply_train (always the cac_train route) against the
+    reference's on every impl: the fold for m > 1, out_scale and gamma."""
+    rng = np.random.default_rng(m)
+    k, n = 24, 9
+    w = rng.uniform(-0.3, 0.3, size=(m, k, n)).astype(np.float32)
+    beta = rng.uniform(-0.3, 0.3, size=(m, k, n)).astype(np.float32)
+    gamma = rng.uniform(0.5, 1.5, size=(n,)).astype(np.float32)
+    x = rng.normal(size=(2, 3, k)).astype(np.float32)
+    g = rng.normal(size=(2, 3, n)).astype(np.float32)
+    from repro.core import backend as jbackend
+
+    jspec = jbackend.LinearSpec(mode="bika", m=m, impl=impl)
+    jbe = jbackend.get_backend("bika")
+    jp = {"w": jnp.asarray(w), "beta": jnp.asarray(beta), "gamma": jnp.asarray(gamma)}
+    y, pull = jax.vjp(lambda p, a: jbe.apply_train(p, a, jspec), jp, jnp.asarray(x))
+    jgp, jgx = pull(jnp.asarray(g))
+    tspec = tbackend.LinearSpec(mode="bika", m=m, impl=impl)
+    tbe = tbackend.get_backend("bika")
+    assert tbe.kernel_route(tspec) == "cac_train"
+    assert tbe.kernel_route(tspec, "serve") == "cac_hw"
+    assert tbackend.get_backend("dense").kernel_route(tspec) is None
+    tp = {k2: _t(v).requires_grad_(True) for k2, v in
+          (("w", w), ("beta", beta), ("gamma", gamma))}
+    tx = _t(x).requires_grad_(True)
+    ty = tbe.apply_train(tp, tx, tspec)
+    ty.backward(_t(g))
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(y), atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), atol=1e-5, rtol=1e-5)
+    for name in ("w", "beta", "gamma"):
+        np.testing.assert_allclose(tp[name].grad.numpy(), np.asarray(jgp[name]),
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+def test_softmax_xent_matches_reference():
+    rng = np.random.default_rng(2)
+    logits = (rng.normal(size=(3, 5, 40)) * 3).astype(np.float32)
+    labels = rng.integers(0, 40, size=(3, 5)).astype(np.int32)
+    mask = (rng.random((3, 5)) < 0.7).astype(np.float32)
+    for m, z in ((None, 0.0), (mask, 1e-4)):
+        loss, met = softmax_xent(_t(logits), _t(labels), None if m is None else _t(m), z_loss=z)
+        jl, jm = jax_softmax_xent(jnp.asarray(logits), jnp.asarray(labels),
+                                  None if m is None else jnp.asarray(m), z_loss=z)
+        np.testing.assert_allclose(float(loss), float(jl), rtol=1e-6)
+        for key in ("accuracy", "tokens"):
+            np.testing.assert_allclose(float(met[key]), float(jm[key]), rtol=1e-6)
+
+
+def test_adamw_sgd_and_schedule_match_reference():
+    rng = np.random.default_rng(5)
+    tree = {"a": rng.normal(size=(4, 3)).astype(np.float32),
+            "b": {"c": rng.normal(size=(5,)).astype(np.float32)}}
+    grads = [{"a": (rng.normal(size=(4, 3)) * s).astype(np.float32),
+              "b": {"c": (rng.normal(size=(5,)) * s).astype(np.float32)}} for s in (3.0, 0.01)]
+    for name in ("adamw", "sgd"):
+        jspec = JaxOptimizerSpec(name=name, peak_lr=1e-2, warmup=1, total_steps=10)
+        tspec = OptimizerSpec(name=name, peak_lr=1e-2, warmup=1, total_steps=10)
+        jinit, jupd = jax_make_optimizer(jspec)
+        tinit, tupd = make_optimizer(tspec)
+        jp = jax.tree_util.tree_map(jnp.asarray, tree)
+        tp = from_reference(tree)
+        js, ts = jinit(jp), tinit(tp)
+        for gr in grads:  # the first one is clipped (norm > 1), the second not
+            jp, js, jst = jupd(jax.tree_util.tree_map(jnp.asarray, gr), js, jp)
+            tp, ts, tst = tupd(from_reference(gr), ts, tp)
+            np.testing.assert_allclose(float(tst["grad_norm"]), float(jst["grad_norm"]),
+                                       rtol=1e-6)
+            np.testing.assert_allclose(tst["lr"], float(jst["lr"]), rtol=1e-6)
+            np.testing.assert_allclose(tp["a"].numpy(), np.asarray(jp["a"]), atol=1e-7, rtol=1e-6)
+            np.testing.assert_allclose(tp["b"]["c"].numpy(), np.asarray(jp["b"]["c"]),
+                                       atol=1e-7, rtol=1e-6)
+        assert ts["step"] == int(js["step"]) == 2
+    fn, jfn = cosine_warmup(3e-4, 10, 100), jschedule.cosine_warmup(3e-4, 10, 100)
+    for step in (0, 1, 5, 10, 11, 50, 99, 100, 150):
+        np.testing.assert_allclose(fn(step), float(jfn(step)), rtol=1e-6, atol=1e-12)
+
+
+def _port_cfg(jcfg) -> ArchConfig:
+    return ArchConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(ArchConfig)})
+
+
+def _assert_tree_close(got, want, path, rtol):
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for key in want:
+            _assert_tree_close(got[key], want[key], f"{path}/{key}", rtol)
+        return
+    g, w = got.detach().numpy(), np.asarray(want)
+    assert g.shape == w.shape, (path, g.shape, w.shape)
+    np.testing.assert_allclose(g, w, rtol=rtol, atol=1e-5 * float(np.abs(w).max()),
+                               err_msg=path)
+
+
+@pytest.mark.parametrize("mode", ["bika", "dense"])
+def test_train_step_matches_reference_at_smoke(mode):
+    """One whole train step at SMOKE (2 layers, remat on): the
+    reference's train-form params from its own init, unboxed and brought over
+    with ``from_reference``, one batch from its data pipeline, both packages'
+    ``make_train_step`` with AdamW. In bika mode the reference takes its
+    Pallas route (kernels 2 and 5 in interpret mode). Loss and metrics,
+    every gradient leaf and every parameter after the update are compared."""
+    jcfg = jax_get_smoke("smollm-360m", compute_mode=mode, bika_impl="pallas")
+    japi = jax_build_model(jcfg, phase="train")
+    np_params = jax.tree_util.tree_map(np.asarray, unbox(japi.init(jax.random.PRNGKey(7))))
+    batch = jax.tree_util.tree_map(
+        np.asarray, jax_lm_batch(JaxLMDataConfig(vocab=jcfg.vocab, seq_len=16,
+                                                 global_batch=2, seed=3), 0))
+    jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
+    tbatch = {k: _t(v) for k, v in batch.items()}
+
+    def jloss(p):
+        logits, aux = japi.apply_aux(p, jbatch)
+        loss, _ = jax_softmax_xent(logits, jbatch["labels"], jbatch["mask"], z_loss=1e-4)
+        return loss + 0.01 * aux
+
+    jgrads = jax.grad(jloss)(jax.tree_util.tree_map(jnp.asarray, np_params))
+    spec = dict(peak_lr=1e-3, warmup=0, total_steps=10)
+    jinit, jupd = jax_make_optimizer(JaxOptimizerSpec(**spec))
+    jp = jax.tree_util.tree_map(jnp.asarray, np_params)
+    jstep = jsteps.make_train_step(japi, jupd)
+    jp, jopt, jmet = jstep(jp, jinit(jp), jbatch)
+
+    api = build_model(_port_cfg(jcfg), phase="train")
+    tp = from_reference(np_params)
+    met, tgrads = loss_and_grads(api, tp, tbatch)
+    _assert_tree_close(tgrads, jgrads, "grad", rtol=1e-4)
+    tinit, tupd = make_optimizer(OptimizerSpec(**spec))
+    before = ops.launch_counts()
+    tp, topt, tmet = make_train_step(api, tupd)(tp, tinit(tp), tbatch)
+    assert ops.launch_counts() == before  # CPU: plain versions, no launch
+    for key in ("loss", "accuracy", "tokens", "aux_loss", "grad_norm", "skipped"):
+        np.testing.assert_allclose(float(tmet[key]), float(jmet[key]), rtol=1e-6, atol=1e-7,
+                                   err_msg=key)
+    np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]), rtol=1e-6)
+    # AdamW's first step moves each element by lr * g / (|g| + eps). Where
+    # |g| >= 100 eps that move is lr * sign(g) to within 1e-2 of the
+    # gradients' ~1e-7 relative difference, so those parameters are held to
+    # 1e-5 relative plus 1e-2 * lr. Where |g| is near eps (1e-8) the same
+    # difference shifts the move by a visible fraction of lr; those
+    # elements are held only to the step's reach, 2 * lr: 187 of 246,240
+    # in dense mode and 154,594 of 444,576 in bika mode, whose q/k/v/gate/up
+    # gradients are ~1e-5 at most (their values are held above).
+    # (A gradient that is exactly 0, as for the embedding rows no token
+    # reads, moves nothing but the decay: held tightly too.)
+    lr = spec["peak_lr"]
+    for got, want, grad in zip(tree_leaves(tp), tree_leaves(jax.tree_util.tree_map(
+            np.asarray, jp)), tree_leaves(jax.tree_util.tree_map(np.asarray, jgrads))):
+        steady = (np.abs(grad) >= 100 * 1e-8) | (grad == 0)
+        g = got.numpy()
+        np.testing.assert_allclose(g[steady], want[steady], rtol=1e-5, atol=1e-2 * lr)
+        assert np.all(np.abs(g - want) <= 2 * lr)
+    assert topt["step"] == int(jopt["step"]) == 1
+
+
+def test_remat_microbatches_and_skip():
+    """Port-side invariants at SMOKE: remat changes no value; two
+    microbatches give the mean gradient; a non-finite loss skips the update
+    but advances the step."""
+    cfg = _port_cfg(jax_get_smoke("smollm-360m", compute_mode="bika"))
+    params = build_model(cfg, phase="train").init(5, device="cpu")
+    batch = lm_batch(LMDataConfig(vocab=cfg.vocab, seq_len=8, global_batch=4, seed=1), 2)
+    runs = {}
+    for remat in (True, False):
+        runs[remat] = loss_and_grads(build_model(cfg.replace(remat=remat), phase="train"),
+                                     params, batch)
+    assert float(runs[True][0]["loss"]) == float(runs[False][0]["loss"])
+    for a, b in zip(tree_leaves(runs[True][1]), tree_leaves(runs[False][1])):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    api = build_model(cfg, phase="train")
+    halves = [loss_and_grads(api, params, {k: v[i:i + 2] for k, v in batch.items()})[1]
+              for i in (0, 2)]
+    seen = {}
+
+    def capture(grads, state, p):
+        seen["g"] = grads
+        state["step"] += 1
+        return p, state, {"lr": 0.0, "grad_norm": torch.zeros(())}
+
+    make_train_step(api, capture, microbatches=2)(params, {"step": 0}, batch)
+    for got, a, b in zip(tree_leaves(seen["g"]), tree_leaves(halves[0]),
+                         tree_leaves(halves[1])):
+        np.testing.assert_allclose(got.numpy(), ((a + b) * 0.5).numpy(), atol=1e-7, rtol=1e-6)
+    init, upd = make_optimizer(OptimizerSpec())
+    bad = dict(params, embed={"table": params["embed"]["table"].clone()})
+    bad["embed"]["table"][0, 0] = float("nan")
+    nan_batch = dict(batch, tokens=torch.zeros_like(batch["tokens"]))  # reads the NaN row
+    snapshot = bad["ln_f"]["scale"].clone()
+    state = init(bad)
+    _, state, met = make_train_step(api, upd)(bad, state, nan_batch)
+    assert float(met["skipped"]) == 1.0 and state["step"] == 1
+    np.testing.assert_array_equal(bad["ln_f"]["scale"].numpy(), snapshot.numpy())
+
+
+def test_lm_batch_shapes_and_shift():
+    cfg = LMDataConfig(vocab=300, seq_len=12, global_batch=6, seed=4)
+    b = lm_batch(cfg, 3)
+    assert set(b) == {"tokens", "labels", "mask"}
+    assert b["tokens"].shape == b["labels"].shape == b["mask"].shape == (6, 12)
+    assert b["tokens"].dtype == b["labels"].dtype == torch.int32
+    assert b["mask"].dtype == torch.float32 and bool((b["mask"] == 1).all())
+    np.testing.assert_array_equal(b["labels"][:, :-1].numpy(), b["tokens"][:, 1:].numpy())
+    assert int(b["tokens"].min()) >= 0 and int(b["tokens"].max()) < 300
+    again = lm_batch(cfg, 3)
+    np.testing.assert_array_equal(again["tokens"].numpy(), b["tokens"].numpy())
+    assert not torch.equal(lm_batch(cfg, 4)["tokens"], b["tokens"])
+
+
+def test_trainer_and_launcher_on_cpu(capsys):
+    cfg = _port_cfg(jax_get_smoke("smollm-360m", compute_mode="bika"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(TrainConfig(arch=cfg, steps=1))
+    trainer = Trainer(TrainConfig(arch=cfg, seq_len=8, global_batch=2, steps=2, log_every=1),
+                      device="cpu")
+    _, opt, log = trainer.run()
+    assert [m["step"] for m in log] == [0, 1] and opt["step"] == 2
+    assert all(np.isfinite(m["loss"]) for m in log)
+    assert launch_train.main(["--smoke", "--device", "cpu", "--steps", "2", "--seq-len", "8",
+                              "--batch", "2"]) == 0
+    assert "loss" in capsys.readouterr().out
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_train.main(["--smoke", "--steps", "1", "--seq-len", "8", "--batch", "2"])
+
+
+@pytest.mark.parametrize("s,block_q,window", [(16, 32, None), (16, 8, None), (24, 8, 5)])
+def test_blockwise_attention_matches_reference(s, block_q, window):
+    """Query tiles (recomputed in the backward) and the sliding window,
+    values and gradients, against the reference's blockwise attention."""
+    from repro.nn.attention import blockwise_attention as jax_blockwise
+    from repro_torch.nn.attention import blockwise_attention
+
+    rng = np.random.default_rng(s + block_q)
+    q, k, v = (rng.normal(size=(2, s, h, 8)).astype(np.float32) for h in (4, 2, 2))
+    g = rng.normal(size=(2, s, 4, 8)).astype(np.float32)
+    out, pull = jax.vjp(lambda *a: jax_blockwise(*a, window=window, block_q=block_q),
+                        *(jnp.asarray(a) for a in (q, k, v)))
+    want = pull(jnp.asarray(g))
+    tq, tk, tv = (_t(a).requires_grad_(True) for a in (q, k, v))
+    got = blockwise_attention(tq, tk, tv, window=window, block_q=block_q)
+    got.backward(_t(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), atol=1e-5, rtol=1e-5)
+    for a, b in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=1e-5)
