@@ -38,6 +38,21 @@ Phases (each prints its own line; any failure exits non-zero):
              the two split a Sign at a near-zero pre-activation (see
              phase_train_parity); loss, gradients and updated parameters
              within the stated tolerances.
+8. bnn-kernels — the BNN kernels (6: sign product, 7: its packed serve
+             form, 8/9: the SignSTE dx and dw) against their plain versions
+             at the decode shapes (M = 4), the training shapes (M = 512) and
+             two ragged shapes: forwards bit-exact and 7 equal to 6, backward
+             within atol = rtol = 1e-4 on every element and repeatable; times
+             with plain, library (torch.matmul on +-1 operands) and bound.
+9. bnn-serve — phases 4, profile and 5 again in bnn mode (packed planes:
+             224 kernel-7 and 32 attention launches per tick, 0 elsewhere),
+             plus one unpacked drain (224 kernel-6 launches per tick) whose
+             tokens must equal the packed drain's; the parity holds a Sign
+             only where both sides' input lies within 1e-5 of 0.
+10. bnn-train — phases 6 and 7 again in bnn mode: 3 steps with exactly 448
+             kernel-6, 224 kernel-8 and 224 kernel-9 launches each and 0
+             training-CAC launches; the parity holds Signs within 1e-5 of 0
+             and STE masks within 1e-5 of |x| = 1.
 
 Before the last line come the card's name and power limit as nvidia-smi
 prints them, then the kernels JSON; the last line is
@@ -77,8 +92,20 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3
 TRAIN_SIGN_TIE = 1e-6  # |pre| within this of 0: a Sign the two devices may split
 TRAIN_PARITY_LOSS = 1e-5  # relative loss difference, card vs CPU, codes held
 TRAIN_PARITY_REL = 1e-4  # per-leaf relative L2 difference of gradients and parameters
-_NO_LAUNCHES = {"cac_hw": 0, "cac_train_bwd_dw": 0, "cac_train_bwd_dx": 0,
-                "cac_train_bwd_fused": 0, "cac_train_fwd": 0, "paged_attn": 0}
+_NO_LAUNCHES = {"bnn": 0, "bnn_bwd_dw": 0, "bnn_bwd_dx": 0, "bnn_packed": 0, "cac_hw": 0,
+                "cac_train_bwd_dw": 0, "cac_train_bwd_dx": 0, "cac_train_bwd_fused": 0,
+                "cac_train_fwd": 0, "paged_attn": 0}
+# the BNN kernels: the path's (K, N) projections at decode (M = n_slots) and
+# at training (M = batch 4 x seq 128), and two ragged shapes (K not a
+# multiple of 32, packed too; K not a multiple of 8, unpacked only)
+PATH_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
+BNN_SHAPES = [(N_SLOTS, k, n) for k, n in PATH_KN] + [(512, k, n) for k, n in PATH_KN]
+BNN_RAGGED = [(129, 968, 65), (37, 100, 130)]
+# +-1 products and their integer sums are exact on the tensor cores, so the
+# sign products' operations bound is at the dense bf16 rate (data sheet)
+TENSOR_CORE_OPS_S = 989e12
+BNN_SIGN_TIE = 1e-5  # |x| within this of 0 on both sides: a Sign the devices may split
+BNN_WINDOW_TIE = 1e-5  # |x| within this of 1 on both sides: an STE mask they may split
 
 
 def fail(msg: str) -> None:
@@ -352,6 +379,131 @@ def phase_train_kernels(torch, np, dev, flush):
     return rows
 
 
+def _bnn_operands(np, rng, m, k, n):
+    """x, g ~ N(0, 1), w ~ N(0, 0.25), float32, with about 2% of x and w
+    exact +0.0, 2% exact -0.0 (Sign gives +1 for both) and 1% exact +-1 (on
+    the inclusive STE window's edge)."""
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * 0.5).astype(np.float32)
+    for a in (x, w):
+        u = rng.random(a.shape)
+        a[u < 0.02] = 0.0
+        a[(u >= 0.02) & (u < 0.04)] = -0.0
+        edge = (u >= 0.04) & (u < 0.05)
+        a[edge] = np.where(rng.random(int(edge.sum())) < 0.5, 1.0, -1.0)
+    return x, w, rng.normal(size=(m, n)).astype(np.float32)
+
+
+def _bound(nbytes, ops, rate):
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_bnn_kernels(torch, np, dev, flush):
+    """Kernels 6-9 against their plain versions on the card, at the serve
+    path's decode shapes (M = n_slots: kernel 6 on int8 +-1 weights, kernel
+    7 on packed planes), the training path's shapes (M = 512: kernel 6 on
+    float32 weights, kernels 8 and 9) and two ragged shapes (all that apply).
+    Forwards bit-exact, kernel 7 equal to kernel 6 on the same signs;
+    backward within atol = rtol = TRAIN_TOL of the plain versions (summed in
+    float64) on every element, and bit-for-bit repeatable. Bounds: bytes =
+    each operand read once and the output written once; operations 2 M K N,
+    for the sign products at the tensor cores' bf16 rate (exact for +-1; the
+    CUDA-core figure is recorded beside it), for the backward at the float32
+    CUDA-core rate. Library call: one torch.matmul on precomputed float32
+    +-1 operands (sx @ sw for 6 and 7, g @ sw.T for 8, sx.T @ g for 9)."""
+    from repro_torch.core.backend import pack_signs
+    from repro_torch.core.ste import sign
+    from repro_torch.kernels import bnn_matmul as bnn
+
+    rng = np.random.default_rng(SEED + 7)
+    rows = []
+    for m, k, n in BNN_SHAPES + BNN_RAGGED:
+        x, w, g = (torch.from_numpy(a).to(dev) for a in _bnn_operands(np, rng, m, k, n))
+        wb = sign(w).to(torch.int8)
+        wp = pack_signs(wb) if k % 8 == 0 else None
+        want = bnn.bnn_matmul_plain(x, w)
+        got = {"f32": bnn.bnn_matmul_kernel_call(x, w), "int8": bnn.bnn_matmul_kernel_call(x, wb)}
+        if wp is not None:
+            got["packed"] = bnn.bnn_packed_matmul_kernel_call(x, wp)
+        torch.cuda.synchronize()
+        for name, y in got.items():
+            if not torch.equal(y, want):
+                fail(f"bnn forward ({name} weights) M={m} K={k} N={n}: max |kernel - plain| = "
+                     f"{float((y - want).abs().max())} (must be 0)")
+        if wp is not None and not (torch.equal(got["packed"], got["int8"]) and torch.equal(
+                bnn.bnn_packed_matmul_plain(x, wp), want)):
+            fail(f"bnn packed forward M={m} K={k} N={n}: kernel 7 != kernel 6")
+        row = {"M": m, "K": k, "N": n, "fwd_max_abs_err": 0.0}
+        train = m > N_SLOTS
+        if train:
+            dx, dw = bnn.bnn_bwd_dx_call(x, w, g), bnn.bnn_bwd_dw_call(x, w, g)
+            again = (bnn.bnn_bwd_dx_call(x, w, g), bnn.bnn_bwd_dw_call(x, w, g))
+            torch.cuda.synchronize()
+            if not (torch.equal(dx, again[0]) and torch.equal(dw, again[1])):
+                fail(f"bnn backward M={m} K={k} N={n}: a second launch gave other values")
+            keep = torch.ones((), dtype=torch.bool, device=dev)  # every element is held
+            for name, kern, plain in (("dx", dx, bnn.bnn_bwd_dx_plain(x, w, g)),
+                                      ("dw", dw, bnn.bnn_bwd_dw_plain(x, w, g))):
+                err, ok = _close_err(torch, kern, plain, keep)
+                row[f"{name}_max_abs_err"] = err
+                if not ok:
+                    fail(f"bnn backward {name} M={m} K={k} N={n}: beyond atol = rtol = "
+                         f"{TRAIN_TOL} (max |diff| {err:.3e})")
+            row["on_window_edge"] = {"x": int((x.abs() == 1).sum()), "w": int((w.abs() == 1).sum())}
+        if (m, k, n) in BNN_SHAPES:
+            xs, ws = sign(x), sign(w)
+            ops = 2.0 * m * k * n
+            t_cuda_core = ops / CUDA_CORE_OPS_S * 1e3
+            if train:
+                timed = {
+                    "fwd_f32": (lambda: bnn.bnn_matmul_kernel_call(x, w),
+                                lambda: bnn.bnn_matmul_plain(x, w),
+                                lambda: torch.matmul(xs, ws),
+                                4 * (m * k + k * n + m * n), TENSOR_CORE_OPS_S),
+                    "bwd_dx": (lambda: bnn.bnn_bwd_dx_call(x, w, g),
+                               lambda: bnn.bnn_bwd_dx_plain(x, w, g),
+                               lambda: torch.matmul(g, ws.T),
+                               4 * (2 * m * k + k * n + m * n), CUDA_CORE_OPS_S),
+                    "bwd_dw": (lambda: bnn.bnn_bwd_dw_call(x, w, g),
+                               lambda: bnn.bnn_bwd_dw_plain(x, w, g),
+                               lambda: torch.matmul(xs.T, g),
+                               4 * (m * k + 2 * k * n + m * n), CUDA_CORE_OPS_S),
+                }
+            else:
+                timed = {
+                    "fwd_int8": (lambda: bnn.bnn_matmul_kernel_call(x, wb),
+                                 lambda: bnn.bnn_matmul_plain(x, wb),
+                                 lambda: torch.matmul(xs, ws),
+                                 4 * m * k + k * n + 4 * m * n, TENSOR_CORE_OPS_S),
+                    "fwd_packed": (lambda: bnn.bnn_packed_matmul_kernel_call(x, wp),
+                                   lambda: bnn.bnn_packed_matmul_plain(x, wp),
+                                   lambda: torch.matmul(xs, ws),
+                                   4 * m * k + k * n // 8 + 4 * m * n, TENSOR_CORE_OPS_S),
+                }
+            for name, (kern, plain, lib, nbytes, rate) in timed.items():
+                bound, by = _bound(nbytes, ops, rate)
+                row[name] = {"ms": time_ms(torch, kern, flush=flush),
+                             "plain_ms": time_ms(torch, plain, iters=5, flush=flush),
+                             "library_ms": time_ms(torch, lib, flush=flush),
+                             "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                             "ops_cuda_core_ms": t_cuda_core}
+        rows.append(row)
+        errs = ("" if not train else f"; backward dx {row['dx_max_abs_err']:.2e} dw "
+                f"{row['dw_max_abs_err']:.2e} (atol = rtol = {TRAIN_TOL}, every element held: "
+                f"0 left out; {row['on_window_edge']['x']} x and {row['on_window_edge']['w']} w "
+                f"exactly on |v| = 1), repeatable")
+        times = "".join(f" {nm} {row[nm]['ms']:.5f} ms (plain {row[nm]['plain_ms']:.4f}, "
+                        f"library {row[nm]['library_ms']:.5f}, bound {row[nm]['bound_ms']:.6f} "
+                        f"{row[nm]['bound_by']})"
+                        for nm in ("fwd_int8", "fwd_packed", "fwd_f32", "bwd_dx", "bwd_dw")
+                        if nm in row)
+        print(f"[bnn-kernels] M={m} K={k} N={n}: forward bit-exact (float32, int8"
+              f"{', packed = kernel 6' if wp is not None else ''}){errs}{times}")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the serving path
 # ---------------------------------------------------------------------------
@@ -404,7 +556,12 @@ def _serve(np, train, arch, quantized, dev, count_launches=False, label=None):
     return outs, counts, wall, eng.metrics.summary()
 
 
-def phase_path(torch, np, arch, dev):
+def phase_path(torch, np, arch, dev, route, tag="path"):
+    """Serve the 8 requests through ``ServeEngine.from_trained`` (random
+    train-form weights from SEED), fp and int8 KV, each twice for
+    determinism. Every projection of the mode takes kernel route ``route``:
+    the launches of the counted fp drain must be exactly 7 of it and one
+    paged attention per layer per tick, and 0 of every other kernel."""
     from repro_torch.models import build_model
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -412,8 +569,9 @@ def phase_path(torch, np, arch, dev):
     train = build_model(arch, phase="train").init(gen, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    print(f"[path] smollm-360m bika packed, {arch.n_layers} layers, d_model "
-          f"{arch.d_model}: train-form init {time.perf_counter() - t0:.2f} s")
+    print(f"[{tag}] smollm-360m {arch.compute_mode} packed={arch.pack_signs}, "
+          f"{arch.n_layers} layers, d_model {arch.d_model}: train-form init "
+          f"{time.perf_counter() - t0:.2f} s")
     result = {}
     for quantized in (False, True):
         outs1, counts, wall, summ = _serve(np, train, arch, quantized, dev,
@@ -424,49 +582,86 @@ def phase_path(torch, np, arch, dev):
         if summ["prefix_hit_tokens"] != 16:
             fail(f"serve int8={quantized}: expected a 16-token prefix hit, got "
                  f"{summ['prefix_hit_tokens']}")
-        print(f"[path] int8_kv={quantized} 8 requests x {NEW_TOKENS} tokens, deterministic; "
+        print(f"[{tag}] int8_kv={quantized} 8 requests x {NEW_TOKENS} tokens, deterministic; "
               f"wall {wall:.3f} s / {wall2:.3f} s; decode_steps={summ['decode_steps']} "
               f"prefill_chunks={summ['prefill_chunks']} "
               f"prefix_hit_tokens={summ['prefix_hit_tokens']} "
               f"goodput={summ['goodput_tok_s']:.1f} tok/s"
               + (f"; launches {counts}" if counts else ""))
         if counts is not None:
-            if min(counts["cac_hw"], counts["paged_attn"]) <= 0:
-                fail(f"a kernel of the path was never launched: {counts}")
-            expect_cac = 7 * arch.n_layers * (summ["decode_steps"] + summ["prefill_chunks"])
-            expect_attn = arch.n_layers * (summ["decode_steps"] + summ["prefill_chunks"])
-            if counts != dict(_NO_LAUNCHES, cac_hw=expect_cac, paged_attn=expect_attn):
-                fail(f"launch counts {counts} != 7 CAC + 1 attention per layer per step "
-                     f"({expect_cac}, {expect_attn})")
+            _check_serve_launches(arch, route, counts, summ)
             result["launches"] = counts
             result["summary"] = summ
-        print(f"[path] int8_kv={quantized} tokens req0={outs1[0]}")
+            result["tokens"] = outs1
+        print(f"[{tag}] int8_kv={quantized} tokens req0={outs1[0]}")
     return train, result
 
 
-def phase_profile(torch, np, arch, train, dev):
+def _check_serve_launches(arch, route, counts, summ):
+    if min(counts[route], counts["paged_attn"]) <= 0:
+        fail(f"a kernel of the path was never launched: {counts}")
+    ticks = summ["decode_steps"] + summ["prefill_chunks"]
+    expect = dict(_NO_LAUNCHES, **{route: 7 * arch.n_layers * ticks,
+                                   "paged_attn": arch.n_layers * ticks})
+    if counts != expect:
+        fail(f"launch counts {counts} != 7 {route} + 1 attention per layer per tick "
+             f"({expect[route]}, {expect['paged_attn']}) and 0 elsewhere")
+
+
+def phase_profile(torch, np, arch, train, dev, tag="profile"):
     """Where the time of a drain goes: one more fp-KV drain under
     torch.profiler. Device busy time is the union of the kernel, memcpy and
     memset intervals inside the drain's window; the idle share is the rest.
     The trace stays under build/profile/ (gitignored)."""
     from torch.profiler import ProfilerActivity, profile
 
+    label = f"{arch.compute_mode}_serve_drain"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, wall, summ = _serve(np, train, arch, False, dev, label="serve_drain")
+        _, _, wall, summ = _serve(np, train, arch, False, dev, label=label)
     ticks = summ["decode_steps"] + summ["prefill_chunks"]
     result = {"wall_s": wall, "ticks": ticks, "ms_per_tick": wall / ticks * 1e3}
-    share = _device_share(prof, "serve_drain")
+    share = _device_share(prof, label)
     if share is None:
-        print("[profile] device busy share: not measured (the trace holds no drain window "
+        print(f"[{tag}] device busy share: not measured (the trace holds no drain window "
               "or no device events)")
         return result
     result.update(share)
-    print(f"[profile] fp-KV drain under torch.profiler: window {result['window_ms']:.1f} ms, "
+    print(f"[{tag}] fp-KV drain under torch.profiler: window {result['window_ms']:.1f} ms, "
           f"{ticks} ticks ({result['ms_per_tick']:.2f} ms/tick host clock), device busy "
           f"{result['device_busy_ms']:.2f} ms, idle share {result['idle_share']:.4f}")
     for row in result["top_kernels"]:
-        print(f"[profile]   {row['ms']:9.3f} ms {row['count']:6d}x {row['name']}")
+        print(f"[{tag}]   {row['ms']:9.3f} ms {row['count']:6d}x {row['name']}")
     return result
+
+
+def phase_bnn_serve(torch, np, dev):
+    """The bnn serve path: smollm-360m in bnn mode at full width and depth,
+    packed sign planes (kernel 7 on every projection), through
+    ``phase_path``; then one fp-KV drain with unpacked int8 signs (kernel 6
+    on every projection), whose tokens must equal the packed drain's (both
+    compute the same integers), one profiled drain, and the 2-layer
+    card-vs-CPU parity with Signs held at genuine near-zero ties."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.convert import tree_to_serve
+
+    arch = get_config("smollm-360m", compute_mode="bnn", pack_signs=True, remat=False,
+                      paged_attn_route="fused")
+    train, path = phase_path(torch, np, arch, dev, "bnn_packed", tag="bnn-serve")
+    unpacked = arch.replace(pack_signs=False)
+    outs, counts, wall, summ = _serve(np, train, unpacked, False, dev, count_launches=True)
+    _check_serve_launches(unpacked, "bnn", counts, summ)
+    if outs != path["tokens"]:
+        fail("bnn serve: the unpacked drain (kernel 6) gave other tokens than the packed "
+             "drain (kernel 7)")
+    print(f"[bnn-serve] unpacked int8 signs, fp KV: tokens equal to the packed drain's; wall "
+          f"{wall:.3f} s; launches {counts}")
+    path["unpacked"] = {"launches": counts, "wall_s": wall, "summary": summ}
+    path["profile"] = phase_profile(torch, np, arch, train, dev, tag="bnn-profile")
+    serve_params = tree_to_serve(train, arch.linear_spec())
+    del train
+    path["parity"] = phase_parity(torch, np, arch, serve_params, dev,
+                                  _bnn_sign_hooks(torch, "bnn_matmul_packed"), tag="bnn-parity")
+    return path
 
 
 def _device_share(prof, label):
@@ -530,11 +725,12 @@ def _to(tree, dev):
 
 
 def _code_hooks(torch):
-    """Activation quantizers for the two sides of the parity run. The card's
-    records every code it makes; the CPU's makes its own and compares: where
-    the two differ, the CPU's input must sit within PARITY_TIE code units of
-    the half-way point between them (a tie that float noise may break either
-    way), and the CPU then takes the card's code. Any other difference fails."""
+    """Activation quantizers for the two sides of the bika parity run. The
+    card's records every code it makes; the CPU's makes its own and compares:
+    where the two differ, the CPU's input must sit within PARITY_TIE code
+    units of the half-way point between them (a tie that float noise may
+    break either way), and the CPU then takes the card's code. Any other
+    difference fails. Returns (install(side), restore(), report())."""
     from repro_torch.core import backend
 
     plain = backend.quantize_activations
@@ -567,10 +763,67 @@ def _code_hooks(torch):
             codes = torch.where(diff, card, codes)
         return codes
 
-    return plain, record, follow, stats
+    def install(side):
+        backend.quantize_activations = record if side == "card" else follow
+
+    def restore():
+        backend.quantize_activations = plain
+
+    def report():
+        return (f"{stats['ties']} of {stats['codes']} activation codes were half-way ties "
+                f"(worst {stats['worst_tie']:.2e} code units, limit {PARITY_TIE})")
+
+    return install, restore, report
 
 
-def phase_parity(torch, np, arch, serve_params, dev):
+def _bnn_sign_hooks(torch, route_name):
+    """Hooks on ``ops.<route_name>`` (the route every bnn serve projection
+    takes) for the bnn parity run. The card's records each projection input;
+    the CPU's compares its own input's Signs with the card's: where they
+    differ, both inputs must lie within BNN_SIGN_TIE of 0 (a Sign that float
+    noise may flip either way), and the CPU then takes the card's input
+    there. Any other difference fails. Returns (install(side), restore(),
+    report())."""
+    from repro_torch.kernels import ops
+
+    route = getattr(ops, route_name)
+    queue = []
+    stats = {"signs": 0, "held": 0, "worst": 0.0}
+
+    def record(x, wb):
+        queue.append(x.detach().cpu())
+        return route(x, wb)
+
+    def follow(x, wb):
+        card = queue.pop(0)
+        stats["signs"] += x.numel()
+        diff = (x >= 0) != (card >= 0)
+        if bool(diff.any()):
+            worst = float(torch.maximum(x[diff].abs(), card[diff].abs()).max())
+            if worst > BNN_SIGN_TIE:
+                fail(f"bnn parity: {int(diff.sum())} Signs differ between card and CPU, at "
+                     f"|x| up to {worst:.3e} (a tie is within {BNN_SIGN_TIE} of 0)")
+            stats["held"] += int(diff.sum())
+            stats["worst"] = max(stats["worst"], worst)
+            x = torch.where(diff, card, x)
+        return route(x, wb)
+
+    def install(side):
+        setattr(ops, route_name, record if side == "card" else follow)
+
+    def restore():
+        setattr(ops, route_name, route)
+
+    def report():
+        if queue:
+            fail(f"bnn parity: the CPU side left {len(queue)} card inputs untaken")
+        return (f"{stats['held']} of {stats['signs']} projection-input Signs held to the "
+                f"card's (worst |x| {stats['worst']:.2e}, limit {BNN_SIGN_TIE})")
+
+    return install, restore, report
+
+
+def phase_parity(torch, np, arch, serve_params, dev, hooks, tag="parity"):
     """Prefill a 19-token prompt (one 32-token chunk) and decode 4 steps for
     4 rows (one parked) on the card and on the CPU, the same serve weights
     cut to 2 layers, the CPU through the plain versions.
@@ -585,8 +838,10 @@ def phase_parity(torch, np, arch, serve_params, dev):
     3e-5 relative noise in RMSNorm gives 0.67). So the CPU side takes the
     card's code wherever the two differ at a genuine tie (``_code_hooks``)
     and fails on any other difference; with the codes equal the logits must
-    agree within PARITY_ATOL and the greedy tokens must be equal."""
-    from repro_torch.core import backend
+    agree within PARITY_ATOL and the greedy tokens must be equal. A bnn
+    projection binarizes its float input directly, so there the same noise
+    may flip a Sign at an input near 0; ``hooks`` (``_code_hooks`` or
+    ``_bnn_sign_hooks``) holds the CPU side to the card at such ties."""
     from repro_torch.models import build_model
     from repro_torch.models.lm import split_layers
 
@@ -604,24 +859,24 @@ def phase_parity(torch, np, arch, serve_params, dev):
     tables[0] = table[0]
     tables[1] = [4, 6, 8, 10, 11, 13, 14, 15]
     tables[2] = [16, 17, 18, 19, 20, 21, 22, 23]
-    plain, record, follow, stats = _code_hooks(torch)
-    sides = (("card", dev, record), ("cpu", "cpu", follow))  # the card goes first
+    install, restore, report = hooks
+    sides = (("card", dev), ("cpu", "cpu"))  # the card goes first
     runs, logs = {}, {}
 
-    def step(side, quantizer, fn):
-        backend.quantize_activations = quantizer
+    def step(side, fn):
+        install(side)
         try:
             with torch.inference_mode():
                 lg, pool = fn()
         finally:
-            backend.quantize_activations = plain
+            restore()
         logs.setdefault(side, []).append(lg.float().cpu())
         return pool
 
-    for side, where, quantizer in sides:
+    for side, where in sides:
         params = split_layers(_to(p2, where))
         pool = api.init_cache(n_blocks + 1, BLOCK, device=where)
-        pool = step(side, quantizer, lambda: api.prefill_chunk(
+        pool = step(side, lambda: api.prefill_chunk(
             params, torch.from_numpy(toks).to(where), pool, torch.from_numpy(table).to(where),
             torch.tensor([0], dtype=torch.int32, device=where),
             torch.tensor([18], dtype=torch.int32, device=where)))
@@ -630,9 +885,9 @@ def phase_parity(torch, np, arch, serve_params, dev):
     tok = np.array([[int(logs["cpu"][0][0, -1].argmax())], [7], [11], [0]], np.int32)
     pos = np.array([19, 0, 0, 0], np.int32)
     for _ in range(4):
-        for side, where, quantizer in sides:
+        for side, where in sides:
             params, pool = runs[side]
-            runs[side] = (params, step(side, quantizer, lambda: api.decode_paged(
+            runs[side] = (params, step(side, lambda: api.decode_paged(
                 params, torch.from_numpy(tok).to(where), pool, torch.from_numpy(pos).to(where),
                 torch.from_numpy(tables).to(where))))
         tok = logs["cpu"][-1][:, -1].argmax(-1).numpy().astype(np.int32)[:, None]
@@ -646,7 +901,7 @@ def phase_parity(torch, np, arch, serve_params, dev):
             d = float((gr - cr).abs().max())
             worst = max(worst, d)
             if not np.isfinite(d) or d > PARITY_ATOL:
-                fail(f"parity step {i} row {r}: max |card - cpu| logits = {d} > {PARITY_ATOL}")
+                fail(f"{tag} step {i} row {r}: max |card - cpu| logits = {d} > {PARITY_ATOL}")
             # greedy tokens must agree unless the CPU's top two logits are
             # closer than the two sides' own difference (a tie that the
             # tolerance cannot order)
@@ -656,13 +911,13 @@ def phase_parity(torch, np, arch, serve_params, dev):
                 continue
             compared += 1
             if int(gr.argmax()) != int(cr.argmax()):
-                fail(f"parity step {i} row {r}: greedy tokens differ between card and CPU")
-    print(f"[parity] 2 layers at full width: prefill + 4 decode steps, card vs CPU plain "
-          f"path: max |dlogit| = {worst:.3e} (tolerance {PARITY_ATOL}); greedy tokens equal "
-          f"on {compared} of {compared + ties} rows ({ties} within-tolerance ties); "
-          f"{stats['ties']} of {stats['codes']} activation codes were half-way ties "
-          f"(worst {stats['worst_tie']:.2e} code units, limit {PARITY_TIE})")
-    return worst
+                fail(f"{tag} step {i} row {r}: greedy tokens differ between card and CPU")
+    held = report()
+    print(f"[{tag}] {arch.compute_mode}, 2 layers at full width: prefill + 4 decode steps, "
+          f"card vs CPU plain path: max |dlogit| = {worst:.3e} (tolerance {PARITY_ATOL}); "
+          f"greedy tokens equal on {compared} of {compared + ties} rows ({ties} "
+          f"within-tolerance ties); {held}")
+    return {"max_abs_dlogit": worst, "held": held}
 
 
 # ---------------------------------------------------------------------------
@@ -689,13 +944,15 @@ def _train_step(torch, ops, trainer, params, opt, step, expect):
                          "grad_norm": float(met["grad_norm"]), "launches": counts}
 
 
-def phase_train_path(torch, np, dev):
-    """Trainer on full-width, full-depth smollm-360m in bika mode (random
-    train-form weights from seed 42, remat on), batch 4 x seq 128: 3 steps
-    with the fused backward, 1 with the split pair, then 1 more fused step
-    under torch.profiler. Per step, with remat, 7 projections x 32 layers
-    launch kernel 2 twice (forward, then the recompute in the backward) and
-    the backward once each."""
+def phase_train_path(torch, np, dev, mode, tag="train"):
+    """Trainer on full-width, full-depth smollm-360m in ``mode`` (random
+    train-form weights from seed 42, remat on), batch 4 x seq 128: 3 steps,
+    then 1 more under torch.profiler. Per step, with remat, each of the 7
+    projections x 32 layers launches its forward kernel twice (forward, then
+    the recompute in the backward) and its backward once: bika the training
+    CAC forward and the fused STE backward (a 4th step takes the split dx +
+    dw pair); bnn the sign product (kernel 6) and the SignSTE dx and dw
+    kernels (8 and 9)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -703,52 +960,59 @@ def phase_train_path(torch, np, dev):
     from repro_torch.optim.adamw import OptimizerSpec
     from repro_torch.train.trainer import TrainConfig, Trainer
 
-    arch = get_config("smollm-360m", compute_mode="bika")
+    arch = get_config("smollm-360m", compute_mode=mode)
     n_proj = 7 * arch.n_layers
+    if mode == "bika":
+        main = {"cac_train_fwd": 2 * n_proj, "cac_train_bwd_fused": n_proj}
+        split = {"cac_train_fwd": 2 * n_proj, "cac_train_bwd_dx": n_proj,
+                 "cac_train_bwd_dw": n_proj}
+    else:
+        main = {"bnn": 2 * n_proj, "bnn_bwd_dx": n_proj, "bnn_bwd_dw": n_proj}
+        split = None
     cfg = TrainConfig(arch=arch, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                       steps=TRAIN_STEPS + 2)
     trainer = Trainer(cfg, OptimizerSpec(total_steps=cfg.steps), device=dev)
     t0 = time.perf_counter()
     params, opt, _ = trainer.init()
     torch.cuda.synchronize()
-    print(f"[train] smollm-360m bika, {arch.n_layers} layers, d_model {arch.d_model}, "
+    print(f"[{tag}] smollm-360m {mode}, {arch.n_layers} layers, d_model {arch.d_model}, "
           f"remat={arch.remat}: init {time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
-    fused = {"cac_train_fwd": 2 * n_proj, "cac_train_bwd_fused": n_proj}
-    split = {"cac_train_fwd": 2 * n_proj, "cac_train_bwd_dx": n_proj, "cac_train_bwd_dw": n_proj}
     steps = []
     for step in range(TRAIN_STEPS):
-        params, opt, row = _train_step(torch, ops, trainer, params, opt, step, fused)
+        params, opt, row = _train_step(torch, ops, trainer, params, opt, step, main)
         steps.append(row)
-    ops.FUSED_BWD_DEFAULT = False
-    try:
-        params, opt, row = _train_step(torch, ops, trainer, params, opt, TRAIN_STEPS, split)
-    finally:
-        ops.FUSED_BWD_DEFAULT = True
-    steps.append(dict(row, split=True))
+    if split is not None:
+        ops.FUSED_BWD_DEFAULT = False
+        try:
+            params, opt, row = _train_step(torch, ops, trainer, params, opt, TRAIN_STEPS, split)
+        finally:
+            ops.FUSED_BWD_DEFAULT = True
+        steps.append(dict(row, split=True))
     peak = torch.cuda.max_memory_allocated()
     for r in steps:
-        print(f"[train] step {r['step']}{' (split backward)' if r.get('split') else ''}: "
+        print(f"[{tag}] step {r['step']}{' (split backward)' if r.get('split') else ''}: "
               f"loss {r['loss']:.5f} grad_norm {r['grad_norm']:.4f} {r['ms']:.1f} ms "
               f"launches {r['launches']}")
+    label = f"{mode}_train_step"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with torch.profiler.record_function("train_step"):
+        with torch.profiler.record_function(label):
             params, opt, row = _train_step(torch, ops, trainer, params, opt, TRAIN_STEPS + 1,
-                                           fused)
+                                           main)
     result = {"steps": steps, "profiled_step": row, "max_memory_allocated": peak,
               "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ}
-    share = _device_share(prof, "train_step")
-    print(f"[train] peak memory {peak / 2**30:.2f} GiB; fused steps "
-          f"{[round(r['ms'], 1) for r in steps[:TRAIN_STEPS]]} ms, split step "
-          f"{steps[-1]['ms']:.1f} ms")
+    share = _device_share(prof, label)
+    print(f"[{tag}] peak memory {peak / 2**30:.2f} GiB; steps "
+          f"{[round(r['ms'], 1) for r in steps[:TRAIN_STEPS]]} ms"
+          + (f", split step {steps[-1]['ms']:.1f} ms" if split is not None else ""))
     if share is None:
-        print("[train] device busy share: not measured (no window or no device events)")
+        print(f"[{tag}] device busy share: not measured (no window or no device events)")
         return result
     result["profile"] = share
-    print(f"[train] one step under torch.profiler: window {share['window_ms']:.1f} ms, "
+    print(f"[{tag}] one step under torch.profiler: window {share['window_ms']:.1f} ms, "
           f"device busy {share['device_busy_ms']:.2f} ms, idle share {share['idle_share']:.4f}")
     for r in share["top_kernels"]:
-        print(f"[train]   {r['ms']:9.3f} ms {r['count']:6d}x {r['name']}")
+        print(f"[{tag}]   {r['ms']:9.3f} ms {r['count']:6d}x {r['name']}")
     return result
 
 
@@ -805,7 +1069,66 @@ def _sign_hooks(torch):
     def restore():
         ops.cac_train_matmul = route
 
-    return install, restore, queue, stats
+    def report():
+        if queue:
+            fail(f"train parity: the CPU side left {len(queue)} card outputs untaken")
+        return (f"{stats['held']} of {stats['outputs']} CAC outputs held to the card's at "
+                f"{stats['near_zero']} pre-activations within {TRAIN_SIGN_TIE} of 0")
+
+    return install, restore, report
+
+
+def _bnn_train_hooks(torch):
+    """Hooks on ``ops.bnn_train_matmul`` (the route every bnn training
+    projection takes) for the train parity run. The card's records every
+    projection input (forward and remat recompute, in call order); the
+    CPU's compares its own input's Signs and STE masks with the card's.
+    Where a Sign differs, both inputs must lie within BNN_SIGN_TIE of 0;
+    where a mask 1[|x| <= 1] differs, both must lie within BNN_WINDOW_TIE of
+    |x| = 1. The CPU then takes the card's input value there (the gradient
+    still flows to its own x), so both its forward and its backward mask
+    follow the card's. Any other difference fails."""
+    from repro_torch.kernels import ops
+
+    route = ops.bnn_train_matmul
+    queue = []
+    stats = {"inputs": 0, "signs": 0, "masks": 0}
+
+    def record(x, w):
+        queue.append(x.detach().cpu())
+        return route(x, w)
+
+    def follow(x, w):
+        card, xd = queue.pop(0), x.detach()
+        stats["inputs"] += xd.numel()
+        sdiff = (xd >= 0) != (card >= 0)
+        mdiff = (xd.abs() <= 1.0) != (card.abs() <= 1.0)
+        far_s = torch.maximum(xd.abs(), card.abs())[sdiff]
+        far_m = torch.maximum((xd.abs() - 1).abs(), (card.abs() - 1).abs())[mdiff]
+        if bool((far_s > BNN_SIGN_TIE).any()) or bool((far_m > BNN_WINDOW_TIE).any()):
+            fail(f"train parity: {int(sdiff.sum())} Signs and {int(mdiff.sum())} STE masks of "
+                 f"bnn inputs differ between card and CPU, not all at genuine ties")
+        stats["signs"] += int(sdiff.sum())
+        stats["masks"] += int(mdiff.sum())
+        diff = sdiff | mdiff
+        if bool(diff.any()):
+            x = x + torch.where(diff, card - xd, 0)
+        return route(x, w)
+
+    def install(side):
+        ops.bnn_train_matmul = record if side == "card" else follow
+
+    def restore():
+        ops.bnn_train_matmul = route
+
+    def report():
+        if queue:
+            fail(f"train parity: the CPU side left {len(queue)} card inputs untaken")
+        return (f"of {stats['inputs']} bnn projection inputs, {stats['signs']} Signs (within "
+                f"{BNN_SIGN_TIE} of 0) and {stats['masks']} STE masks (within "
+                f"{BNN_WINDOW_TIE} of |x| = 1) held to the card's")
+
+    return install, restore, report
 
 
 def _tree_np(tree):
@@ -814,10 +1137,10 @@ def _tree_np(tree):
     return tree.detach().cpu().numpy()
 
 
-def phase_train_parity(torch, np, dev):
+def phase_train_parity(torch, np, dev, mode, hooks, tag="train-parity"):
     """One train step (loss, gradients, AdamW update) of the same 2-layer,
-    full-width bika model on the card and on the CPU plain path: the same
-    numpy params (seed 3) and the same batch (2 x 64 tokens).
+    full-width model in ``mode`` on the card and on the CPU plain path: the
+    same numpy params (seed 3) and the same batch (2 x 64 tokens).
 
     The CAC outputs are integers, but the float parts (RMSNorm, softmax, the
     head) differ between the two devices by ~1e-7 relative, and a
@@ -830,7 +1153,10 @@ def phase_train_parity(torch, np, dev):
     does not cascade. The tolerances: loss within TRAIN_PARITY_LOSS
     relative; each gradient leaf and each updated parameter leaf within
     TRAIN_PARITY_REL of its L2 norm (the CPU rehearsal behind these numbers
-    is in PERF.md)."""
+    is in PERF.md). A bnn model flips the same way where a projection's
+    input lies within the noise of 0 (its Sign) or of |x| = 1 (its STE
+    mask, which gates a whole element of dx); ``_bnn_train_hooks`` holds
+    both at genuine ties."""
     from repro_torch.configs import get_config
     from repro_torch.core.convert import from_reference
     from repro_torch.data.lm import LMDataConfig, lm_batch
@@ -838,11 +1164,11 @@ def phase_train_parity(torch, np, dev):
     from repro_torch.optim.adamw import OptimizerSpec, make_optimizer, tree_leaves
     from repro_torch.train.steps import loss_and_grads
 
-    arch = get_config("smollm-360m", compute_mode="bika", n_layers=2)
+    arch = get_config("smollm-360m", compute_mode=mode, n_layers=2)
     api = build_model(arch, phase="train")
     np_params = _tree_np(api.init(3, device="cpu"))
     batch = lm_batch(LMDataConfig(vocab=arch.vocab, seq_len=64, global_batch=2, seed=5), 0)
-    install, restore, queue, stats = _sign_hooks(torch)
+    install, restore, report = hooks
     out = {}
     try:
         for side, where in (("card", dev), ("cpu", torch.device("cpu"))):  # the card first
@@ -857,27 +1183,24 @@ def phase_train_parity(torch, np, dev):
                          [t.cpu() for t in tree_leaves(params)], time.perf_counter() - t0)
     finally:
         restore()
-    if queue:
-        fail(f"train parity: the CPU side left {len(queue)} card outputs untaken")
+    held = report()
     (lc, gc, pc, tc), (lp, gp, pp, tp) = out["card"], out["cpu"]
     loss_rel = abs(lc - lp) / abs(lp)
     rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
     g_rel = max(rel(a, b) for a, b in zip(gc, gp))
     p_rel = max(rel(a, b) for a, b in zip(pc, pp))
     if not (np.isfinite(lc) and loss_rel <= TRAIN_PARITY_LOSS):
-        fail(f"train parity: loss card {lc} cpu {lp} (relative {loss_rel:.3e} > "
+        fail(f"{tag}: loss card {lc} cpu {lp} (relative {loss_rel:.3e} > "
              f"{TRAIN_PARITY_LOSS})")
     if not (g_rel <= TRAIN_PARITY_REL and p_rel <= TRAIN_PARITY_REL):
-        fail(f"train parity: worst leaf relative L2 gradient {g_rel:.3e}, parameter "
+        fail(f"{tag}: worst leaf relative L2 gradient {g_rel:.3e}, parameter "
              f"{p_rel:.3e} (limit {TRAIN_PARITY_REL})")
-    print(f"[train-parity] 2 layers at full width, one train step, card vs CPU plain path: "
+    print(f"[{tag}] {mode}, 2 layers at full width, one train step, card vs CPU plain path: "
           f"loss {lc:.6f} vs {lp:.6f} (relative {loss_rel:.2e}, limit {TRAIN_PARITY_LOSS}); "
           f"worst leaf relative L2 gradient {g_rel:.2e}, parameter {p_rel:.2e} (limit "
-          f"{TRAIN_PARITY_REL}); {stats['held']} of {stats['outputs']} CAC outputs held to "
-          f"the card's at {stats['near_zero']} pre-activations within {TRAIN_SIGN_TIE} of 0; "
-          f"card {tc:.1f} s, CPU {tp:.1f} s")
+          f"{TRAIN_PARITY_REL}); {held}; card {tc:.1f} s, CPU {tp:.1f} s")
     return {"loss_card": lc, "loss_cpu": lp, "loss_rel": loss_rel, "grad_rel": g_rel,
-            "param_rel": p_rel, **stats}
+            "param_rel": p_rel, "held": held}
 
 
 def main() -> int:
@@ -908,20 +1231,25 @@ def main() -> int:
     cac_rows = phase_cac(torch, np, dev, flush)
     attn_rows = phase_paged(torch, np, dev, flush)
     train_rows = phase_train_kernels(torch, np, dev, flush)
+    bnn_rows = phase_bnn_kernels(torch, np, dev, flush)
     del flush
     from repro_torch.configs import get_config
     from repro_torch.core.convert import tree_to_serve
 
     arch = get_config("smollm-360m", compute_mode="bika", pack_signs=True, remat=False,
                       paged_attn_route="fused")
-    train, path = phase_path(torch, np, arch, dev)
+    train, path = phase_path(torch, np, arch, dev, "cac_hw")
     path["profile"] = phase_profile(torch, np, arch, train, dev)
     serve_params = tree_to_serve(train, arch.linear_spec())
     del train
-    phase_parity(torch, np, arch, serve_params, dev)
+    path["parity"] = phase_parity(torch, np, arch, serve_params, dev, _code_hooks(torch))
     del serve_params
-    training = phase_train_path(torch, np, dev)
-    training["parity"] = phase_train_parity(torch, np, dev)
+    training = phase_train_path(torch, np, dev, "bika")
+    training["parity"] = phase_train_parity(torch, np, dev, "bika", _sign_hooks(torch))
+    bnn_path = phase_bnn_serve(torch, np, dev)
+    bnn_training = phase_train_path(torch, np, dev, "bnn", tag="bnn-train")
+    bnn_training["parity"] = phase_train_parity(torch, np, dev, "bnn", _bnn_train_hooks(torch),
+                                                tag="bnn-train-parity")
 
     main_cac = next(r for r in cac_rows if (r["M"], r["K"], r["N"]) == (4, 960, 2560))
     main_attn = next(r for r in attn_rows if r["case"] == "decode" and not r["int8"])
@@ -968,11 +1296,39 @@ def main() -> int:
                      + ("split-backward step" if key in ("bwd_dx", "bwd_dw") else "fused step"),
             "shapes": [{k: v for k, v in r.items() if k in ("M", "K", "N", key)}
                        for r in train_rows if key in r]})
+    bnn_train = next(r for r in bnn_rows if (r["M"], r["K"], r["N"]) == (512, 960, 2560))
+    bnn_decode = next(r for r in bnn_rows if (r["M"], r["K"], r["N"]) == (N_SLOTS, 960, 2560))
+    bnn_step = bnn_training["steps"][0]["launches"]
+    for name, key, main_row, launches, replaces, shape, errs in (
+            ("bnn_matmul", "fwd_f32", bnn_train, bnn_step["bnn"], 104,
+             "M=512 K=960 N=2560 float32 w (train gate/up); launches per train step",
+             ("fwd_max_abs_err",)),
+            ("bnn_packed_matmul", "fwd_packed", bnn_decode, bnn_path["launches"]["bnn_packed"],
+             172, "M=4 K=960 N=2560 packed planes (decode gate/up); launches per drain",
+             ("fwd_max_abs_err",)),
+            ("bnn_bwd_dx", "bwd_dx", bnn_train, bnn_step["bnn_bwd_dx"], 231,
+             "M=512 K=960 N=2560 (train gate/up); launches per train step", ("dx_max_abs_err",)),
+            ("bnn_bwd_dw", "bwd_dw", bnn_train, bnn_step["bnn_bwd_dw"], 286,
+             "M=512 K=960 N=2560 (train gate/up); launches per train step",
+             ("dw_max_abs_err",))):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/bnn_matmul.cu",
+            "replaces": f"src/repro/kernels/bnn_matmul.py:{replaces}",
+            "launches": launches,
+            "max_abs_err": max(r[e] for r in bnn_rows for e in errs if e in r),
+            "ms": main_row[key]["ms"], "plain_ms": main_row[key]["plain_ms"],
+            "bound_ms": main_row[key]["bound_ms"], "bound_by": main_row[key]["bound_by"],
+            "library_ms": main_row[key]["library_ms"], "shape": shape,
+            "shapes": [{k: v for k, v in r.items() if k in ("M", "K", "N", key)}
+                       for r in bnn_rows if key in r]})
+    kernels[-4]["unpacked_serve_launches_per_drain"] = bnn_path["unpacked"]["launches"]["bnn"]
+    kernels[-4]["shapes"] += [{k: v for k, v in r.items() if k in ("M", "K", "N", "fwd_int8")}
+                              for r in bnn_rows if "fwd_int8" in r]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump({"device": smi, "kernels": kernels, "path": path, "training": training,
-                   "train_kernels": train_rows}, fh, indent=1,
-                  sort_keys=True)
+                   "train_kernels": train_rows, "bnn_kernels": bnn_rows, "bnn_path": bnn_path,
+                   "bnn_training": bnn_training}, fh, indent=1, sort_keys=True)
     print(smi)
     print(json.dumps({"kernels": kernels}, sort_keys=True))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

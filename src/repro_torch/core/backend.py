@@ -4,8 +4,8 @@ Every projection mode implements one contract — ``init_train`` /
 ``init_serve`` / ``to_serve`` / ``train_param_keys`` / ``apply_train`` /
 ``apply_serve`` / ``kernel_route`` —
 and ``nn/linear.py`` dispatches on ``LinearSpec.mode`` through the registry.
-This slice registers ``dense`` and ``bika``; ``bnn`` and ``qnn8`` wait for
-their kernels.
+This slice registers ``dense``, ``bika`` and ``bnn``; ``qnn8`` waits for
+its kernel.
 
 Parameters are plain dicts of tensors with the reference's ``(K, N)`` /
 ``(m, K, N)`` layouts (never torch's ``(N, K)``), so one tree converts
@@ -19,6 +19,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import bika as bika_core
+from .ste import sign
 
 __all__ = [
     "LinearSpec",
@@ -30,6 +31,7 @@ __all__ = [
     "unpack_signs",
     "DenseBackend",
     "BikaBackend",
+    "BnnBackend",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -264,5 +266,79 @@ class BikaBackend(QuantBackend):
         return y * params["gamma"].to(cd)
 
 
+class BnnBackend(QuantBackend):
+    """FINN-style XNOR-popcount baseline: train form ``{w, gamma}`` (latent
+    float weights), serve form ``{wb, gamma}`` with ``wb`` int8 +-1 (K, N)
+    or, with ``pack_signs``, uint8 bitplanes (K/8, N)."""
+
+    name = "bnn"
+
+    def init_train(self, gen, k, n, spec, *, device):
+        return {
+            "w": _uniform(gen, (k, n), spec.pdtype, 1.0 / (k**0.5), device),
+            "gamma": torch.ones((n,), dtype=spec.pdtype, device=device),
+        }
+
+    def init_serve(self, gen, k, n, spec, *, device):
+        if spec.pack_signs:
+            if k % 8:
+                raise ValueError(f"pack_signs requires K%8==0, got K={k}")
+            p = {"wb": torch.zeros((k // 8, n), dtype=torch.uint8, device=device)}
+        else:
+            p = {"wb": torch.ones((k, n), dtype=torch.int8, device=device)}
+        p["gamma"] = torch.ones((n,), dtype=torch.float32, device=device)
+        return p
+
+    def to_serve(self, params, spec):
+        wb = sign(params["w"]).to(torch.int8)
+        if spec.pack_signs:
+            wb = pack_signs(wb)
+        return {"wb": wb, "gamma": params["gamma"].to(torch.float32)}
+
+    def train_param_keys(self, spec):
+        return frozenset({"w", "gamma"}), frozenset()
+
+    def apply_train(self, params, x, spec):
+        """y = gamma * sign(x) @ sign(w) / sqrt(K) with the SignSTE
+        backward. Every call goes through ``kernels.ops.bnn_train_matmul``
+        whatever ``spec.impl`` says: on CUDA the hand-written sign-product
+        kernel forward and the dx/dw kernels backward, on the CPU their
+        plain versions. The reference's default route computes the same
+        function in XLA (``sign_ste(x) @ sign_ste(w)``)."""
+        from repro_torch.kernels.ops import bnn_train_matmul
+
+        cd = x.dtype
+        k = params["w"].shape[0]
+        y = bnn_train_matmul(x, params["w"].to(cd)).to(cd)
+        y = _out_scale(y, k, spec)
+        return y * params["gamma"].to(cd)
+
+    def apply_serve(self, params, x, spec):
+        """y = gamma * sign(x) @ wb / sqrt(K): the float activations are
+        binarized directly (no activation quantization). Every call goes
+        through ``kernels.ops.bnn_matmul_packed`` (packed planes) or
+        ``bnn_matmul`` (int8 +-1, read as stored) whatever ``spec.impl``
+        says; the reference's default route computes the same integers in
+        XLA (``sign(x) @ wb``)."""
+        from repro_torch.kernels.ops import bnn_matmul, bnn_matmul_packed
+
+        cd = x.dtype
+        wb = params["wb"]
+        if spec.pack_signs:
+            k = 8 * wb.shape[0]
+            y = bnn_matmul_packed(x, wb).to(cd)
+        else:
+            k = wb.shape[0]
+            y = bnn_matmul(x, wb).to(cd)
+        y = _out_scale(y, k, spec)
+        return y * params["gamma"].to(cd)
+
+    def kernel_route(self, spec, phase="train"):
+        if phase == "train":
+            return "bnn_train"
+        return "bnn_packed" if spec.pack_signs else "bnn"
+
+
 register(DenseBackend())
 register(BikaBackend())
+register(BnnBackend())

@@ -1,11 +1,13 @@
 """Public kernel wrappers (port of ``repro/kernels/ops.py``): the serve
-routes and the training CAC ``cac_train_matmul``.
+routes, the training CAC ``cac_train_matmul`` and the BNN sign products
+(``bnn_matmul``, ``bnn_matmul_packed`` and the training ``bnn_train_matmul``).
 
 Each wrapper takes its plain PyTorch version only because the tensors it
 was given lie on the CPU; on CUDA tensors it launches the hand-written
 kernel or raises — there is no fallback. Launches are counted on the
 kernel calls (``cac_matmul_kernel_call.launches``,
-``paged_attn_kernel_call.launches``, ``cac_train_fwd_call.launches``, ...);
+``paged_attn_kernel_call.launches``, ``cac_train_fwd_call.launches``,
+``bnn_matmul_kernel_call.launches``, ...);
 ``launch_counts``/``reset_launches`` read and zero them.
 """
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Dict, Optional
 import torch
 
 from . import ref
+from . import bnn_matmul as _bnn
 from . import cac_matmul as _cac
 from .cac_matmul import cac_matmul_kernel_call, cac_matmul_plain
 from .paged_attn import paged_attn_kernel_call
@@ -22,6 +25,9 @@ from .paged_attn import paged_attn_kernel_call
 __all__ = [
     "KERNEL_ROUTES",
     "FUSED_BWD_DEFAULT",
+    "bnn_matmul",
+    "bnn_matmul_packed",
+    "bnn_train_matmul",
     "cac_matmul",
     "cac_train_matmul",
     "kernel_route",
@@ -109,13 +115,75 @@ def cac_train_matmul(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor, *,
     return y.reshape(lead + (w.shape[1],))
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1]).to(torch.float32)
+
+
+def bnn_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sign(x) @ sign(w). x (..., K) float; w (K, N) float32 or int8 +-1
+    (read as stored) -> (..., N) float32 exact integer sums."""
+    x2 = _rows(x)
+    if x2.is_cuda:
+        y = _bnn.bnn_matmul_kernel_call(x2, w)
+    else:
+        y = _bnn.bnn_matmul_plain(x2, w)
+    return y.reshape(x.shape[:-1] + (w.shape[1],))
+
+
+def bnn_matmul_packed(x: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
+    """sign(x) @ unpack(wp) for uint8 bitplanes wp (K/8, N), the packed bnn
+    serve form: the kernel reads the planes as stored, no per-call unpack."""
+    x2 = _rows(x)
+    if x2.is_cuda:
+        y = _bnn.bnn_packed_matmul_kernel_call(x2, wp)
+    else:
+        y = _bnn.bnn_packed_matmul_plain(x2, wp)
+    return y.reshape(x.shape[:-1] + (wp.shape[1],))
+
+
+class _BnnTrain(torch.autograd.Function):
+    """y = sign(x) @ sign(w) with the SignSTE backward
+    dx = (g @ sign(w)^T) * 1[|x| <= 1], dw = (sign(x)^T @ g) * 1[|w| <= 1].
+    Saves only (x, w): the backward kernels re-form the signs and masks. On
+    CUDA tensors both directions launch the hand-written kernels; on CPU
+    tensors they take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return bnn_matmul(x2, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.contiguous()
+        if x2.is_cuda:
+            return _bnn.bnn_bwd_dx_call(x2, w, g), _bnn.bnn_bwd_dw_call(x2, w, g)
+        return _bnn.bnn_bwd_dx_plain(x2, w, g), _bnn.bnn_bwd_dw_plain(x2, w, g)
+
+
+def bnn_train_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Training BNN product with the SignSTE backward (the function of the
+    reference's ``sign_ste(x) @ sign_ste(w)``). x (..., K); w (K, N) ->
+    (..., N) float32."""
+    y = _BnnTrain.apply(_rows(x), w.to(torch.float32))
+    return y.reshape(x.shape[:-1] + (w.shape[1],))
+
+
 KERNEL_ROUTES: dict = {
+    "bnn": bnn_matmul,
+    "bnn_packed": bnn_matmul_packed,
+    "bnn_train": bnn_train_matmul,
     "cac_hw": cac_matmul,
     "cac_train": cac_train_matmul,
     "paged_attn": paged_attention,
 }
 
 _COUNTED = {
+    "bnn": _bnn.bnn_matmul_kernel_call,
+    "bnn_bwd_dw": _bnn.bnn_bwd_dw_call,
+    "bnn_bwd_dx": _bnn.bnn_bwd_dx_call,
+    "bnn_packed": _bnn.bnn_packed_matmul_kernel_call,
     "cac_hw": cac_matmul_kernel_call,
     "cac_train_bwd_dw": _cac.cac_train_bwd_dw_call,
     "cac_train_bwd_dx": _cac.cac_train_bwd_dx_call,

@@ -7,7 +7,8 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["cac_matmul_ref", "cac_train_bwd_ref", "cac_train_fwd_ref", "paged_attention_ref"]
+__all__ = ["bnn_matmul_ref", "cac_matmul_ref", "cac_train_bwd_ref", "cac_train_fwd_ref",
+           "paged_attention_ref"]
 
 
 def cac_matmul_ref(x: torch.Tensor, tau: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -48,6 +49,14 @@ def cac_train_bwd_ref(
     dw = (gm * x[:, :, None]).sum(dim=0)
     dbeta = gm.sum(dim=0)
     return dx, dw, dbeta
+
+
+def bnn_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """XNOR-popcount == matmul of +/-1 values: y = sign(x) @ sign(w) in
+    float32, Sign(0) = +1. Exact: every partial sum is an integer < 2^24."""
+    xs = torch.where(x >= 0, 1.0, -1.0).to(torch.float32)
+    ws = torch.where(w >= 0, 1.0, -1.0).to(torch.float32)
+    return xs @ ws
 
 
 def paged_attention_ref(

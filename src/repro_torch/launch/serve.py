@@ -33,7 +33,7 @@ def _param_bytes(tree) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m", choices=ARCH_NAMES)
-    ap.add_argument("--mode", default="bika", choices=("dense", "bika"))
+    ap.add_argument("--mode", default="bika", choices=("dense", "bika", "bnn"))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--new-tokens", type=int, default=16)

@@ -20,7 +20,7 @@ from repro_torch.train.trainer import TrainConfig, Trainer
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m", choices=ARCH_NAMES)
-    ap.add_argument("--mode", default="bika", choices=("dense", "bika"))
+    ap.add_argument("--mode", default="bika", choices=("dense", "bika", "bnn"))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=512)

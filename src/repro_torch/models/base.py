@@ -68,7 +68,7 @@ class ArchConfig:
     rope_theta: float = 10000.0
     window: Optional[int] = None
     n_experts: int = 0
-    compute_mode: str = "dense"  # dense | bika
+    compute_mode: str = "dense"  # dense | bika | bnn
     bika_m: int = 1
     bika_impl: str = "cvjp"
     pack_signs: bool = False

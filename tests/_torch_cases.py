@@ -2,13 +2,38 @@
 card-only tests can import them on a machine without JAX)."""
 import numpy as np
 
-__all__ = ["PAGED_CASES", "TRAIN_KERNEL_SHAPES", "cac_case", "cac_train_case", "paged_case",
-           "window_clear"]
+__all__ = ["BNN_KERNEL_SHAPES", "PAGED_CASES", "TRAIN_KERNEL_SHAPES", "bnn_case", "cac_case",
+           "cac_train_case", "paged_case", "window_clear"]
 
 # the training path's (K, N) projections at M = batch 4 x seq 128, and two
 # ragged shapes that cut every tile edge
 TRAIN_KERNEL_SHAPES = [(512, 960, 960), (512, 960, 320), (512, 960, 2560),
                        (512, 2560, 960), (37, 100, 130), (129, 968, 65)]
+
+# the BNN kernels: a decode shape and the training path's gate/up and down
+# shapes, then ragged M and N with K not a multiple of 32 (968, packed too)
+# and not a multiple of 8 (100, unpacked only)
+BNN_KERNEL_SHAPES = [(4, 960, 2560), (512, 960, 2560), (512, 2560, 960), (129, 968, 65),
+                     (37, 100, 130)]
+
+
+def bnn_case(rng, m, k, n, nan=False):
+    """BNN operands: x, g ~ N(0, 1) and w ~ N(0, 0.25), float32, with about
+    2% of x and w set to exact +0.0, 2% to exact -0.0 (Sign gives +1 for
+    both) and 1% to exact +-1 (inside the inclusive hard-tanh window); with
+    ``nan`` one x is NaN (Sign gives -1)."""
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * 0.5).astype(np.float32)
+    for a in (x, w):
+        u = rng.random(a.shape)
+        a[u < 0.02] = 0.0
+        a[(u >= 0.02) & (u < 0.04)] = -0.0
+        edge = (u >= 0.04) & (u < 0.05)
+        a[edge] = np.where(rng.random(int(edge.sum())) < 0.5, 1.0, -1.0)
+    if nan:
+        x[rng.integers(m), rng.integers(k)] = np.nan
+    g = rng.normal(size=(m, n)).astype(np.float32)
+    return x, w, g
 
 
 def cac_case(rng, m, k, n):

@@ -10,14 +10,20 @@ at 2e-5, the bound the reference holds its fused kernel to against the
 gather oracle. The training CAC forward is bit-exact (the kernel rounds the
 product and then the sum, as plain PyTorch does); its STE backward within
 atol/rtol 1e-4 off the |pre| = 1 window edge, split and fused alike (the
-kernels sum in another order, with float atomics)."""
+kernels sum in another order, with float atomics). The BNN forwards
+(kernels 6 and 7) are bit-exact, 7 equal to 6 on the same signs; the
+SignSTE backward pair (8 and 9) within atol/rtol 1e-4 everywhere (their
+masks read the operand itself, so no element sits on an ambiguous edge; the
+sums are reordered) and bit-for-bit repeatable."""
 import numpy as np
 import pytest
 import torch
-from _torch_cases import (PAGED_CASES, TRAIN_KERNEL_SHAPES, cac_case, cac_train_case,
-                          paged_case, window_clear)
+from _torch_cases import (BNN_KERNEL_SHAPES, PAGED_CASES, TRAIN_KERNEL_SHAPES, bnn_case,
+                          cac_case, cac_train_case, paged_case, window_clear)
 
 from repro_torch.core.backend import pack_signs
+from repro_torch.core.ste import sign
+from repro_torch.kernels import bnn_matmul as bnn
 from repro_torch.kernels import cac_matmul as cac
 from repro_torch.kernels import ref
 from repro_torch.kernels.cac_matmul import cac_matmul_kernel_call, cac_matmul_plain
@@ -79,3 +85,30 @@ def test_cac_train_kernels_on_card(cuda, m, k, n):
         for got in (a, b):
             torch.testing.assert_close(torch.where(keep, got, 0), torch.where(keep, c, 0),
                                        atol=1e-4, rtol=1e-4, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", BNN_KERNEL_SHAPES)
+def test_bnn_kernels_on_card(cuda, m, k, n):
+    rng = np.random.default_rng(m + 5 * k + n)
+    x, w, g = (torch.from_numpy(a).to(cuda) for a in bnn_case(rng, m, k, n, nan=True))
+    wb = sign(w).to(torch.int8)
+    fns = (bnn.bnn_matmul_kernel_call, bnn.bnn_packed_matmul_kernel_call,
+           bnn.bnn_bwd_dx_call, bnn.bnn_bwd_dw_call)
+    counts = [f.launches for f in fns]
+    want = bnn.bnn_matmul_plain(x, w)
+    assert torch.equal(bnn.bnn_matmul_kernel_call(x, w), want)
+    assert torch.equal(bnn.bnn_matmul_kernel_call(x, wb), want)  # int8 +-1, read as stored
+    packed = k % 8 == 0
+    if packed:
+        wp = pack_signs(wb)
+        assert torch.equal(bnn.bnn_packed_matmul_kernel_call(x, wp), want)
+        assert torch.equal(bnn.bnn_packed_matmul_plain(x, wp), want)
+    x = torch.nan_to_num(x)  # the backward cases hold no NaN
+    dx, dw = bnn.bnn_bwd_dx_call(x, w, g), bnn.bnn_bwd_dw_call(x, w, g)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [c + d for c, d in zip(counts, (2, int(packed), 1, 1))]
+    torch.testing.assert_close(dx, bnn.bnn_bwd_dx_plain(x, w, g), atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(dw, bnn.bnn_bwd_dw_plain(x, w, g), atol=1e-4, rtol=1e-4)
+    assert torch.equal(dx, bnn.bnn_bwd_dx_call(x, w, g))  # no atomics: repeatable
+    assert torch.equal(dw, bnn.bnn_bwd_dw_call(x, w, g))

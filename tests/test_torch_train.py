@@ -280,13 +280,14 @@ def _assert_tree_close(got, want, path, rtol):
                                err_msg=path)
 
 
-@pytest.mark.parametrize("mode", ["bika", "dense"])
+@pytest.mark.parametrize("mode", ["bika", "dense", "bnn"])
 def test_train_step_matches_reference_at_smoke(mode):
     """One whole train step at SMOKE (2 layers, remat on): the
     reference's train-form params from its own init, unboxed and brought over
     with ``from_reference``, one batch from its data pipeline, both packages'
     ``make_train_step`` with AdamW. In bika mode the reference takes its
-    Pallas route (kernels 2 and 5 in interpret mode). Loss and metrics,
+    Pallas route (kernels 2 and 5 in interpret mode), in bnn mode likewise
+    (kernels 6, 8 and 9). Loss and metrics,
     every gradient leaf and every parameter after the update are compared."""
     jcfg = jax_get_smoke("smollm-360m", compute_mode=mode, bika_impl="pallas")
     japi = jax_build_model(jcfg, phase="train")
