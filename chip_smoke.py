@@ -9,7 +9,8 @@ Phases (each prints its own line; any failure exits non-zero):
              parallel, and print the build time.
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
              at the shapes of the path that runs it: CAC bit-exact; paged
-             attention within 2e-5 (fp32 and int8 pools, decode and chunk);
+             attention within 2e-5 (fp32 and int8 pools, decode, chunk and
+             the speculative verify's B = 4 x C = 4 window);
              the training CAC forward bit-exact and its STE backward (fused,
              and the split dx + dw pair) within atol = rtol = 1e-4 off the
              |pre| = 1 window edge, at M = 512 and two ragged shapes. Times
@@ -53,6 +54,26 @@ Phases (each prints its own line; any failure exits non-zero):
              kernel-6, 224 kernel-8 and 224 kernel-9 launches each and 0
              training-CAC launches; the parity holds Signs within 1e-5 of 0
              and STE masks within 1e-5 of |x| = 1.
+11. qnn8-kernels — kernel 10 (the int8 matmul) against its plain version,
+             bit-exact, at the path's (K, N) for M = 4, 16, 32 and 512 and three
+             ragged shapes (K = 99, 100, 968), with extreme codes (x -128 and
+             127, w +-127, a zero w column at the 1e-12 scale floor, one sum
+             at K * 128 * 127); times with plain, torch._int_mm (cuBLASLt,
+             M = 4 and 16 zero-padded to 32) and bound.
+12. qnn8-serve — phases 4, profile and 5 again in qnn8 mode: 224 kernel-10
+             and 32 attention launches per tick, 0 elsewhere; the parity holds
+             activation codes at half-way ties as for bika.
+13. spec    — dense smollm-360m target <- qnn8 draft (k = 4) of one seeded
+             train-form tree, full width and depth: paged and continuous
+             engines, each target-only and speculative (fp KV). Speculative
+             tokens equal target-only, and continuous equal paged, except
+             where the target's top-2 logit gap (recomputed on the card from
+             the common prefix) is below 1e-4, each such case printed; kernel
+             10 exactly 224 x (4 x rounds + admissions), kernel 11 exactly 32
+             x (rounds + prefill chunks) on the paged engine and 0 on the
+             continuous one, 0 elsewhere; accept rate, tokens per round, TPOT
+             and goodput printed for the record, and one more speculative
+             drain per engine under torch.profiler.
 
 Before the last line come the card's name and power limit as nvidia-smi
 prints them, then the kernels JSON; the last line is
@@ -94,7 +115,7 @@ TRAIN_PARITY_LOSS = 1e-5  # relative loss difference, card vs CPU, codes held
 TRAIN_PARITY_REL = 1e-4  # per-leaf relative L2 difference of gradients and parameters
 _NO_LAUNCHES = {"bnn": 0, "bnn_bwd_dw": 0, "bnn_bwd_dx": 0, "bnn_packed": 0, "cac_hw": 0,
                 "cac_train_bwd_dw": 0, "cac_train_bwd_dx": 0, "cac_train_bwd_fused": 0,
-                "cac_train_fwd": 0, "paged_attn": 0}
+                "cac_train_fwd": 0, "paged_attn": 0, "qnn8": 0}
 # the BNN kernels: the path's (K, N) projections at decode (M = n_slots) and
 # at training (M = batch 4 x seq 128), and two ragged shapes (K not a
 # multiple of 32, packed too; K not a multiple of 8, unpacked only)
@@ -106,6 +127,16 @@ BNN_RAGGED = [(129, 968, 65), (37, 100, 130)]
 TENSOR_CORE_OPS_S = 989e12
 BNN_SIGN_TIE = 1e-5  # |x| within this of 0 on both sides: a Sign the devices may split
 BNN_WINDOW_TIE = 1e-5  # |x| within this of 1 on both sides: an STE mask they may split
+# kernel 10 (int8 matmul): the path's (K, N) at decode (M = n_slots), the
+# draft's bucketed prefill of a prompt of <= 16 tokens (M = 16), chunk
+# prefill (M = 32) and M = 512, and ragged shapes (K = 99, 100: x rows not
+# 4-byte aligned; N = 33, 65, 130: w rows not either)
+QNN_SHAPES = [(m, k, n) for m in (N_SLOTS, 16, 32, 512) for k, n in PATH_KN]
+QNN_RAGGED = [(37, 100, 130), (129, 968, 65), (5, 99, 33)]
+INT8_TENSOR_OPS_S = 1979e12  # H100 SXM dense int8 tensor-core peak (data sheet)
+ACT_SCALE = 0.05  # LinearSpec.act_scale, the serve path's x_scale
+SPEC_K = 4  # the reference's benchmarked speculative window (dense <- qnn8)
+SPEC_TIE = 1e-4  # top-2 logit gap below which target-only and spec may part
 
 
 def fail(msg: str) -> None:
@@ -238,9 +269,11 @@ def phase_paged(torch, np, dev, flush):
 
     rng = np.random.default_rng(SEED + 1)
     rows = []
-    # decode (B = n_slots, C = 1) and a prefill chunk (B = 1, C = chunk),
+    # decode (B = n_slots, C = 1), a prefill chunk (B = 1, C = chunk) and
+    # the speculative verify (B = n_slots, C = spec_k),
     # T = max_len / block = 8 table entries per row
-    for name, b, c in (("decode", 4, 1), ("chunk", 1, 32)):
+    for name, b, c in (("decode", N_SLOTS, 1), ("chunk", 1, CHUNK),
+                       ("verify", N_SLOTS, SPEC_K)):
         for quantized in (False, True):
             q, k, v, tables, q_pos, ks, vs = _paged_case(torch, np, rng, dev, b, c,
                                                          MAX_LEN // BLOCK, quantized)
@@ -504,6 +537,79 @@ def phase_bnn_kernels(torch, np, dev, flush):
     return rows
 
 
+def _qnn_operands(np, rng, m, k, n):
+    """Kernel 10's operands (as ``tests/_torch_cases.qnn_case``): x int8
+    codes over -128..127, w int8 in -127..127 with both extremes, per-column
+    float32 scales, column 1 all zero in w at the 1e-12 scale floor; x row
+    0 all -128 and w column 0 all -127, so one sum reaches K * 128 * 127
+    (past 2^24 at K = 2560)."""
+    x = rng.integers(-128, 128, size=(m, k)).astype(np.int8)
+    w = rng.integers(-127, 128, size=(k, n)).astype(np.int8)
+    x.flat[:2] = (-128, 127)
+    w.flat[:2] = (-127, 127)
+    ws = rng.uniform(1e-3, 1e-2, size=(n,)).astype(np.float32)
+    w[:, 1] = 0
+    ws[1] = 1e-12
+    x[0], w[:, 0] = -128, -127
+    return x, w, ws
+
+
+def _int_mm_yardstick(torch, x, w, ws):
+    """One cuBLASLt int8 product (``torch._int_mm``, int32 out) and the same
+    dequant. ``_int_mm`` wants M > 16: a smaller M is zero-padded to 32 rows
+    (the pad is timed too). Timed here only; the port never calls it."""
+    m = x.shape[0]
+    xs = torch.full((), ACT_SCALE, dtype=torch.float32, device=x.device)
+
+    def run():
+        xin = x if m > 16 else torch.cat([x, x.new_zeros((32 - m, x.shape[1]))])
+        return torch._int_mm(xin, w)[:m].to(torch.float32) * (ws.reshape(1, -1) * xs)
+
+    return run, ("M=%d" % m if m > 16 else "M=%d zero-padded to 32" % m)
+
+
+def phase_qnn_kernels(torch, np, dev, flush):
+    """Kernel 10 against its plain version on the card: bit-exact (an exact
+    int32 sum and the same two float32 roundings) at the path's (K, N) for
+    M = 4, 16, 32 and 512 and at three ragged shapes, extreme codes
+    included. Times the kernel, its plain version (a float64 product,
+    exact) and ``torch._int_mm`` with the same dequant (cuBLASLt; M = 4
+    and 16 zero-padded to 32). Bound: bytes = x, w, w_scale read once and y written once, over
+    3.35 TB/s; operations 2 M K N over the int8 tensor-core peak (1,979
+    TOPS); the larger."""
+    from repro_torch.kernels import qnn_matmul as qnn
+
+    rng = np.random.default_rng(SEED + 11)
+    rows = []
+    for m, k, n in QNN_SHAPES + QNN_RAGGED:
+        x, w, ws = (torch.from_numpy(a).to(dev) for a in _qnn_operands(np, rng, m, k, n))
+        got = qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE)
+        torch.cuda.synchronize()
+        want = qnn.qnn_matmul_plain(x, w, ws, ACT_SCALE)
+        if not torch.equal(got, want):
+            fail(f"qnn_matmul M={m} K={k} N={n}: max |kernel - plain| = "
+                 f"{float((got - want).abs().max())} (must be 0)")
+        row = {"M": m, "K": k, "N": n, "max_abs_err": 0.0}
+        if (m, k, n) in QNN_SHAPES:
+            lib, lib_shape = _int_mm_yardstick(torch, x, w, ws)
+            row["library_err"] = float((lib() - want).abs().max())
+            row["library_shape"] = lib_shape
+            row["ms"] = time_ms(torch, lambda: qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE),
+                                flush=flush)
+            row["plain_ms"] = time_ms(torch, lambda: qnn.qnn_matmul_plain(x, w, ws, ACT_SCALE),
+                                      iters=5, flush=flush)
+            row["library_ms"] = time_ms(torch, lib, flush=flush)
+            row["bound_ms"], row["bound_by"] = _bound(m * k + k * n + 4 * n + 4 * m * n,
+                                                      2.0 * m * k * n, INT8_TENSOR_OPS_S)
+        rows.append(row)
+        print(f"[qnn8-kernels] qnn_matmul M={m} K={k} N={n} bit-exact"
+              + (f" ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} library_ms="
+                 f"{row['library_ms']:.5f} ({row['library_shape']}, max |lib - plain| "
+                 f"{row['library_err']:.1e}) bound_ms={row['bound_ms']:.6f} ({row['bound_by']})"
+                 if "ms" in row else ""))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the serving path
 # ---------------------------------------------------------------------------
@@ -523,10 +629,12 @@ def _requests(np, vocab):
     return [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)]
 
 
-def _serve(np, train, arch, quantized, dev, count_launches=False, label=None):
+def _serve(np, train, arch, quantized, dev, count_launches=False, label=None,
+           engine="paged", **spec):
     """One drain of the 8 requests through ``ServeEngine.from_trained`` (the
     train -> serve conversion runs each time, outside the timed drain);
-    ``label`` names the drain in a profile."""
+    ``label`` names the drain in a profile; ``spec`` passes ``spec_draft``
+    and ``spec_k``."""
     import contextlib
 
     import torch
@@ -534,9 +642,9 @@ def _serve(np, train, arch, quantized, dev, count_launches=False, label=None):
     from repro_torch.kernels import ops
     from repro_torch.serve import ServeEngine
 
-    eng = ServeEngine.from_trained(train, arch, engine="paged", n_slots=N_SLOTS,
+    eng = ServeEngine.from_trained(train, arch, engine=engine, n_slots=N_SLOTS,
                                    max_len=MAX_LEN, kv_block_size=BLOCK, prefill_chunk=CHUNK,
-                                   quantized_kv=quantized, device=dev)
+                                   quantized_kv=quantized, device=dev, **spec)
     for r in _requests(np, arch.vocab):
         eng.submit(r)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -608,16 +716,17 @@ def _check_serve_launches(arch, route, counts, summ):
              f"({expect[route]}, {expect['paged_attn']}) and 0 elsewhere")
 
 
-def phase_profile(torch, np, arch, train, dev, tag="profile"):
+def phase_profile(torch, np, arch, train, dev, tag="profile", label=None, **serve_kw):
     """Where the time of a drain goes: one more fp-KV drain under
-    torch.profiler. Device busy time is the union of the kernel, memcpy and
-    memset intervals inside the drain's window; the idle share is the rest.
-    The trace stays under build/profile/ (gitignored)."""
+    torch.profiler (``serve_kw`` picks the engine and the speculative draft;
+    default the paged engine). Device busy time is the union of the kernel,
+    memcpy and memset intervals inside the drain's window; the idle share is
+    the rest. The trace stays under build/profile/ (gitignored)."""
     from torch.profiler import ProfilerActivity, profile
 
-    label = f"{arch.compute_mode}_serve_drain"
+    label = label or f"{arch.compute_mode}_serve_drain"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, wall, summ = _serve(np, train, arch, False, dev, label=label)
+        _, _, wall, summ = _serve(np, train, arch, False, dev, label=label, **serve_kw)
     ticks = summ["decode_steps"] + summ["prefill_chunks"]
     result = {"wall_s": wall, "ticks": ticks, "ms_per_tick": wall / ticks * 1e3}
     share = _device_share(prof, label)
@@ -662,6 +771,119 @@ def phase_bnn_serve(torch, np, dev):
     path["parity"] = phase_parity(torch, np, arch, serve_params, dev,
                                   _bnn_sign_hooks(torch, "bnn_matmul_packed"), tag="bnn-parity")
     return path
+
+
+def phase_qnn8_serve(torch, np, dev):
+    """The qnn8 serve path: smollm-360m in qnn8 mode at full width and
+    depth through ``phase_path`` (kernel 10 on every projection: 224
+    launches and 32 attention launches per tick, 0 elsewhere), one profiled
+    drain, and the 2-layer card-vs-CPU parity with activation codes held at
+    genuine half-way ties (``_code_hooks``: qnn8 quantizes its input onto the
+    same 0.05 grid as bika)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.convert import tree_to_serve
+
+    arch = get_config("smollm-360m", compute_mode="qnn8", remat=False, paged_attn_route="fused")
+    train, path = phase_path(torch, np, arch, dev, "qnn8", tag="qnn8-serve")
+    path["profile"] = phase_profile(torch, np, arch, train, dev, tag="qnn8-profile")
+    serve_params = tree_to_serve(train, arch.linear_spec())
+    del train
+    path["parity"] = phase_parity(torch, np, arch, serve_params, dev, _code_hooks(torch),
+                                  tag="qnn8-parity")
+    return path
+
+
+def _spec_ties(torch, np, arch, train, dev, want, got, what):
+    """Requests whose tokens ``got`` differ from ``want``: each may part only
+    where the target's top-2 logit gap at the first differing step, recomputed
+    on the card from the common prefix (a full forward of the prompt and the
+    common tokens), is below SPEC_TIE. Returns the ties; fails on any other
+    divergence."""
+    from repro_torch.core.convert import tree_to_serve
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import split_layers
+
+    ties = []
+    diff = [rid for rid in want if want[rid] != got[rid]]
+    if not diff:
+        return ties
+    api = build_model(arch, phase="serve")
+    params = split_layers(tree_to_serve(train, arch.linear_spec()))
+    prompts = {r.rid: r.prompt for r in _requests(np, arch.vocab)}
+    for rid in diff:
+        d = next(i for i, (a, b) in enumerate(zip(want[rid], got[rid])) if a != b)
+        seq = np.concatenate([prompts[rid], np.asarray(want[rid][:d], np.int32)])
+        with torch.inference_mode():
+            logits = api.apply(params, {"tokens": torch.from_numpy(seq[None]).to(dev)})
+        top2 = torch.topk(logits[0, -1].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        print(f"[spec] {what}: request {rid} parts at token {d} ({want[rid][d]} vs "
+              f"{got[rid][d]}); the target's top-2 logit gap there is {gap:.3e}")
+        if gap >= SPEC_TIE:
+            fail(f"spec {what}: request {rid} diverges at token {d} where the target's top-2 "
+                 f"gap is {gap:.3e} (a tie is below {SPEC_TIE})")
+        ties.append({"rid": rid, "token": d, "gap": gap})
+    return ties
+
+
+def phase_spec(torch, np, dev):
+    """Speculative decoding at full width and depth: dense smollm-360m target
+    <- qnn8 draft of the same seeded train-form tree, spec_k = SPEC_K,
+    through ``ServeEngine.from_trained``. Four fp-KV drains of the 8
+    requests: paged target-only, paged speculative, continuous target-only,
+    continuous speculative. Speculative tokens equal target-only tokens on
+    the same engine, and the continuous target-only tokens the paged ones,
+    under the tie rule of ``_spec_ties``. Launch counts exact: kernel 10 =
+    224 x (SPEC_K x rounds + admissions) (SPEC_K draft decode steps a round,
+    one draft prefill an admission), kernel 11 = 32 x (rounds + prefill
+    chunks) on the paged engine and 0 on the continuous one (its dense
+    attention is plain PyTorch), every other kernel 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    arch = get_config("smollm-360m", compute_mode="dense", remat=False, paged_attn_route="fused")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    train = build_model(arch, phase="train").init(gen, device=dev)
+    per_pass = 7 * arch.n_layers
+    result, tokens = {}, {}
+    for engine in ("paged", "continuous"):
+        for spec in (False, True):
+            kw = dict(spec_draft="qnn8", spec_k=SPEC_K) if spec else {}
+            outs, counts, wall, summ = _serve(np, train, arch, False, dev, count_launches=True,
+                                              engine=engine, **kw)
+            rounds = summ["decode_steps"]
+            attn = arch.n_layers * (rounds + summ["prefill_chunks"]) if engine == "paged" else 0
+            qnn = per_pass * (SPEC_K * rounds + summ["prefills"]) if spec else 0
+            expect = dict(_NO_LAUNCHES, qnn8=qnn, paged_attn=attn)
+            if counts != expect:
+                fail(f"spec {engine} spec={spec}: launch counts {counts} != {expect}")
+            if spec and min(counts["qnn8"], summ["spec_rounds"]) <= 0:
+                fail(f"spec {engine}: the draft never ran")
+            name = f"{engine}_{'spec' if spec else 'target'}"
+            tokens[name] = outs
+            result[name] = {"launches": counts, "wall_s": wall, "summary": summ}
+            print(f"[spec] {name}: wall {wall:.3f} s, {rounds} "
+                  f"{'rounds' if spec else 'ticks'} ({wall / rounds * 1e3:.1f} ms each, "
+                  f"admissions included), goodput {summ['goodput_tok_s']:.1f} tok/s, "
+                  f"TPOT p50 {summ['tpot_p50_s'] * 1e3:.2f} ms"
+                  + (f", accept rate {summ['spec_accept_rate']:.4f}, tokens/round "
+                     f"{summ['spec_tokens_per_round']:.4f}" if spec else "")
+                  + f"; launches {counts}")
+        result[f"{engine}_spec"]["profile"] = phase_profile(
+            torch, np, arch, train, dev, tag="spec-profile", label=f"{engine}_spec_drain",
+            engine=engine, spec_draft="qnn8", spec_k=SPEC_K)
+        result[f"{engine}_spec"]["ties"] = _spec_ties(
+            torch, np, arch, train, dev, tokens[f"{engine}_target"], tokens[f"{engine}_spec"],
+            f"{engine} speculative vs target-only")
+    result["continuous_vs_paged_ties"] = _spec_ties(
+        torch, np, arch, train, dev, tokens["paged_target"], tokens["continuous_target"],
+        "continuous vs paged target-only")
+    n_ties = sum(len(result[f"{e}_spec"]["ties"]) for e in ("paged", "continuous"))
+    print(f"[spec] dense <- qnn8, k={SPEC_K}: speculative tokens equal target-only on both "
+          f"engines and continuous equal paged, with {n_ties} + "
+          f"{len(result['continuous_vs_paged_ties'])} divergences at top-2 gaps below "
+          f"{SPEC_TIE}; req0={tokens['paged_spec'][0]}")
+    return result
 
 
 def _device_share(prof, label):
@@ -1232,6 +1454,7 @@ def main() -> int:
     attn_rows = phase_paged(torch, np, dev, flush)
     train_rows = phase_train_kernels(torch, np, dev, flush)
     bnn_rows = phase_bnn_kernels(torch, np, dev, flush)
+    qnn_rows = phase_qnn_kernels(torch, np, dev, flush)
     del flush
     from repro_torch.configs import get_config
     from repro_torch.core.convert import tree_to_serve
@@ -1250,6 +1473,8 @@ def main() -> int:
     bnn_training = phase_train_path(torch, np, dev, "bnn", tag="bnn-train")
     bnn_training["parity"] = phase_train_parity(torch, np, dev, "bnn", _bnn_train_hooks(torch),
                                                 tag="bnn-train-parity")
+    qnn_path = phase_qnn8_serve(torch, np, dev)
+    spec = phase_spec(torch, np, dev)
 
     main_cac = next(r for r in cac_rows if (r["M"], r["K"], r["N"]) == (4, 960, 2560))
     main_attn = next(r for r in attn_rows if r["case"] == "decode" and not r["int8"])
@@ -1324,11 +1549,26 @@ def main() -> int:
     kernels[-4]["unpacked_serve_launches_per_drain"] = bnn_path["unpacked"]["launches"]["bnn"]
     kernels[-4]["shapes"] += [{k: v for k, v in r.items() if k in ("M", "K", "N", "fwd_int8")}
                               for r in bnn_rows if "fwd_int8" in r]
+    main_qnn = next(r for r in qnn_rows if (r["M"], r["K"], r["N"]) == (N_SLOTS, 960, 2560))
+    kernels.append({
+        "name": "qnn_matmul", "route": "cuda", "source": "src/repro_torch/csrc/qnn_matmul.cu",
+        "replaces": "src/repro/kernels/qnn_matmul.py:73",
+        "launches": qnn_path["launches"]["qnn8"],
+        "max_abs_err": max(r["max_abs_err"] for r in qnn_rows),
+        "ms": main_qnn["ms"], "plain_ms": main_qnn["plain_ms"],
+        "bound_ms": main_qnn["bound_ms"], "bound_by": main_qnn["bound_by"],
+        "library_ms": main_qnn["library_ms"],
+        "shape": "M=4 K=960 N=2560 (decode gate/up); launches per qnn8 drain; library: "
+                 "torch._int_mm " + main_qnn["library_shape"],
+        "spec_launches_per_drain": {k: spec[k]["launches"]["qnn8"]
+                                    for k in ("paged_spec", "continuous_spec")},
+        "shapes": [r for r in qnn_rows if "ms" in r]})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump({"device": smi, "kernels": kernels, "path": path, "training": training,
                    "train_kernels": train_rows, "bnn_kernels": bnn_rows, "bnn_path": bnn_path,
-                   "bnn_training": bnn_training}, fh, indent=1, sort_keys=True)
+                   "bnn_training": bnn_training, "qnn_kernels": qnn_rows, "qnn_path": qnn_path,
+                   "spec": spec}, fh, indent=1, sort_keys=True)
     print(smi)
     print(json.dumps({"kernels": kernels}, sort_keys=True))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

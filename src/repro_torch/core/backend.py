@@ -4,8 +4,7 @@ Every projection mode implements one contract — ``init_train`` /
 ``init_serve`` / ``to_serve`` / ``train_param_keys`` / ``apply_train`` /
 ``apply_serve`` / ``kernel_route`` —
 and ``nn/linear.py`` dispatches on ``LinearSpec.mode`` through the registry.
-This slice registers ``dense``, ``bika`` and ``bnn``; ``qnn8`` waits for
-its kernel.
+Registered: ``dense``, ``bika``, ``bnn`` and ``qnn8``.
 
 Parameters are plain dicts of tensors with the reference's ``(K, N)`` /
 ``(m, K, N)`` layouts (never torch's ``(N, K)``), so one tree converts
@@ -19,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import bika as bika_core
+from . import qnn as qnn_core
 from .ste import sign
 
 __all__ = [
@@ -32,6 +32,7 @@ __all__ = [
     "DenseBackend",
     "BikaBackend",
     "BnnBackend",
+    "Qnn8Backend",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -339,6 +340,75 @@ class BnnBackend(QuantBackend):
         return "bnn_packed" if spec.pack_signs else "bnn"
 
 
+class Qnn8Backend(QuantBackend):
+    """The 8-bit integer baseline: train form ``{w, amax[, b]}`` (fake-quant
+    weights and PACT activations), serve form ``{w_int int8 (K, N), w_scale
+    float32 (1, N)[, b]}``."""
+
+    name = "qnn8"
+    default_bias = True  # an ordinary ANN layer's additive bias
+
+    def inter_act(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(x)
+
+    def init_train(self, gen, k, n, spec, *, device):
+        p = {
+            "w": _uniform(gen, (k, n), spec.pdtype, 1.0 / (k**0.5), device),
+            "amax": torch.full((), 6.0, dtype=spec.pdtype, device=device),
+        }
+        if spec.bias:
+            p["b"] = torch.zeros((n,), dtype=spec.pdtype, device=device)
+        return p
+
+    def init_serve(self, gen, k, n, spec, *, device):
+        p = {
+            "w_int": torch.zeros((k, n), dtype=torch.int8, device=device),
+            "w_scale": torch.ones((1, n), dtype=torch.float32, device=device),
+        }
+        if spec.bias:
+            p["b"] = torch.zeros((n,), dtype=torch.float32, device=device)
+        return p
+
+    def to_serve(self, params, spec):
+        w_int, w_scale = qnn_core.quantize_weights(params["w"])
+        out = {"w_int": w_int, "w_scale": w_scale.to(torch.float32)}
+        if "b" in params:
+            out["b"] = params["b"].to(torch.float32)
+        return out
+
+    def train_param_keys(self, spec):
+        return frozenset({"w", "amax"}), frozenset({"b"})
+
+    def apply_train(self, params, x, spec):
+        """Fake-quant training: a plain float matmul, as in the reference
+        (no kernel of its own)."""
+        xq = qnn_core.fake_quant_activations(x, params["amax"].to(x.dtype))
+        wq = qnn_core.fake_quant_weights(params["w"].to(x.dtype))
+        y = xq @ wq
+        if "b" in params:
+            y = y + params["b"].to(x.dtype)
+        return y
+
+    def apply_serve(self, params, x, spec):
+        """y = float32(q(x) @ w_int) * (w_scale * act_scale) [+ b], with
+        q(x) the int8 activation codes of ``quantize_activations``. Every call
+        goes through ``kernels.ops.qnn_matmul`` whatever ``spec.impl`` says:
+        on CUDA the hand-written int8 kernel, on the CPU its plain version.
+        The reference's default route computes the same integers in XLA."""
+        from repro_torch.kernels.ops import qnn_matmul
+
+        cd = x.dtype
+        x_int = quantize_activations(x, spec.act_scale)
+        y = qnn_matmul(x_int, params["w_int"], params["w_scale"], spec.act_scale).to(cd)
+        if "b" in params:
+            y = y + params["b"].to(cd)
+        return y
+
+    def kernel_route(self, spec, phase="train"):
+        return None if phase == "train" else "qnn8"
+
+
 register(DenseBackend())
 register(BikaBackend())
 register(BnnBackend())
+register(Qnn8Backend())

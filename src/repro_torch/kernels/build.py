@@ -25,7 +25,7 @@ __all__ = ["CSRC", "BUILD_DIR", "KERNEL_SOURCES", "build_all", "load"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_PKG)), "build", "kernels")
-KERNEL_SOURCES = ("bnn_matmul", "cac_matmul", "cac_train", "paged_attn")
+KERNEL_SOURCES = ("bnn_matmul", "cac_matmul", "cac_train", "paged_attn", "qnn_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

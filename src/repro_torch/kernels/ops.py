@@ -1,13 +1,14 @@
 """Public kernel wrappers (port of ``repro/kernels/ops.py``): the serve
-routes, the training CAC ``cac_train_matmul`` and the BNN sign products
-(``bnn_matmul``, ``bnn_matmul_packed`` and the training ``bnn_train_matmul``).
+routes, the training CAC ``cac_train_matmul``, the BNN sign products
+(``bnn_matmul``, ``bnn_matmul_packed`` and the training ``bnn_train_matmul``)
+and the QNN int8 product ``qnn_matmul``.
 
 Each wrapper takes its plain PyTorch version only because the tensors it
 was given lie on the CPU; on CUDA tensors it launches the hand-written
 kernel or raises — there is no fallback. Launches are counted on the
 kernel calls (``cac_matmul_kernel_call.launches``,
 ``paged_attn_kernel_call.launches``, ``cac_train_fwd_call.launches``,
-``bnn_matmul_kernel_call.launches``, ...);
+``bnn_matmul_kernel_call.launches``, ``qnn_matmul_kernel_call.launches``, ...);
 ``launch_counts``/``reset_launches`` read and zero them.
 """
 from __future__ import annotations
@@ -21,6 +22,7 @@ from . import bnn_matmul as _bnn
 from . import cac_matmul as _cac
 from .cac_matmul import cac_matmul_kernel_call, cac_matmul_plain
 from .paged_attn import paged_attn_kernel_call
+from .qnn_matmul import qnn_matmul_kernel_call, qnn_matmul_plain
 
 __all__ = [
     "KERNEL_ROUTES",
@@ -33,6 +35,7 @@ __all__ = [
     "kernel_route",
     "launch_counts",
     "paged_attention",
+    "qnn_matmul",
     "reset_launches",
 ]
 
@@ -170,6 +173,21 @@ def bnn_train_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(x.shape[:-1] + (w.shape[1],))
 
 
+def qnn_matmul(x_int: torch.Tensor, w_int: torch.Tensor, w_scale: torch.Tensor,
+               x_scale: float) -> torch.Tensor:
+    """int8 matmul + per-column dequant: x_int (..., K) int8, w_int (K, N)
+    int8, w_scale (N,) or (1, N) float32 -> (..., N) float32
+    ``float32(x_int @ w_int) * (w_scale * x_scale)``. Nothing is padded:
+    the kernel masks its ragged edges."""
+    lead = x_int.shape[:-1]
+    x2 = x_int.reshape(-1, x_int.shape[-1])
+    if x2.is_cuda:
+        y = qnn_matmul_kernel_call(x2, w_int, w_scale, x_scale)
+    else:
+        y = qnn_matmul_plain(x2, w_int, w_scale, x_scale)
+    return y.reshape(lead + (w_int.shape[1],))
+
+
 KERNEL_ROUTES: dict = {
     "bnn": bnn_matmul,
     "bnn_packed": bnn_matmul_packed,
@@ -177,6 +195,7 @@ KERNEL_ROUTES: dict = {
     "cac_hw": cac_matmul,
     "cac_train": cac_train_matmul,
     "paged_attn": paged_attention,
+    "qnn8": qnn_matmul,
 }
 
 _COUNTED = {
@@ -190,6 +209,7 @@ _COUNTED = {
     "cac_train_bwd_fused": _cac.cac_train_bwd_fused_call,
     "cac_train_fwd": _cac.cac_train_fwd_call,
     "paged_attn": paged_attn_kernel_call,
+    "qnn8": qnn_matmul_kernel_call,
 }
 
 

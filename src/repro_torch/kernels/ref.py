@@ -8,7 +8,7 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["bnn_matmul_ref", "cac_matmul_ref", "cac_train_bwd_ref", "cac_train_fwd_ref",
-           "paged_attention_ref"]
+           "paged_attention_ref", "qnn_matmul_ref"]
 
 
 def cac_matmul_ref(x: torch.Tensor, tau: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -57,6 +57,23 @@ def bnn_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     xs = torch.where(x >= 0, 1.0, -1.0).to(torch.float32)
     ws = torch.where(w >= 0, 1.0, -1.0).to(torch.float32)
     return xs @ ws
+
+
+def qnn_matmul_ref(x_int: torch.Tensor, w_int: torch.Tensor, x_scale: float,
+                   w_scale: torch.Tensor) -> torch.Tensor:
+    """int8 x int8 -> exact integer accumulate -> float32 dequant:
+    ``float32(x_int @ w_int) * (w_scale * float32(x_scale))``, the scale
+    product formed in float32 first. x_int (M, K), w_int (K, N) int8;
+    w_scale (N,) or (1, N) float32 -> (M, N) float32.
+
+    The product is taken in float64, on the CPU and on the card alike (CUDA
+    has no integer matmul): every partial sum is an integer of magnitude
+    <= K * 128 * 127 < 2^53, so it is exact in any order, and the one
+    rounding to float32 is the same round-to-nearest as the int32 -> float32
+    convert of the reference's int32 accumulator."""
+    acc = (x_int.to(torch.float64) @ w_int.to(torch.float64)).to(torch.float32)
+    xs = torch.full((), x_scale, dtype=torch.float32, device=acc.device)
+    return acc * (w_scale.to(torch.float32).reshape(1, -1) * xs)
 
 
 def paged_attention_ref(

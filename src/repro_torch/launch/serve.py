@@ -1,13 +1,19 @@
 """Serving launcher CLI (port of ``repro/launch/serve.py``): bring up a
 hardware-form (serve-phase) model and drain a synthetic request stream
-through the paged engine.
+through a slot engine (continuous or paged), optionally with speculative
+decoding.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
         --requests 8 --new-tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode qnn8
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode dense \
+        --spec-draft qnn8 --spec-k 4
 
 Runs on CUDA unless ``--device cpu`` is given; without a GPU it raises.
-Weights are initialised from seed 0, as in the reference launcher. Flags
-not ported yet (tensor parallelism, speculative decoding, tracing, metrics
+Weights are initialised from seed 0, as in the reference launcher; with
+``--spec-draft`` the seed makes a train-form tree, from which both the
+target and the draft are converted (``ServeEngine.from_trained``). Flags
+not ported yet (the static engine, tensor parallelism, tracing, metrics
 export, profiling, arrival replay) are not accepted.
 """
 from __future__ import annotations
@@ -33,15 +39,15 @@ def _param_bytes(tree) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m", choices=ARCH_NAMES)
-    ap.add_argument("--mode", default="bika", choices=("dense", "bika", "bnn"))
+    ap.add_argument("--mode", default="bika", choices=("dense", "bika", "bnn", "qnn8"))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--quantized-kv", action="store_true")
-    ap.add_argument("--engine", default="auto", choices=("auto", "paged"),
-                    help="auto resolves to paged until the continuous engine is ported")
+    ap.add_argument("--engine", default="auto", choices=("auto", "continuous", "paged"),
+                    help="auto: continuous where the architecture supports it")
     ap.add_argument("--n-slots", type=int, default=0,
                     help="decode slots (0 -> batch-size)")
     ap.add_argument("--kv-block-size", type=int, default=16,
@@ -57,6 +63,13 @@ def main(argv=None) -> int:
     ap.add_argument("--paged-attn-route", default="fused", choices=("fused", "gather"),
                     help="paged attention: fused block-table kernel (default) or the "
                          "gather oracle")
+    ap.add_argument("--spec-draft", default="",
+                    choices=("", "dense", "bika", "bnn", "qnn8", "small"),
+                    help="speculative decoding: draft preset built from the same "
+                         "trained weights ('' = off)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="speculative window: the draft proposes k-1 tokens, the target "
+                         "verifies k")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (default; raises without a GPU) or cpu (plain versions)")
     args = ap.parse_args(argv)
@@ -68,15 +81,25 @@ def main(argv=None) -> int:
         arch = arch.replace(pack_signs=True)
     if args.paged_attn_route != arch.paged_attn_route:
         arch = arch.replace(paged_attn_route=args.paged_attn_route)
-    api = build_model(arch, phase="serve")
-    params = api.init(0, device=device)
-    print(f"[serve] {arch.name} mode={args.mode} params={_param_bytes(params):,} B "
-          f"device={device}")
-    eng = ServeEngine(api, params, arch, batch_size=args.batch_size, max_len=args.max_len,
-                      quantized_kv=args.quantized_kv, engine=args.engine,
-                      n_slots=args.n_slots or None, kv_block_size=args.kv_block_size,
-                      kv_n_blocks=args.kv_n_blocks or None, prefix_cache=args.prefix_cache,
-                      prefill_chunk=args.prefill_chunk, device=device)
+    eng_kw = dict(batch_size=args.batch_size, max_len=args.max_len,
+                  quantized_kv=args.quantized_kv, engine=args.engine,
+                  n_slots=args.n_slots or None, kv_block_size=args.kv_block_size,
+                  kv_n_blocks=args.kv_n_blocks or None, prefix_cache=args.prefix_cache,
+                  prefill_chunk=args.prefill_chunk, device=device)
+    if args.spec_draft:
+        # the trained float tree, so that the SAME weights convert through
+        # the target backend and the cheaper draft backend (serve/spec.py)
+        tparams = build_model(arch, phase="train").init(0, device=device)
+        print(f"[serve] {arch.name} mode={args.mode} params={_param_bytes(tparams):,} B "
+              f"device={device} spec: draft={args.spec_draft} k={args.spec_k}")
+        eng = ServeEngine.from_trained(tparams, arch, spec_draft=args.spec_draft,
+                                       spec_k=args.spec_k, **eng_kw)
+    else:
+        api = build_model(arch, phase="serve")
+        params = api.init(0, device=device)
+        print(f"[serve] {arch.name} mode={args.mode} params={_param_bytes(params):,} B "
+              f"device={device}")
+        eng = ServeEngine(api, params, arch, **eng_kw)
     print(f"[serve] engine={eng.engine}")
     rng = np.random.RandomState(0)
     for i in range(args.requests):
@@ -91,10 +114,15 @@ def main(argv=None) -> int:
     print(f"[serve] goodput={m['goodput_tok_s']:.1f} tok/s "
           f"occupancy={m['slot_occupancy']:.2f} "
           f"prefill compiles={m['prefill_compiles']}")
-    print(f"[serve] prefix hit rate={m['prefix_hit_rate']:.2f} "
-          f"blocks peak={m['blocks_in_use_peak']} "
-          f"chunks={m['prefill_chunks']} "
-          f"deferrals={m['admission_deferrals']}")
+    if eng.engine == "paged":
+        print(f"[serve] prefix hit rate={m['prefix_hit_rate']:.2f} "
+              f"blocks peak={m['blocks_in_use_peak']} "
+              f"chunks={m['prefill_chunks']} "
+              f"deferrals={m['admission_deferrals']}")
+    if m.get("spec_rounds"):
+        print(f"[serve] spec: rounds={m['spec_rounds']} "
+              f"accept rate={m['spec_accept_rate']:.2f} "
+              f"tokens/round={m['spec_tokens_per_round']:.2f}")
     print(f"[serve] kv pool={m['kv_pool_bytes']:,} B "
           f"({m['kv_bytes_per_token']:.0f} B/token) "
           f"in-use peak={m['kv_bytes_in_use_peak']:,} B "

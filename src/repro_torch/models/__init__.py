@@ -1,5 +1,6 @@
 """repro_torch.models — the lm family and the build_model dispatcher."""
-from .base import ArchConfig, ModelAPI, PagedKVLayout, paged_kv_layout
+from .base import (ArchConfig, KVCacheLayout, ModelAPI, PagedKVLayout, kv_cache_layout,
+                   paged_kv_layout)
 from .lm import build_lm
 
 _FAMILIES = {"lm": build_lm}
@@ -13,5 +14,5 @@ def build_model(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
     return builder(cfg, phase=phase)
 
 
-__all__ = ["ArchConfig", "ModelAPI", "PagedKVLayout", "build_lm", "build_model",
-           "paged_kv_layout"]
+__all__ = ["ArchConfig", "KVCacheLayout", "ModelAPI", "PagedKVLayout", "build_lm",
+           "build_model", "kv_cache_layout", "paged_kv_layout"]

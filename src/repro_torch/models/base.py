@@ -1,8 +1,9 @@
-"""Architecture config, the paged-KV layout contract and the training layer
-loop (port of ``repro/models/base.py``: ``ArchConfig``, ``PagedKVLayout``,
-``paged_kv_layout``, ``scan_blocks_aux``). Layers run as a Python loop;
-``scan_blocks_aux`` is the training forward's, with
-``torch.utils.checkpoint`` around each layer when ``remat`` is set."""
+"""Architecture config, the KV layout contracts and the training layer loop
+(port of ``repro/models/base.py``: ``ArchConfig``, ``KVCacheLayout``,
+``kv_cache_layout``, ``PagedKVLayout``, ``paged_kv_layout``,
+``scan_blocks_aux``). Layers run as a Python loop; ``scan_blocks_aux`` is
+the training forward's, with ``torch.utils.checkpoint`` around each layer
+when ``remat`` is set."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,7 +14,20 @@ import torch.utils.checkpoint
 
 from repro_torch.core.backend import LinearSpec
 
-__all__ = ["ArchConfig", "ModelAPI", "PagedKVLayout", "paged_kv_layout", "scan_blocks_aux"]
+__all__ = ["ArchConfig", "KVCacheLayout", "ModelAPI", "PagedKVLayout", "kv_cache_layout",
+           "paged_kv_layout", "scan_blocks_aux"]
+
+
+class KVCacheLayout(NamedTuple):
+    """Every leaf of the dense slot cache is ``(n_layers, n_slots, max_len,
+    n_kv_heads, head_dim)`` (scale leaves end in 1): the batch axis is the
+    slot axis the continuous scheduler hands to requests."""
+
+    n_layers: int
+    n_slots: int
+    max_len: int
+    n_kv_heads: int
+    head_dim: int
 
 
 class PagedKVLayout(NamedTuple):
@@ -29,22 +43,29 @@ class PagedKVLayout(NamedTuple):
     head_dim: int
 
 
-def paged_kv_layout(cache) -> PagedKVLayout:
-    """Read the layout off a block-pool dict, validating the rank-5 contract."""
+def kv_cache_layout(cache) -> KVCacheLayout:
+    """Read the (layers, slots, max_len, heads, hd) layout off a cache dict,
+    validating the rank-5 contract."""
     if not cache:
         raise ValueError("empty cache")
     lead = None
     for leaf in cache.values():
         if leaf.dim() != 5:
             raise ValueError(
-                f"KV cache leaves must be rank-5 (layers, blocks, block_size, heads, hd); "
+                f"KV cache leaves must be rank-5 (layers, slots, max_len, heads, hd); "
                 f"got shape {tuple(leaf.shape)}"
             )
         if lead is None:
             lead = tuple(leaf.shape[:4])
         elif tuple(leaf.shape[:4]) != lead:
             raise ValueError(f"inconsistent cache leaves: {tuple(leaf.shape[:4])} vs {lead}")
-    return PagedKVLayout(*cache["k"].shape)
+    return KVCacheLayout(*cache["k"].shape)
+
+
+def paged_kv_layout(cache) -> PagedKVLayout:
+    """The paged layout: structurally a dense cache with (slots, max_len) =
+    (n_phys_blocks, block_size)."""
+    return PagedKVLayout(*kv_cache_layout(cache))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +89,7 @@ class ArchConfig:
     rope_theta: float = 10000.0
     window: Optional[int] = None
     n_experts: int = 0
-    compute_mode: str = "dense"  # dense | bika | bnn
+    compute_mode: str = "dense"  # dense | bika | bnn | qnn8
     bika_m: int = 1
     bika_impl: str = "cvjp"
     pack_signs: bool = False
@@ -121,10 +142,12 @@ def scan_blocks_aux(layers: Sequence[Any], x: torch.Tensor, body: Callable, *,
 
 class ModelAPI(NamedTuple):
     """What the trainer and the serving runtime consume (the reference's,
-    cut to the paged serve path and the training forward)."""
+    cut to the lm serve paths and the training forward)."""
 
     init: Callable[..., Any]  # (seed, device) -> params
-    init_cache: Callable[..., Any]  # (n_phys_blocks, block_size, quantized, device)
+    # (batch, max_len, quantized, device): the dense slot cache, or with
+    # (n_phys_blocks, block_size) the paged pool
+    init_cache: Callable[..., Any]
     # (params, tok (S,1), pool, positions (S,), tables (S,T)) -> (logits, pool)
     decode_paged: Callable[..., Any]
     # (params, chunk (1,C), pool, table (1,T), start (1,), last_in_chunk (1,))
@@ -132,3 +155,11 @@ class ModelAPI(NamedTuple):
     prefill_chunk: Callable[..., Any]
     apply: Optional[Callable[..., Any]] = None  # (params, batch) -> logits
     apply_aux: Optional[Callable[..., Any]] = None  # (params, batch) -> (logits, aux)
+    # (params, tok (B,1), cache, positions (B,) or scalar) -> (logits, cache)
+    decode_step: Optional[Callable[..., Any]] = None
+    # (params, {"tokens": (B,S)}, max_len, quantized, last_index) -> (logits (B,1,V), cache)
+    prefill: Optional[Callable[..., Any]] = None
+    # (params, window (B,C), cache, positions (B,)) -> (logits (B,C,V), cache)
+    decode_verify: Optional[Callable[..., Any]] = None
+    # (params, window (B,C), pool, positions (B,), tables (B,T)) -> (logits (B,C,V), pool)
+    decode_verify_paged: Optional[Callable[..., Any]] = None

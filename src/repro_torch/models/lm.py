@@ -1,11 +1,13 @@
 """Decoder-only LM (port of ``repro/models/lm.py``: ``init``, the
-training forward ``apply`` / ``apply_aux``, and the paged serve path:
-``init_cache`` for the paged pool, ``decode_paged`` and ``prefill_chunk``).
+training forward ``apply`` / ``apply_aux``, the dense-slot serve path of
+the continuous engine — ``init_cache``, ``prefill``, ``decode_step`` and
+the speculative ``decode_verify`` — and the paged serve path:
+``decode_paged``, ``prefill_chunk`` and ``decode_verify_paged``).
 
 Parameters keep the reference's tree: ``{"embed", "layers", "ln_f"}`` with
 every ``layers`` leaf stacked ``(L, ...)``. The layer loop is a Python loop
 over per-layer views (``split_layers`` makes them once; the functions
-accept either form). The pool is updated in place.
+accept either form). Caches and pools are updated in place.
 """
 from __future__ import annotations
 
@@ -18,9 +20,13 @@ from repro_torch.nn import embedding
 from repro_torch.nn.attention import (
     AttnConfig,
     attn_apply,
+    attn_decode_step,
     attn_decode_step_paged,
     attn_init,
+    attn_prefill,
     attn_prefill_chunk,
+    attn_verify_step,
+    init_kv_cache,
 )
 from repro_torch.nn.mlp import mlp_apply, mlp_init
 from repro_torch.nn.norms import rmsnorm_apply, rmsnorm_init
@@ -162,22 +168,14 @@ def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
     def apply(params, batch: Dict[str, Any]) -> torch.Tensor:
         return apply_aux(params, batch)[0]
 
-    def init_cache(n_phys_blocks: int, block_size: int, *, quantized: bool = False,
+    def init_cache(batch: int, max_len: int, *, quantized: bool = False,
                    dtype=None, device=None):
-        """The paged pool: leaves (L, n_phys_blocks, block_size, Hkv, hd).
-        On CUDA unless ``device="cpu"``; raises without a GPU."""
-        device = resolve_device(device)
-        shape = (cfg.n_layers, n_phys_blocks, block_size, cfg.n_kv_heads, cfg.hd)
-        if quantized:
-            return {
-                "k": torch.zeros(shape, dtype=torch.int8, device=device),
-                "v": torch.zeros(shape, dtype=torch.int8, device=device),
-                "k_scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device),
-                "v_scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device),
-            }
-        dt = dtype or cdtype
-        return {"k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}
+        """``init_kv_cache`` stacked over the layers: leaves (L, batch,
+        max_len, Hkv, hd), the dense slot cache, or with (n_phys_blocks,
+        block_size) the paged pool (the same function serves both, as in the
+        reference). On CUDA unless ``device="cpu"``; raises without a GPU."""
+        return init_kv_cache(batch, acfg, max_len, dtype=dtype or cdtype, quantized=quantized,
+                             layers=cfg.n_layers, device=resolve_device(device))
 
     def decode_paged(params, tokens, cache, position, tables):
         """Paged one-token decode: tokens (S, 1), position (S,), tables
@@ -192,6 +190,68 @@ def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
             x = _layer_ffn(p, x + a, cfg, phase)
         x = rmsnorm_apply(params["ln_f"], x)
         return embedding.unembed_apply(params["embed"], x), cache
+
+    def _head(params, x):
+        return embedding.unembed_apply(params["embed"], rmsnorm_apply(params["ln_f"], x))
+
+    def decode_step(params, tokens, cache, position):
+        """Dense one-token decode: tokens (B, 1), position scalar or (B,) ->
+        (logits (B, 1, V), cache updated in place)."""
+        x = embedding.embed_apply(params["embed"], tokens, cdtype)
+        spec = cfg.linear_spec()
+        for i, p in enumerate(_layer_list(params)):
+            a, _ = attn_decode_step(p["attn"], rmsnorm_apply(p["ln1"], x), _pool_layer(cache, i),
+                                    position, acfg, spec, phase=phase)
+            x = _layer_ffn(p, x + a, cfg, phase)
+        return _head(params, x), cache
+
+    def decode_verify(params, tokens, cache, position):
+        """Speculative verify: the (B, C) window scored at per-row positions
+        ``position + [0, C)`` in one step, K/V written in place. Returns all
+        (B, C, V) logits: slot j's argmax is the greedy successor of window
+        token j, what C sequential ``decode_step`` calls would give."""
+        x = embedding.embed_apply(params["embed"], tokens, cdtype)
+        spec = cfg.linear_spec()
+        for i, p in enumerate(_layer_list(params)):
+            a, _ = attn_verify_step(p["attn"], rmsnorm_apply(p["ln1"], x), _pool_layer(cache, i),
+                                    position, acfg, spec, phase=phase)
+            x = _layer_ffn(p, x + a, cfg, phase)
+        return _head(params, x), cache
+
+    def decode_verify_paged(params, tokens, cache, position, tables):
+        """Paged speculative verify through ``attn_prefill_chunk`` (kernel 11
+        with C = window queries per row on the fused route): all (B, C, V)
+        logits."""
+        x = embedding.embed_apply(params["embed"], tokens, cdtype)
+        spec = cfg.linear_spec()
+        for i, p in enumerate(_layer_list(params)):
+            a, _ = attn_prefill_chunk(p["attn"], rmsnorm_apply(p["ln1"], x),
+                                      _pool_layer(cache, i), tables, position, acfg, spec,
+                                      phase=phase)
+            x = _layer_ffn(p, x + a, cfg, phase)
+        return _head(params, x), cache
+
+    def prefill(params, batch, *, max_len=None, quantized: bool = False, last_index=None):
+        """Prompt pass: (logits (B, 1, V), stacked dense cache of max_len
+        positions). ``last_index`` ((B,) int32) selects the position whose
+        logits are returned (the last real token of a right-padded bucket),
+        else the last column."""
+        tokens = batch["tokens"]
+        ml = max_len or tokens.shape[1]
+        x = embedding.embed_apply(params["embed"], tokens, cdtype)
+        spec = cfg.linear_spec()
+        caches = []
+        for p in _layer_list(params):
+            a, c = attn_prefill(p["attn"], rmsnorm_apply(p["ln1"], x), acfg, spec, max_len=ml,
+                                phase=phase, quantized=quantized, cache_dtype=cdtype)
+            caches.append(c)
+            x = _layer_ffn(p, x + a, cfg, phase)
+        if last_index is None:
+            x = x[:, -1:]
+        else:
+            idx = torch.as_tensor(last_index, device=x.device).to(torch.long).reshape(-1)
+            x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+        return _head(params, x), _stack(caches)
 
     def prefill_chunk(params, tokens, cache, tables, start, last_in_chunk):
         """One fixed-size prompt chunk through every layer, appending its KV
@@ -211,4 +271,6 @@ def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
         return embedding.unembed_apply(params["embed"], x), cache
 
     return ModelAPI(init=init, init_cache=init_cache, decode_paged=decode_paged,
-                    prefill_chunk=prefill_chunk, apply=apply, apply_aux=apply_aux)
+                    prefill_chunk=prefill_chunk, apply=apply, apply_aux=apply_aux,
+                    decode_step=decode_step, prefill=prefill, decode_verify=decode_verify,
+                    decode_verify_paged=decode_verify_paged)

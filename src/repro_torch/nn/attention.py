@@ -1,15 +1,18 @@
 """Grouped-query attention (port of ``repro/nn/attention.py``): the
 full-sequence training forward ``attn_apply`` over ``dot_attention`` /
-``blockwise_attention``, and the paged serve path: int8 KV quantization,
-``paged_gather``, ``attn_decode_step_paged`` and ``attn_prefill_chunk``.
+``blockwise_attention``; the dense per-slot KV path of the continuous
+engine and speculative decoding: ``init_kv_cache``, ``attn_prefill``,
+``attn_decode_step`` and ``attn_verify_step``; and the paged serve path:
+int8 KV quantization, ``paged_gather``, ``attn_decode_step_paged`` and
+``attn_prefill_chunk``.
 The score math is plain PyTorch (einsum and softmax), as the reference
 leaves it to XLA.
 
 Projections route through the switchable linear layer, so attention runs in
 dense and bika mode alike; score math and softmax stay float32.
 
-Unlike the functional reference, pool writes here are IN PLACE: the pool
-tensors passed in are updated and returned (the same objects).
+Unlike the functional reference, cache and pool writes here are IN PLACE:
+the tensors passed in are updated and returned (the same objects).
 """
 from __future__ import annotations
 
@@ -26,11 +29,15 @@ from .rotary import apply_rope
 __all__ = [
     "AttnConfig",
     "attn_apply",
-    "attn_init",
-    "blockwise_attention",
+    "attn_decode_step",
     "attn_decode_step_paged",
+    "attn_init",
+    "attn_prefill",
     "attn_prefill_chunk",
+    "attn_verify_step",
+    "blockwise_attention",
     "dot_attention",
+    "init_kv_cache",
     "paged_gather",
 ]
 
@@ -150,6 +157,148 @@ def _quantize_kv(x: torch.Tensor):
 
 def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return (q.to(torch.float32) * scale).to(dtype)
+
+
+def _kv_leaves(k: torch.Tensor, v: torch.Tensor, quantized: bool, dtype):
+    """New K/V in the cache's storage form: int8 payloads plus per-vector
+    scales, or ``dtype``."""
+    if quantized:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return {"k": k.to(dtype), "v": v.to(dtype)}
+
+
+def _cache_kv(cache, dtype):
+    """The whole cache's K/V in ``dtype`` (dequantized from an int8 cache)."""
+    if "k_scale" in cache:
+        return (_dequantize_kv(cache["k"], cache["k_scale"], dtype),
+                _dequantize_kv(cache["v"], cache["v_scale"], dtype))
+    return cache["k"].to(dtype), cache["v"].to(dtype)
+
+
+def init_kv_cache(batch: int, cfg: AttnConfig, max_len: int, dtype=torch.float32,
+                  quantized: bool = False, *, layers: Optional[int] = None, device=None):
+    """Dense per-slot cache of one layer: leaves (batch, max_len, Hkv, hd);
+    with ``quantized`` int8 keys/values plus (batch, max_len, Hkv, 1)
+    float32 scales. ``layers`` stacks that many layers on a leading axis."""
+    if cfg.window is not None:
+        raise ValueError("the port's dense KV cache does not support sliding windows")
+    lead = () if layers is None else (layers,)
+    shape = lead + (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if quantized:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device),
+        }
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_prefill(params, x: torch.Tensor, cfg: AttnConfig, spec: LinearSpec, *,
+                 max_len: int, phase: str = "serve", quantized: bool = False,
+                 cache_dtype=torch.float32):
+    """Whole-prompt attention that also emits the dense cache: (y, cache)
+    with the post-RoPE K/V at positions [0, S) of a max_len-long cache
+    (zeros after)."""
+    if cfg.window is not None:
+        raise ValueError("the port's dense KV cache does not support sliding windows")
+    b, s, _ = x.shape
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+    q, k, v = _project_qkv(params, x, cfg, spec, phase)
+    pos = torch.arange(s, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)  # the cache stores post-RoPE keys
+    out = blockwise_attention(q, k, v, causal=cfg.causal, window=cfg.window,
+                              block_q=cfg.block_q)
+    y = linear_apply(params["wo"], out.reshape(b, s, -1), spec, phase=phase)
+    pad = (0, 0, 0, 0, 0, max_len - s)
+    kc, vc = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+    return y, _kv_leaves(kc, vc, quantized, cache_dtype)
+
+
+def _write_dense(cache, lp: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write a (B, C) window of new K/V (B, C, Hkv, hd) at per-row
+    consecutive positions ``lp`` of one dense cache layer, in place.
+    Positions >= max_len are dropped, as the reference's scatter drops them,
+    without a host sync: each targets the row's last slot carrying the
+    value that slot ends with (the window's own write there, or its old
+    value), so the scatter's repeated indices all carry one value."""
+    b, c = lp.shape
+    cache_len = cache["k"].shape[1]
+    at = torch.clamp(lp, max=cache_len - 1)
+    src = at - lp[:, :1]  # the window slot whose value lands at ``at``; < 0: none
+    own = (src >= 0)[:, :, None, None]
+    src = src.clamp(min=0).long()
+    at = at.long()
+    rows = torch.arange(b, device=lp.device)[:, None].expand(b, c)
+    for name, val in _kv_leaves(k, v, "k_scale" in cache, cache["k"].dtype).items():
+        buf = cache[name]
+        buf[rows, at] = torch.where(own, val[rows, src], buf[rows, at])
+
+
+def attn_decode_step(params, x: torch.Tensor, cache, position: torch.Tensor,
+                     cfg: AttnConfig, spec: LinearSpec, *, phase: str = "serve"):
+    """One-token decode against one layer of the dense cache. x (B, 1, D);
+    position a scalar (the whole batch) or (B,) per-row next-write positions
+    (the continuous engine's slots). Writes K/V at ``position`` in place
+    and attends positions <= it. A position >= max_len (a speculative
+    draft step past the end of a row's budget) writes nothing, as the
+    reference's scatter drops it (``_write_dense``)."""
+    if cfg.window is not None:
+        raise ValueError("the port's dense KV cache does not support sliding windows")
+    b = x.shape[0]
+    q, k, v = _project_qkv(params, x, cfg, spec, phase)
+    position = torch.as_tensor(position, dtype=torch.int32, device=x.device)
+    position = position.expand(b) if position.dim() == 0 else position
+    pos = position[:, None]  # (B, 1) per-row RoPE / mask positions
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    _write_dense(cache, pos, k, v)
+    cache_len = cache["k"].shape[1]
+    k_all, v_all = _cache_kv(cache, x.dtype)
+    out = dot_attention(
+        q, k_all, v_all, q_positions=pos,
+        kv_positions=torch.arange(cache_len, dtype=torch.int32, device=x.device),
+        causal=True, kv_valid_len=position + 1,
+    )
+    y = linear_apply(params["wo"], out.reshape(b, 1, -1), spec, phase=phase)
+    return y, cache
+
+
+def attn_verify_step(params, x: torch.Tensor, cache, position: torch.Tensor,
+                     cfg: AttnConfig, spec: LinearSpec, *, phase: str = "serve"):
+    """Multi-token verify over the dense cache (speculative decoding).
+    x (B, C, D): each row's window at logical positions ``position[i] +
+    [0, C)``. The window's K/V are written there in place (positions >=
+    max_len, a window overhanging the end of a row's budget, are dropped
+    as the reference's scatter drops them: ``_write_dense``), then the
+    window's queries attend the whole row under the causal
+    ``kv_pos <= q_pos`` mask. Every round writes C consecutive positions and
+    advances by 1..C, so stale keys of a rejected window sit inside the
+    next round's write range or causally in the future of every query: the
+    (B, C) outputs are those of C sequential ``attn_decode_step`` calls."""
+    if cfg.window is not None:
+        raise ValueError("speculative verify does not support sliding windows")
+    b, c, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, spec, phase)
+    position = torch.as_tensor(position, dtype=torch.int32, device=x.device)
+    lp = position[:, None] + torch.arange(c, dtype=torch.int32, device=x.device)  # (B, C)
+    q = apply_rope(q, lp, cfg.rope_theta)
+    k = apply_rope(k, lp, cfg.rope_theta)
+    _write_dense(cache, lp, k, v)
+    cache_len = cache["k"].shape[1]
+    k_all, v_all = _cache_kv(cache, x.dtype)
+    out = dot_attention(
+        q, k_all, v_all, q_positions=lp,
+        kv_positions=torch.arange(cache_len, dtype=torch.int32, device=x.device),
+        causal=True,
+    )
+    y = linear_apply(params["wo"], out.reshape(b, c, -1), spec, phase=phase)
+    return y, cache
 
 
 def paged_gather(leaf: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

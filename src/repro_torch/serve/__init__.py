@@ -1,12 +1,18 @@
-"""repro_torch.serve — the paged serving runtime."""
-from .compile_cache import ChunkedPrefill
+"""repro_torch.serve — the serving runtime: continuous and paged slot
+engines, speculative decoding."""
+from .compile_cache import BucketedPrefill, ChunkedPrefill, bucket_for
 from .engine import Request, ServeEngine, serve_params_from_train
+from .kv import KVSlotManager
 from .metrics import RequestMetrics, RunMetrics
 from .paged_kv import PagedKVManager, hash_prompt_blocks
 from .scheduler import PagedSlotScheduler, SlotScheduler
+from .spec import DRAFT_PRESETS, build_draft_from_train, draft_arch
 
 __all__ = [
+    "BucketedPrefill",
     "ChunkedPrefill",
+    "DRAFT_PRESETS",
+    "KVSlotManager",
     "PagedKVManager",
     "PagedSlotScheduler",
     "Request",
@@ -14,6 +20,9 @@ __all__ = [
     "RunMetrics",
     "ServeEngine",
     "SlotScheduler",
+    "bucket_for",
+    "build_draft_from_train",
+    "draft_arch",
     "hash_prompt_blocks",
     "serve_params_from_train",
 ]

@@ -1,18 +1,73 @@
-"""Chunked prefill into the paged block pool (port of
-``repro/serve/compile_cache.py:ChunkedPrefill``).
+"""Shape-bucketed and chunked prefill (port of
+``repro/serve/compile_cache.py``: ``bucket_for``, ``BucketedPrefill``,
+``ChunkedPrefill``).
 
-The reference compiles ONE ``(1, chunk)`` program and counts its cache
-misses. The port runs the same chunk loop eagerly: nothing is compiled, so
-``misses`` stays 0 (CUDA graphs of the chunk program come in a later
-slice). ``BucketedPrefill`` belongs to the continuous engine and is not
-ported yet.
+The reference compiles one program per prompt-length bucket (continuous
+engine) or ONE ``(1, chunk)`` program (paged engine) and counts its cache
+misses. The port runs both eagerly: nothing is compiled. ``misses`` counts
+the distinct shapes run (each bucket once; 0 for the chunk loop, whose one
+shape has no program to build), so the bucketed count matches the
+reference's compile count (CUDA graphs of these shapes come in a later
+slice).
 """
 from __future__ import annotations
+
+from typing import Set
 
 import numpy as np
 import torch
 
-__all__ = ["ChunkedPrefill"]
+__all__ = ["BucketedPrefill", "ChunkedPrefill", "bucket_for"]
+
+
+def bucket_for(prompt_len: int, max_len: int, *, min_bucket: int = 16) -> int:
+    """Smallest power of two >= prompt_len (floored at min_bucket, capped at
+    max_len: the terminal bucket is max_len itself, pow2 or not)."""
+    if prompt_len > max_len:
+        raise ValueError(f"prompt_len {prompt_len} exceeds max_len {max_len}")
+    b = max(min_bucket, 1 << max(prompt_len - 1, 0).bit_length())
+    return min(b, max_len)
+
+
+class BucketedPrefill:
+    """Whole-prompt prefill of one request, right-padded to its length
+    bucket. Right padding is exact under causal attention: the pad tokens sit
+    in the future of every real token, so the real prefix's K/V and the
+    logits at ``prompt_len - 1`` equal an unpadded prefill's. The emitted
+    cache covers the pool's full ``max_len`` (leaves ``(L, 1, max_len,
+    ...)``), so the slot splice has one shape."""
+
+    def __init__(self, api, *, max_len: int, quantized: bool = False):
+        self.api = api
+        self.max_len = max_len
+        self.quantized = quantized
+        self._buckets: Set[int] = set()
+
+    @property
+    def misses(self) -> int:
+        """Distinct buckets run: the reference's compile count."""
+        return len(self._buckets)
+
+    def bucket_for(self, prompt_len: int) -> int:
+        return bucket_for(prompt_len, self.max_len)
+
+    def __call__(self, params, prompt: np.ndarray):
+        """One un-padded int32 prompt -> ``(first_logits (1, 1, V), cache)``:
+        the logits after the last real token and the max_len-long cache."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        plen = len(prompt)
+        if plen < 1:
+            raise ValueError("empty prompt")
+        bucket = self.bucket_for(plen)
+        self._buckets.add(bucket)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :plen] = prompt  # right-pad: exact under causal attention
+        dev = params["embed"]["table"].device
+        return self.api.prefill(
+            params, {"tokens": torch.from_numpy(toks).to(dev)}, max_len=self.max_len,
+            quantized=self.quantized,
+            last_index=torch.tensor([plen - 1], dtype=torch.int32, device=dev),
+        )
 
 
 class ChunkedPrefill:

@@ -1,18 +1,32 @@
-"""Slot-based continuous-batching scheduler over the paged KV pool (port of
-``repro/serve/scheduler.py``: ``Request``, the ``SlotScheduler`` core loop
-and ``PagedSlotScheduler``).
+"""Slot-based continuous-batching schedulers (port of
+``repro/serve/scheduler.py``: ``Request``, ``SlotScheduler`` over a dense
+per-slot KV pool — the continuous engine — and ``PagedSlotScheduler`` over
+the paged block pool, both with speculative decoding).
 
 The decode batch is a fixed pool of ``n_slots`` rows. A request is admitted
-by chunk-prefilling it ALONE into blocks reserved from the pool; from then
-on it rides the shared decode step. When a request hits EOS or its token
-budget its slot is freed at once and the next queued request admits on the
-following tick. Inactive rows keep decoding junk at position 0 of the
-parking block. EOS, budget and activity bookkeeping live on the host,
-which syncs every tick to stream tokens out.
+by prefilling it ALONE (dense: one bucketed whole-prompt prefill spliced
+into its slot row; paged: chunked prefill into blocks reserved from the
+pool); from then on it rides the shared decode step. When a request hits
+EOS or its token budget its slot is freed at once and the next queued
+request admits on the following tick. Inactive rows keep decoding junk at
+position 0 (paged: of the parking block). EOS, budget and activity
+bookkeeping live on the host, which syncs every tick to stream tokens out.
 
-Left for later slices: the dense-slot continuous engine (``SlotScheduler``
-itself has no KV pool of its own here), speculative decoding, meshes,
-tracing and the step profiler.
+Speculative decoding (``spec_draft=(api, params, arch)``, ``spec_k > 1``):
+each round the draft model, in its own dense fp slot pool on the same slot
+indices, decodes ``spec_k`` steps from the current token (its last
+proposal is discarded), and the target verifies the ``spec_k``-wide window
+(current token + ``spec_k - 1`` proposals) in one step. The accept rule —
+keep the longest prefix of proposals that match the target's own greedy
+choices, then always take the target's next token — makes greedy output
+token for token that of target-only decode, for any draft. Rollback is
+free: both caches are position-masked, so resetting the host's ``_pos``
+makes a rejected window's writes unattendable, and the next round's
+consecutive writes overwrite them before any query reaches them.
+``spec_k == 1`` is the plain tick (no draft is built).
+
+Left for later slices: meshes, tracing, the step profiler and arrival
+replay.
 
 Like the engine, a scheduler runs on CUDA unless ``device="cpu"`` is
 passed, and raises without a GPU.
@@ -28,7 +42,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.base import ArchConfig, ModelAPI
-from repro_torch.serve.compile_cache import ChunkedPrefill
+from repro_torch.serve.compile_cache import BucketedPrefill, ChunkedPrefill
+from repro_torch.serve.kv import KVSlotManager
 from repro_torch.serve.metrics import RequestMetrics, RunMetrics
 from repro_torch.serve.paged_kv import PagedKVManager
 
@@ -60,8 +75,9 @@ class _SlotState:
 
 
 class SlotScheduler:
-    """The core admit/decode/emit loop. Subclasses supply the KV pool, the
-    prefill and the decode tick through the hooks below."""
+    """The admit/decode/emit loop over a dense per-slot KV pool (the
+    continuous engine). ``PagedSlotScheduler`` overrides the pool, prefill
+    and tick hooks."""
 
     engine_name = "continuous"
 
@@ -76,12 +92,16 @@ class SlotScheduler:
         quantized_kv: bool = False,
         device=None,
         clock: Callable[[], float] = time.monotonic,
+        spec_draft=None,
+        spec_k: int = 1,
     ):
         if not scheduler_supports(arch):
             raise ValueError(
                 f"SlotScheduler supports non-MoE, non-SWA 'lm' models; got family="
                 f"{arch.family!r} n_experts={arch.n_experts} window={arch.window}"
             )
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         self.api = api
         self.arch = arch
         self.n_slots = n_slots
@@ -98,39 +118,184 @@ class SlotScheduler:
         self._slots: List[Optional[_SlotState]] = [None] * n_slots
         self._tok = np.zeros(n_slots, np.int32)  # last emitted token per slot
         self._pos = np.zeros(n_slots, np.int32)  # cache position of the NEXT write
+        self.spec_k = spec_k
+        self._spec_api = None
+        if spec_draft is not None and spec_k > 1:
+            self._init_spec(spec_draft)
 
-    # -- hooks --------------------------------------------------------------
+    # -- dense-vs-paged hooks (PagedSlotScheduler overrides these) ----------
 
     def _init_kv_prefill(self, api, quantized_kv: bool) -> None:
-        raise NotImplementedError(
-            "the dense-slot continuous engine is not ported yet; use PagedSlotScheduler"
-        )
+        self.kv = KVSlotManager(api, n_slots=self.n_slots, max_len=self.max_len,
+                                quantized=quantized_kv, device=self.device)
+        self.prefill = BucketedPrefill(api, max_len=self.max_len, quantized=quantized_kv)
 
     @property
     def _slots_available(self) -> int:
-        raise NotImplementedError
+        return self.kv.n_free
 
     def _release_slot(self, slot: int) -> None:
-        raise NotImplementedError
+        self.kv.free(slot)
 
     def _kv_pool_bytes(self) -> int:
-        raise NotImplementedError
+        return self.kv.pool_bytes
 
     def _kv_bytes_per_token(self) -> float:
-        raise NotImplementedError
+        return self._kv_pool_bytes() / (self.n_slots * self.max_len)
 
     def _decode_kv_bytes(self, active: List[int]) -> int:
-        raise NotImplementedError
-
-    def _run_tick(self) -> np.ndarray:
-        raise NotImplementedError
-
-    def _admit_one(self, req: Request) -> bool:
-        raise NotImplementedError
+        """Modeled KV bytes one decode tick reads: each active row's live
+        context once."""
+        bpt = self.metrics.kv_bytes_per_token
+        return int(bpt * sum(int(self._pos[i]) + 1 for i in active))
 
     def _stamp_kv_gauges(self) -> None:
         self.metrics.kv_pool_bytes = self._kv_pool_bytes()
         self.metrics.kv_bytes_per_token = self._kv_bytes_per_token()
+
+    def _host_tensors(self):
+        dev = self.device
+        return (torch.from_numpy(self._tok.copy()).to(dev),
+                torch.from_numpy(self._pos.copy()).to(dev))
+
+    def _run_tick(self) -> np.ndarray:
+        tok, pos = self._host_tensors()
+        logits, self.kv.cache = self.api.decode_step(self.params, tok[:, None], self.kv.cache,
+                                                     pos)
+        nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        # repro: noqa-RPA001 -- the tick barrier: emitted tokens must reach
+        # the host to route into per-request queues / detect EOS
+        return np.array(nxt.tolist(), np.int32)
+
+    def _admit_one(self, req: Request) -> bool:
+        """Admit one request into a free slot (the dense pool always admits).
+        ``t_admit`` is stamped when the slot is claimed, before the prefill."""
+        slot = self.kv.alloc()
+        assert slot is not None
+        rm = req.metrics
+        rm.t_admit = self.clock()
+        logits, pcache = self.prefill(self.params, req.prompt)
+        self.metrics.prefills += 1
+        # repro: noqa-RPA001 -- admission emits the prefill token to the host
+        t0 = int(torch.argmax(logits[0, -1]).item())
+        plen = rm.prompt_len
+        # decode writes go to plen .. plen+n-2; keep them inside the cache
+        budget = min(req.max_new_tokens, self.max_len - plen + 1)
+        st = _SlotState(req=req, remaining=budget, emitted=[])
+        if self._emit(st, t0):
+            self._finish(req, st, slot)
+            self.kv.free(slot)
+            return True
+        self.kv.write_prefill(slot, pcache)
+        self._slots[slot] = st
+        self._tok[slot] = t0
+        self._pos[slot] = plen
+        self._spec_admit(slot, req)
+        return True
+
+    # -- speculative decoding -----------------------------------------------
+
+    def _spec_verify_api(self):
+        """The target's multi-token verify for this KV layout (paged
+        overrides with ``decode_verify_paged``)."""
+        return self.api.decode_verify
+
+    def _spec_operands(self):
+        """Extra operands of the verify step (paged: the live tables)."""
+        return ()
+
+    def _init_spec(self, spec_draft) -> None:
+        """The draft side: the draft model rides the SAME slot indices as the
+        target in its own dense fp KV pool, plus a bucketed prefill that
+        seeds it at admission."""
+        if self._spec_verify_api() is None:
+            raise ValueError(
+                f"speculative decoding needs a model family with a multi-token verify "
+                f"path; {self.arch.family!r} has none"
+            )
+        dapi, dparams, darch = spec_draft
+        if darch.window is not None or darch.n_experts:
+            raise ValueError("draft model must be a non-MoE, non-SWA 'lm' model")
+        self._spec_api = dapi
+        self._spec_params = dparams
+        self._spec_arch = darch
+        self._spec_kv = KVSlotManager(dapi, n_slots=self.n_slots, max_len=self.max_len,
+                                      quantized=False, device=self.device)
+        self._spec_prefill = BucketedPrefill(dapi, max_len=self.max_len, quantized=False)
+
+    def _run_spec_tick(self):
+        """One round on the device: ``spec_k`` draft decode steps — consuming
+        the current token, then its own proposals, so the draft's KV covers
+        the window — and one target verify of the window. Returns (window
+        (S, C), the target's greedy tokens (S, C)) on the host."""
+        tok, pos = self._host_tensors()
+        c = self.spec_k
+        draft = self._spec_api.decode_step
+        window = [tok]
+        t = tok
+        for j in range(c):  # step j consumes window token j at position pos + j
+            logits, self._spec_kv.cache = draft(self._spec_params, t[:, None],
+                                                self._spec_kv.cache, pos + j)
+            t = torch.argmax(logits[:, -1], -1).to(torch.int32)
+            if j + 1 < c:  # the last proposal lies beyond the window
+                window.append(t)
+        window = torch.stack(window, dim=1)
+        logits, self.kv.cache = self._spec_verify_api()(self.params, window, self.kv.cache, pos,
+                                                        *self._spec_operands())
+        nxt = torch.argmax(logits, -1).to(torch.int32)  # (S, C) greedy
+        # repro: noqa-RPA001 -- tick barrier: the accept rule compares draft
+        # and target tokens on the host
+        return window.cpu().numpy(), nxt.cpu().numpy()
+
+    def _spec_admit(self, slot: int, req: Request) -> None:
+        """Seed the draft's KV for a freshly admitted request (no-op when not
+        speculating). The draft prefill's own logits are discarded: the
+        target's admission token is what the first round drafts from."""
+        if self._spec_api is None:
+            return
+        _logits, dcache = self._spec_prefill(self._spec_params, req.prompt)
+        self._spec_kv.write_prefill(slot, dcache)
+
+    def _spec_tick(self) -> bool:
+        """One speculative round over the slot batch: emit each row's
+        accepted prefix plus the target's correction. Per row the advance
+        ``e`` is 1..spec_k tokens; ``_pos += e`` IS the rollback."""
+        self._admit()
+        active = [i for i, s in enumerate(self._slots) if s is not None]
+        if not active:
+            return False
+        window, nxt = self._run_spec_tick()
+        self.metrics.record_step(len(active), kv_bytes_read=self._decode_kv_bytes(active))
+        c = self.spec_k
+        drafted = accepted = 0
+        for i in active:
+            st = self._slots[i]
+            w, g = window[i], nxt[i]
+            # accept rule: the longest prefix of proposals equal to the
+            # target's greedy choices (w[j] proposal j, g[j-1] the target's
+            # token after window slot j-1), then always the target's g[a-1]
+            a = 1
+            while a < c and w[a] == g[a - 1]:
+                a += 1
+            e = 0
+            done = False
+            for j in range(a):
+                e += 1
+                done = self._emit(st, int(g[j]))
+                if done:
+                    break  # budget/EOS truncation: e <= a tokens used
+            self._tok[i] = g[e - 1]
+            self._pos[i] += e
+            drafted += c - 1
+            accepted += e - 1
+            if done:
+                self._finish(st.req, st, i)
+                self._slots[i] = None
+                self._release_slot(i)
+                self._tok[i] = 0
+                self._pos[i] = 0
+        self.metrics.record_spec_round(len(active), drafted, accepted)
+        return True
 
     # -- queue --------------------------------------------------------------
 
@@ -189,8 +354,11 @@ class SlotScheduler:
             self.queue.pop(0)
 
     def tick(self) -> bool:
-        """Admit waiting requests, then run one decode step over the slot
-        batch. Returns False when there was nothing to do."""
+        """Admit waiting requests, then run one decode step (or one
+        speculative round) over the slot batch. Returns False when there was
+        nothing to do."""
+        if self._spec_api is not None:
+            return self._spec_tick()
         self._admit()
         active = [i for i, s in enumerate(self._slots) if s is not None]
         if not active:
@@ -280,9 +448,7 @@ class PagedSlotScheduler(SlotScheduler):
         return int(3 * bpb * self.kv.blocks_per_slot * len(active))
 
     def _run_tick(self) -> np.ndarray:
-        dev = self.device
-        tok = torch.from_numpy(self._tok.copy()).to(dev)
-        pos = torch.from_numpy(self._pos.copy()).to(dev)
+        tok, pos = self._host_tensors()
         logits, self.kv.cache = self.api.decode_paged(
             self.params, tok[:, None], self.kv.cache, pos, self.kv.tables_tensor()
         )
@@ -325,4 +491,16 @@ class PagedSlotScheduler(SlotScheduler):
         self._slots[slot] = st
         self._tok[slot] = t0
         self._pos[slot] = plen
+        self._spec_admit(slot, req)
         return True
+
+    # -- speculative hooks --------------------------------------------------
+
+    def _spec_verify_api(self):
+        return self.api.decode_verify_paged
+
+    def _spec_operands(self):
+        # the LIVE tables at round time: admissions and releases between
+        # rounds repoint rows, and a window overhanging a row's reserved span
+        # lands in the parking block (tables default to it)
+        return (self.kv.tables_tensor(),)

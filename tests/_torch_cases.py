@@ -2,8 +2,8 @@
 card-only tests can import them on a machine without JAX)."""
 import numpy as np
 
-__all__ = ["BNN_KERNEL_SHAPES", "PAGED_CASES", "TRAIN_KERNEL_SHAPES", "bnn_case", "cac_case",
-           "cac_train_case", "paged_case", "window_clear"]
+__all__ = ["BNN_KERNEL_SHAPES", "PAGED_CASES", "QNN_KERNEL_SHAPES", "TRAIN_KERNEL_SHAPES",
+           "bnn_case", "cac_case", "cac_train_case", "paged_case", "qnn_case", "window_clear"]
 
 # the training path's (K, N) projections at M = batch 4 x seq 128, and two
 # ragged shapes that cut every tile edge
@@ -15,6 +15,30 @@ TRAIN_KERNEL_SHAPES = [(512, 960, 960), (512, 960, 320), (512, 960, 2560),
 # and not a multiple of 8 (100, unpacked only)
 BNN_KERNEL_SHAPES = [(4, 960, 2560), (512, 960, 2560), (512, 2560, 960), (129, 968, 65),
                      (37, 100, 130)]
+
+
+# kernel 10: the serve path's (K, N) projections at decode (M = 4), the
+# draft's bucketed prefill (M = 16) and chunk prefill (M = 32), and ragged
+# M, K, N (K = 99 and 100: rows of x not 4-byte aligned; N = 33, 65, 130:
+# rows of w not aligned either)
+QNN_KERNEL_SHAPES = [(4, 960, 2560), (32, 960, 320), (4, 2560, 960), (32, 960, 960),
+                     (16, 960, 2560), (16, 2560, 960),
+                     (37, 100, 130), (129, 968, 65), (5, 99, 33)]
+
+
+def qnn_case(rng, m, k, n):
+    """Kernel 10's operands: x int8 codes over the full -128..127, w int8 in
+    -127..127 (both extremes present), w_scale float32 (N,) per-column
+    scales with column 1 all zero in w and its scale at the 1e-12 floor."""
+    x = rng.integers(-128, 128, size=(m, k)).astype(np.int8)
+    w = rng.integers(-127, 128, size=(k, n)).astype(np.int8)
+    x.flat[:2] = (-128, 127)
+    w.flat[:2] = (-127, 127)
+    ws = rng.uniform(1e-3, 1e-2, size=(n,)).astype(np.float32)
+    if n > 1:
+        w[:, 1] = 0
+        ws[1] = 1e-12
+    return x, w, ws
 
 
 def bnn_case(rng, m, k, n, nan=False):
@@ -97,4 +121,6 @@ PAGED_CASES = [
     (3, 1, 6, 3, 16, 8, 5, True),   # int8 decode
     (2, 8, 6, 2, 16, 8, 4, False),  # GQA chunk (C=8)
     (2, 8, 4, 4, 16, 8, 4, True),   # int8 chunk, MHA
+    (4, 4, 6, 2, 16, 8, 4, False),  # speculative verify window (B=4, C=4)
+    (4, 4, 6, 2, 16, 8, 4, True),   # int8 verify window
 ]

@@ -179,7 +179,8 @@ def test_port_imports_neither_jax_nor_reference():
     rel = {os.path.relpath(f, os.path.join(ROOT, "src", "repro_torch")) for f in files}
     for module in ("core/ste.py", "kernels/cac_matmul.py", "kernels/ops.py", "train/steps.py",
                    "train/trainer.py", "train/loss.py", "optim/adamw.py", "optim/schedule.py",
-                   "data/lm.py", "launch/train.py", "core/bnn.py", "kernels/bnn_matmul.py"):
+                   "data/lm.py", "launch/train.py", "core/bnn.py", "kernels/bnn_matmul.py",
+                   "core/qnn.py", "kernels/qnn_matmul.py", "serve/kv.py", "serve/spec.py"):
         assert module in rel, module
     for path in files:
         with open(path, encoding="utf-8") as fh:

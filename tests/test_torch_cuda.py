@@ -14,17 +14,22 @@ kernels sum in another order, with float atomics). The BNN forwards
 (kernels 6 and 7) are bit-exact, 7 equal to 6 on the same signs; the
 SignSTE backward pair (8 and 9) within atol/rtol 1e-4 everywhere (their
 masks read the operand itself, so no element sits on an ambiguous edge; the
-sums are reordered) and bit-for-bit repeatable."""
+sums are reordered) and bit-for-bit repeatable. The int8 matmul (kernel 10)
+is bit-exact: an exact int32 sum and the same two float32 roundings as its
+plain version, also where the sums pass 2^24 and where K split over blocks
+meets through integer atomics."""
 import numpy as np
 import pytest
 import torch
-from _torch_cases import (BNN_KERNEL_SHAPES, PAGED_CASES, TRAIN_KERNEL_SHAPES, bnn_case,
-                          cac_case, cac_train_case, paged_case, window_clear)
+from _torch_cases import (BNN_KERNEL_SHAPES, PAGED_CASES, QNN_KERNEL_SHAPES,
+                          TRAIN_KERNEL_SHAPES, bnn_case, cac_case, cac_train_case, paged_case,
+                          qnn_case, window_clear)
 
 from repro_torch.core.backend import pack_signs
 from repro_torch.core.ste import sign
 from repro_torch.kernels import bnn_matmul as bnn
 from repro_torch.kernels import cac_matmul as cac
+from repro_torch.kernels import qnn_matmul as qnn
 from repro_torch.kernels import ref
 from repro_torch.kernels.cac_matmul import cac_matmul_kernel_call, cac_matmul_plain
 from repro_torch.kernels.paged_attn import paged_attn_kernel_call
@@ -112,3 +117,24 @@ def test_bnn_kernels_on_card(cuda, m, k, n):
     torch.testing.assert_close(dw, bnn.bnn_bwd_dw_plain(x, w, g), atol=1e-4, rtol=1e-4)
     assert torch.equal(dx, bnn.bnn_bwd_dx_call(x, w, g))  # no atomics: repeatable
     assert torch.equal(dw, bnn.bnn_bwd_dw_call(x, w, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", QNN_KERNEL_SHAPES + [(512, 960, 2560), (1, 4, 1)])
+def test_qnn_kernel_bit_exact_on_card(cuda, m, k, n):
+    rng = np.random.default_rng(m + 7 * k + n)
+    x, w, ws = qnn_case(rng, m, k, n)
+    x[0], w[:, 0] = -128, -127  # one sum at K * 128 * 127
+    x, w, ws = (torch.from_numpy(a).to(cuda) for a in (x, w, ws))
+    before = qnn.qnn_matmul_kernel_call.launches
+    got = qnn.qnn_matmul_kernel_call(x, w, ws, 0.05)
+    # operands at an address that is not 4-byte aligned take the byte loads
+    xo = torch.empty(m * k + 1, dtype=torch.int8, device=cuda)[1:].view(m, k).copy_(x)
+    wo = torch.empty(k * n + 1, dtype=torch.int8, device=cuda)[1:].view(k, n).copy_(w)
+    odd = qnn.qnn_matmul_kernel_call(xo, wo, ws, 0.05)
+    torch.cuda.synchronize()
+    assert qnn.qnn_matmul_kernel_call.launches == before + 2
+    want = qnn.qnn_matmul_plain(x, w, ws, 0.05)
+    assert torch.equal(got, want)
+    assert torch.equal(odd, want)
+    assert torch.equal(want.cpu(), qnn.qnn_matmul_plain(x.cpu(), w.cpu(), ws.cpu(), 0.05))

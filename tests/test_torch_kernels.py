@@ -81,16 +81,17 @@ def test_paged_attention_plain_matches_reference(b, c, hq, hkv, d, bs, t, quanti
 
 def test_kernel_routes_and_counters():
     assert sorted(ops.KERNEL_ROUTES) == ["bnn", "bnn_packed", "bnn_train", "cac_hw",
-                                         "cac_train", "paged_attn"]
+                                         "cac_train", "paged_attn", "qnn8"]
     assert ops.kernel_route("cac_hw") is ops.cac_matmul
     assert ops.kernel_route("cac_train") is ops.cac_train_matmul
     assert ops.kernel_route("bnn") is ops.bnn_matmul
     assert ops.kernel_route("bnn_packed") is ops.bnn_matmul_packed
     assert ops.kernel_route("bnn_train") is ops.bnn_train_matmul
+    assert ops.kernel_route("qnn8") is ops.qnn_matmul
     with pytest.raises(KeyError):
-        ops.kernel_route("qnn8")
+        ops.kernel_route("nope")
     ops.reset_launches()
     assert ops.launch_counts() == {
         "bnn": 0, "bnn_bwd_dw": 0, "bnn_bwd_dx": 0, "bnn_packed": 0,
         "cac_hw": 0, "cac_train_bwd_dw": 0, "cac_train_bwd_dx": 0, "cac_train_bwd_fused": 0,
-        "cac_train_fwd": 0, "paged_attn": 0}
+        "cac_train_fwd": 0, "paged_attn": 0, "qnn8": 0}

@@ -82,14 +82,15 @@ def _hold(ref: np.ndarray, codes: torch.Tensor, u: torch.Tensor, what: str) -> t
 
 
 @contextlib.contextmanager
-def held_codes():
-    """Hold the port's codes to the reference's at half-way ties: the bika
-    activation codes and the int8 K/V pool codes. The reference sends each
+def held_codes(mode: str = "bika"):
+    """Hold the port's codes to the reference's at half-way ties: the
+    activation codes of a ``mode`` projection (bika or qnn8, which quantize
+    their input alike) and the int8 K/V pool codes. The reference sends each
     code tensor it makes to the host (in call order, through the layer
     scan); the port takes them in the same order. Yields ``taken(n_act,
     n_kv)``, which checks after a step that the port took exactly the
     reference's code tensors."""
-    jbe = jax_backend.get_backend("bika")
+    jbe = jax_backend.get_backend(mode)
     plain_act, plain_kv = port_backend.quantize_activations, port_attention._quantize_kv
     jax_kv = jax_attention._quantize_kv
     queues, counts = {"act": [], "kv": []}, {"act": 0, "kv": 0}

@@ -6,6 +6,10 @@
   on the same weights and prompts: dense and bika, fp and int8 KV, with a
   shared-prefix hit, a request crossing a block boundary and a queue longer
   than ``n_slots`` — held token for token;
+- the continuous engine (what ``engine="auto"`` resolves to) emits the
+  paged engine's tokens with fp KV;
+- the launcher runs on the CPU when asked: paged, ``--mode qnn8``, and
+  ``--spec-draft qnn8 --spec-k 4`` on both slot engines;
 - the entry points refuse to fall back to the CPU when CUDA is absent."""
 import dataclasses
 
@@ -185,12 +189,43 @@ def test_entry_points_refuse_silent_cpu_fallback():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
     with pytest.raises(NotImplementedError):
-        ServeEngine(api, params, cfg, engine="continuous", device="cpu")
+        ServeEngine(api, params, cfg, engine="static", device="cpu")
+
+
+def test_continuous_engine_matches_paged_engine():
+    """``engine="auto"`` resolves to the continuous engine, as in the
+    reference, and with fp KV it emits the paged engine's tokens (the
+    reference's claim for its two engines)."""
+    cfg = port_cfg(jax_get_smoke("smollm-360m", remat=False))
+    api = build_model(cfg, phase="serve")
+    params = api.init(0, device="cpu")
+    outs = {}
+    for engine in ("auto", "paged"):
+        eng = ServeEngine(api, params, cfg, engine=engine, max_len=48, n_slots=3,
+                          kv_block_size=8, prefill_chunk=8, device="cpu")
+        for i, p in enumerate(_prompts(cfg.vocab)):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=7))
+        outs[eng.engine] = {r.rid: r.output.tolist() for r in eng.run()}
+    assert sorted(outs) == ["continuous", "paged"]
+    assert outs["continuous"] == outs["paged"]
 
 
 def test_launcher_runs_on_cpu_when_asked(capsys):
-    assert launch_serve.main(["--smoke", "--device", "cpu", "--requests", "3",
-                              "--new-tokens", "3", "--max-len", "32",
+    assert launch_serve.main(["--smoke", "--device", "cpu", "--engine", "paged",
+                              "--requests", "3", "--new-tokens", "3", "--max-len", "32",
                               "--kv-block-size", "8", "--prefill-chunk", "8"]) == 0
     out = capsys.readouterr().out
     assert "engine=paged" in out and "completed 3 requests" in out
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--mode", "qnn8"], "engine=continuous"),
+    (["--mode", "dense", "--spec-draft", "qnn8", "--spec-k", "4"], "spec: rounds="),
+    (["--mode", "dense", "--spec-draft", "qnn8", "--spec-k", "4", "--engine", "paged",
+      "--kv-block-size", "8", "--prefill-chunk", "8"], "spec: rounds="),
+])
+def test_launcher_qnn8_and_spec_on_cpu(capsys, flags, want):
+    assert launch_serve.main(["--smoke", "--device", "cpu", "--requests", "3",
+                              "--new-tokens", "6", "--max-len", "32"] + flags) == 0
+    out = capsys.readouterr().out
+    assert want in out and "completed 3 requests" in out
