@@ -42,9 +42,12 @@ Phases (each prints its own line; any failure exits non-zero):
 8. bnn-kernels — the BNN kernels (6: sign product, 7: its packed serve
              form, 8/9: the SignSTE dx and dw) against their plain versions
              at the decode shapes (M = 4), the training shapes (M = 512) and
-             two ragged shapes: forwards bit-exact and 7 equal to 6, backward
-             within atol = rtol = 1e-4 on every element and repeatable; times
-             with plain, library (torch.matmul on +-1 operands) and bound.
+             three ragged shapes: forwards bit-exact and 7 equal to 6,
+             backward within atol = rtol = 1e-4 on every element and
+             repeatable, with each backward launch's plan and the card's
+             cluster occupancy; times with plain, library (torch.matmul on
+             +-1 operands) and bound. The build prints the -Xptxas -v lines
+             of kernels 8 and 9.
 9. bnn-serve — phases 4, profile and 5 again in bnn mode (packed planes:
              224 kernel-7 and 32 attention launches per tick, 0 elsewhere),
              plus one unpacked drain (224 kernel-6 launches per tick) whose
@@ -52,8 +55,9 @@ Phases (each prints its own line; any failure exits non-zero):
              only where both sides' input lies within 1e-5 of 0.
 10. bnn-train — phases 6 and 7 again in bnn mode: 3 steps with exactly 448
              kernel-6, 224 kernel-8 and 224 kernel-9 launches each and 0
-             training-CAC launches; the parity holds Signs within 1e-5 of 0
-             and STE masks within 1e-5 of |x| = 1.
+             training-CAC launches, and the profiled step's device ms of
+             kernels 8 and 9; the parity holds Signs within 1e-5 of 0 and
+             STE masks within 1e-5 of |x| = 1.
 11. qnn8-kernels — kernel 10 (the int8 matmul) against its plain version,
              bit-exact, at the path's (K, N) for M = 4, 16, 32 and 512 and three
              ragged shapes (K = 99, 100, 968), with extreme codes (x -128 and
@@ -117,14 +121,18 @@ _NO_LAUNCHES = {"bnn": 0, "bnn_bwd_dw": 0, "bnn_bwd_dx": 0, "bnn_packed": 0, "ca
                 "cac_train_bwd_dw": 0, "cac_train_bwd_dx": 0, "cac_train_bwd_fused": 0,
                 "cac_train_fwd": 0, "paged_attn": 0, "qnn8": 0}
 # the BNN kernels: the path's (K, N) projections at decode (M = n_slots) and
-# at training (M = batch 4 x seq 128), and two ragged shapes (K not a
-# multiple of 32, packed too; K not a multiple of 8, unpacked only)
+# at training (M = batch 4 x seq 128), and three ragged shapes (K not a
+# multiple of 32, packed too; K not a multiple of 8, unpacked only; N not a
+# multiple of 4 at the down shape, so the backward pair's 4-byte load route
+# runs with both tile widths)
 PATH_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
 BNN_SHAPES = [(N_SLOTS, k, n) for k, n in PATH_KN] + [(512, k, n) for k, n in PATH_KN]
-BNN_RAGGED = [(129, 968, 65), (37, 100, 130)]
+BNN_RAGGED = [(129, 968, 65), (37, 100, 130), (512, 2560, 962)]
 # +-1 products and their integer sums are exact on the tensor cores, so the
-# sign products' operations bound is at the dense bf16 rate (data sheet)
+# sign products' operations bound, and the SignSTE backward's (each term a
+# +-1 times g), is 2 M K N at the dense bf16 rate (data sheet)
 TENSOR_CORE_OPS_S = 989e12
+BWD_PLANES = 3  # the backward kernels' bf16 planes of g, recorded beside the bound
 BNN_SIGN_TIE = 1e-5  # |x| within this of 0 on both sides: a Sign the devices may split
 BNN_WINDOW_TIE = 1e-5  # |x| within this of 1 on both sides: an STE mask they may split
 # kernel 10 (int8 matmul): the path's (K, N) at decode (M = n_slots), the
@@ -437,19 +445,26 @@ def phase_bnn_kernels(torch, np, dev, flush):
     """Kernels 6-9 against their plain versions on the card, at the serve
     path's decode shapes (M = n_slots: kernel 6 on int8 +-1 weights, kernel
     7 on packed planes), the training path's shapes (M = 512: kernel 6 on
-    float32 weights, kernels 8 and 9) and two ragged shapes (all that apply).
+    float32 weights, kernels 8 and 9) and three ragged shapes (all that
+    apply).
     Forwards bit-exact, kernel 7 equal to kernel 6 on the same signs;
     backward within atol = rtol = TRAIN_TOL of the plain versions (summed in
     float64) on every element, and bit-for-bit repeatable. Bounds: bytes =
-    each operand read once and the output written once; operations 2 M K N,
-    for the sign products at the tensor cores' bf16 rate (exact for +-1; the
-    CUDA-core figure is recorded beside it), for the backward at the float32
-    CUDA-core rate. Library call: one torch.matmul on precomputed float32
-    +-1 operands (sx @ sw for 6 and 7, g @ sw.T for 8, sx.T @ g for 9)."""
+    each operand read once and the output written once; operations 2 M K N
+    at the tensor cores' bf16 rate (every product has a +-1 factor). Beside
+    the bound: the float32 CUDA-core figure for 2 M K N, and for the
+    backward the 3 x 2 M K N its kernels spend (g in three bf16 planes).
+    Library call: one torch.matmul on precomputed float32 +-1
+    operands (sx @ sw for 6 and 7, g @ sw.T for 8, sx.T @ g for 9)."""
     from repro_torch.core.backend import pack_signs
     from repro_torch.core.ste import sign
     from repro_torch.kernels import bnn_matmul as bnn
 
+    occupancy = {f"{nm} {bn}": [bnn.card_max_blocks(dev.index or 0, nm == "dx", bn, s)
+                                 for s in range(1, bnn.BWD_MAX_SPLITS + 1)]
+                 for nm in ("dx", "dw") for bn in bnn.BWD_TILE_COLS}
+    print(f"[bnn-kernels] resident blocks of kernels 8 (dx) and 9 (dw) by tile columns, in "
+          f"clusters of 1..{bnn.BWD_MAX_SPLITS}: {occupancy}")
     rng = np.random.default_rng(SEED + 7)
     rows = []
     for m, k, n in BNN_SHAPES + BNN_RAGGED:
@@ -485,6 +500,9 @@ def phase_bnn_kernels(torch, np, dev, flush):
                     fail(f"bnn backward {name} M={m} K={k} N={n}: beyond atol = rtol = "
                          f"{TRAIN_TOL} (max |diff| {err:.3e})")
             row["on_window_edge"] = {"x": int((x.abs() == 1).sum()), "w": int((w.abs() == 1).sum())}
+            # (tile columns, splits, steps a split) of each launch
+            row["bwd_plan"] = {nm: list(bnn._card_plan(x.device.index, m, k, n, nm == "dx"))
+                               for nm in ("dx", "dw")}
         if (m, k, n) in BNN_SHAPES:
             xs, ws = sign(x), sign(w)
             ops = 2.0 * m * k * n
@@ -494,42 +512,47 @@ def phase_bnn_kernels(torch, np, dev, flush):
                     "fwd_f32": (lambda: bnn.bnn_matmul_kernel_call(x, w),
                                 lambda: bnn.bnn_matmul_plain(x, w),
                                 lambda: torch.matmul(xs, ws),
-                                4 * (m * k + k * n + m * n), TENSOR_CORE_OPS_S),
+                                4 * (m * k + k * n + m * n)),
                     "bwd_dx": (lambda: bnn.bnn_bwd_dx_call(x, w, g),
                                lambda: bnn.bnn_bwd_dx_plain(x, w, g),
                                lambda: torch.matmul(g, ws.T),
-                               4 * (2 * m * k + k * n + m * n), CUDA_CORE_OPS_S),
+                               4 * (2 * m * k + k * n + m * n)),
                     "bwd_dw": (lambda: bnn.bnn_bwd_dw_call(x, w, g),
                                lambda: bnn.bnn_bwd_dw_plain(x, w, g),
                                lambda: torch.matmul(xs.T, g),
-                               4 * (m * k + 2 * k * n + m * n), CUDA_CORE_OPS_S),
+                               4 * (m * k + 2 * k * n + m * n)),
                 }
             else:
                 timed = {
                     "fwd_int8": (lambda: bnn.bnn_matmul_kernel_call(x, wb),
                                  lambda: bnn.bnn_matmul_plain(x, wb),
                                  lambda: torch.matmul(xs, ws),
-                                 4 * m * k + k * n + 4 * m * n, TENSOR_CORE_OPS_S),
+                                 4 * m * k + k * n + 4 * m * n),
                     "fwd_packed": (lambda: bnn.bnn_packed_matmul_kernel_call(x, wp),
                                    lambda: bnn.bnn_packed_matmul_plain(x, wp),
                                    lambda: torch.matmul(xs, ws),
-                                   4 * m * k + k * n // 8 + 4 * m * n, TENSOR_CORE_OPS_S),
+                                   4 * m * k + k * n // 8 + 4 * m * n),
                 }
-            for name, (kern, plain, lib, nbytes, rate) in timed.items():
-                bound, by = _bound(nbytes, ops, rate)
+            for name, (kern, plain, lib, nbytes) in timed.items():
+                bound, by = _bound(nbytes, ops, TENSOR_CORE_OPS_S)
                 row[name] = {"ms": time_ms(torch, kern, flush=flush),
                              "plain_ms": time_ms(torch, plain, iters=5, flush=flush),
                              "library_ms": time_ms(torch, lib, flush=flush),
                              "bound_ms": bound, "bound_by": by, "bytes": nbytes,
                              "ops_cuda_core_ms": t_cuda_core}
+                if name.startswith("bwd"):
+                    row[name]["ops_three_planes_ms"] = BWD_PLANES * ops / TENSOR_CORE_OPS_S * 1e3
         rows.append(row)
         errs = ("" if not train else f"; backward dx {row['dx_max_abs_err']:.2e} dw "
                 f"{row['dw_max_abs_err']:.2e} (atol = rtol = {TRAIN_TOL}, every element held: "
                 f"0 left out; {row['on_window_edge']['x']} x and {row['on_window_edge']['w']} w "
-                f"exactly on |v| = 1), repeatable")
+                f"exactly on |v| = 1), repeatable; plans (tile columns, splits, steps) dx "
+                f"{row['bwd_plan']['dx']} dw {row['bwd_plan']['dw']}")
         times = "".join(f" {nm} {row[nm]['ms']:.5f} ms (plain {row[nm]['plain_ms']:.4f}, "
                         f"library {row[nm]['library_ms']:.5f}, bound {row[nm]['bound_ms']:.6f} "
-                        f"{row[nm]['bound_by']})"
+                        f"{row[nm]['bound_by']}"
+                        + (f"; 3 planes {row[nm]['ops_three_planes_ms']:.6f}"
+                           if "ops_three_planes_ms" in row[nm] else "") + ")"
                         for nm in ("fwd_int8", "fwd_packed", "fwd_f32", "bwd_dx", "bwd_dw")
                         if nm in row)
         print(f"[bnn-kernels] M={m} K={k} N={n}: forward bit-exact (float32, int8"
@@ -886,12 +909,13 @@ def phase_spec(torch, np, dev):
     return result
 
 
-def _device_share(prof, label):
+def _device_share(prof, label, groups=None):
     """Device busy time, idle share and top kernels inside the profiler
     window named ``label``: busy is the union of the kernel, memcpy and
     memset intervals in the window. The trace stays under build/profile/
-    (gitignored). None when the trace holds no such window or no device
-    events."""
+    (gitignored). ``groups`` maps a name to the substrings of the kernel
+    names it sums (device ms and launches in the window). None when the
+    trace holds no such window or no device events."""
     out_dir = os.path.join(ROOT, "build", "profile")
     os.makedirs(out_dir, exist_ok=True)
     trace_path = os.path.join(out_dir, f"{label}.json")
@@ -924,9 +948,15 @@ def _device_share(prof, label):
             n, d = by_name.get(key, (0, 0.0))
             by_name[key] = (n + 1, d + float(e["dur"]))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    summed = {}
+    for name, parts in (groups or {}).items():
+        hits = [e for e in gpu if t0 <= float(e["ts"]) <= t1
+                and any(p in e["name"] for p in parts)]
+        summed[name] = {"count": len(hits), "ms": sum(float(e["dur"]) for e in hits) / 1e3}
     return {"window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / (t1 - t0),
-            "top_kernels": [{"name": k, "count": n, "ms": d / 1e3} for k, (n, d) in top]}
+            "top_kernels": [{"name": k, "count": n, "ms": d / 1e3} for k, (n, d) in top],
+            "groups": summed}
 
 
 # ---------------------------------------------------------------------------
@@ -1223,7 +1253,11 @@ def phase_train_path(torch, np, dev, mode, tag="train"):
                                            main)
     result = {"steps": steps, "profiled_step": row, "max_memory_allocated": peak,
               "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ}
-    share = _device_share(prof, label)
+    # kernels 8 and 9 each run a sign pass and then the product
+    groups = ({"bnn_bwd_dx": ("bnn_sign_kernel<true", "bnn_bwd_kernel<true"),
+               "bnn_bwd_dw": ("bnn_sign_kernel<false", "bnn_bwd_kernel<false")}
+              if mode == "bnn" else None)
+    share = _device_share(prof, label, groups)
     print(f"[{tag}] peak memory {peak / 2**30:.2f} GiB; steps "
           f"{[round(r['ms'], 1) for r in steps[:TRAIN_STEPS]]} ms"
           + (f", split step {steps[-1]['ms']:.1f} ms" if split is not None else ""))
@@ -1235,6 +1269,9 @@ def phase_train_path(torch, np, dev, mode, tag="train"):
           f"device busy {share['device_busy_ms']:.2f} ms, idle share {share['idle_share']:.4f}")
     for r in share["top_kernels"]:
         print(f"[{tag}]   {r['ms']:9.3f} ms {r['count']:6d}x {r['name']}")
+    for name, r in share["groups"].items():
+        print(f"[{tag}] profiled step: {name} {r['ms']:.3f} device ms in {r['count']} kernel "
+              f"launches (sign pass + product per call)")
     return result
 
 
@@ -1444,9 +1481,16 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    paths = build.build_all()
+    logs = {}
+    paths = build.build_all(logs=logs)
     print(f"[build] {len(paths)} kernels built in {time.perf_counter() - t0:.2f} s: "
           f"{sorted(paths)}")
+    show = False  # the -Xptxas -v lines of kernels 8 and 9: the product and its sign pass
+    for line in logs.get("bnn_matmul", "").splitlines():
+        if "Compiling entry function" in line:
+            show = "bnn_bwd" in line or "bnn_sign" in line
+        if show and ("Compiling entry function" in line or "Used" in line or "spill" in line):
+            print(f"[build] ptxas -v {line.strip()}")
 
     dev = torch.device("cuda")
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2

@@ -12,6 +12,13 @@ popcount over 32-row words and read the weights as stored (float32 or int8
 per-call cast; they mask their own ragged edges, so the reference's padding
 constants do not carry over. The source says what bounds each kernel.
 
+The backward pair runs on the bf16 tensor cores (``wgmma``), g split into
+three bf16 planes whose sum is g exactly, so every product is exact; the
+contraction is cut into ranges by ``bwd_plan`` (computed here, checked by
+the launcher) and the ranges of one output tile meet in a fixed order. The
++-1 side reaches the product as bf16, laid out by a first kernel of the
+same call in scratch the wrapper allocates.
+
 Each ``*_call`` checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, raises on a CPU tensor or a failed launch, and
 adds one to its ``.launches`` per launch. Its ``*_plain`` twin computes the
@@ -22,6 +29,7 @@ the full-width training shape needs no chunking.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,10 +45,21 @@ __all__ = [
     "bnn_matmul_plain",
     "bnn_packed_matmul_kernel_call",
     "bnn_packed_matmul_plain",
+    "bwd_plan",
+    "card_max_blocks",
 ]
 
 _W_KIND = {torch.float32: 0, torch.int8: 1}  # the launcher's w_kind; 2 = packed
 _PACKED = 2
+# the backward kernels' tiling (csrc/bnn_matmul.cu): output tiles of 128 rows
+# x 128 or 160 columns (the columns are K's), 64 contraction steps a stage,
+# at most 8 splits (one cluster); the H100's SMs
+BWD_TILE_ROWS, BWD_TILE_COLS, BWD_STAGE, BWD_MAX_SPLITS, NUM_SMS = 128, (128, 160), 64, 8, 132
+# a block's epilogue (the partial tile through shared memory, the cluster's
+# reduction, the stores), counted as this many stages: a weight set on the
+# H100 so that the plan picks, at each path shape, the tile width that ran
+# faster there (PERF.md, PR 15)
+BWD_EPILOGUE_STAGES = 5
 
 
 def _check_fwd(x: torch.Tensor, w: torch.Tensor, packed: bool) -> None:
@@ -108,10 +127,58 @@ def bnn_bwd_dw_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch
     return torch.where(w.abs() <= 1.0, dw, 0.0)
 
 
-def _lib(name: str, n_ptr: int):
+def bwd_plan(m: int, k: int, n: int, want_dx: bool, max_blocks=None) -> tuple:
+    """(bn, splits, t_per_split) for kernel 8 (``want_dx``) or 9 at x (m, k),
+    w (k, n): output tiles of 128 rows x ``bn`` columns, and the
+    contraction (n for dx, m for dw) cut into ``splits`` ranges of
+    ``t_per_split`` steps, split s taking [s t, (s + 1) t), each a whole
+    number of 64-step stages and none empty. The splits of one tile run as
+    one cluster, each block on its own SM; ``max_blocks(bn, splits)`` is how
+    many such blocks can be resident at once (the card's own answer on
+    CUDA; the 132 SMs when None). Picks the plan with the least waves x
+    (stages a block + its epilogue) x bn, the work a block's SM does in
+    sequence; ties go to the narrower tile and the fewer splits."""
+    rows, t = (m, n) if want_dx else (n, m)
+    stages = -(-t // BWD_STAGE)
+    best = None
+    for bn in BWD_TILE_COLS:
+        tiles = -(-rows // BWD_TILE_ROWS) * -(-k // bn)
+        for s in range(1, min(BWD_MAX_SPLITS, stages) + 1):
+            per = -(-stages // s)
+            s = -(-stages // per)  # no empty range
+            cap = NUM_SMS if max_blocks is None else max_blocks(bn, s)
+            if cap <= 0:
+                continue
+            cost = -(-tiles * s // cap) * (per + BWD_EPILOGUE_STAGES) * bn
+            if best is None or cost < best[0]:
+                best = (cost, bn, s, per)
+    if best is None:
+        raise RuntimeError("the card reports no room for a block of the BNN backward")
+    return best[1], best[2], best[3] * BWD_STAGE
+
+
+def card_max_blocks(index: int, want_dx: bool, bn: int, splits: int) -> int:
+    """How many blocks of kernel 8 (``want_dx``) or 9 with ``bn`` tile
+    columns card ``index`` keeps resident in clusters of ``splits`` (the
+    launcher's ``bnn_bwd_max_blocks``); 0 where none fits."""
+    fn = build.load("bnn_matmul").bnn_bwd_max_blocks
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    with torch.cuda.device(index):
+        return max(0, fn(int(want_dx), bn, splits))
+
+
+@functools.lru_cache(maxsize=None)
+def _card_plan(index: int, m: int, k: int, n: int, want_dx: bool) -> tuple:
+    """``bwd_plan`` under card ``index``'s occupancy, once per card, shape
+    and kernel."""
+    return bwd_plan(m, k, n, want_dx, lambda bn, s: card_max_blocks(index, want_dx, bn, s))
+
+
+def _lib(name: str, n_ptr: int, n_int: int):
     fn = getattr(build.load("bnn_matmul"), name)
     if fn.argtypes is None:  # declare once: pointers must not pass as 32-bit ints
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -126,8 +193,8 @@ def _fwd_call(caller, x: torch.Tensor, w: torch.Tensor, kind: int) -> torch.Tens
     if k == 0:
         return y.zero_()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib("bnn_fwd_launch", 3)(x.data_ptr(), w.data_ptr(), y.data_ptr(), m, n, k, kind,
-                                    stream)
+    err = _lib("bnn_fwd_launch", 3, 4)(x.data_ptr(), w.data_ptr(), y.data_ptr(), m, n, k, kind,
+                                       stream)
     if err != 0:
         raise RuntimeError(f"{caller.__name__} kernel launch failed: CUDA error {err}")
     caller.launches += 1
@@ -161,9 +228,13 @@ def _bwd_call(caller, x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
         return out
     if (n if want_dx else m) == 0:
         return out.zero_()
+    bn, splits, per = _card_plan(x.device.index, m, k, n, want_dx)
+    t = n if want_dx else m
+    sgn = torch.empty(k * -(-t // 8) * 8, dtype=torch.int16, device=x.device)  # +-1 as bf16
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib("bnn_bwd_launch", 4)(x.data_ptr(), w.data_ptr(), g.data_ptr(), out.data_ptr(),
-                                    m, n, k, int(want_dx), stream)
+    err = _lib("bnn_bwd_launch", 5, 7)(x.data_ptr(), w.data_ptr(), g.data_ptr(), out.data_ptr(),
+                                       sgn.data_ptr(), m, n, k, int(want_dx), bn, splits, per,
+                                       stream)
     if err != 0:
         raise RuntimeError(f"{caller.__name__} kernel launch failed: CUDA error {err}")
     caller.launches += 1

@@ -18,7 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 __all__ = ["CSRC", "BUILD_DIR", "KERNEL_SOURCES", "build_all", "load"]
 
@@ -53,9 +53,12 @@ def _command(name: str, out: str) -> List[str]:
     return [_nvcc(), *NVCC_FLAGS, "-o", out, os.path.join(CSRC, f"{name}.cu")]
 
 
-def build_all(names=KERNEL_SOURCES, *, verbose: bool = False) -> Dict[str, str]:
+def build_all(names=KERNEL_SOURCES, *, logs: Optional[Dict[str, str]] = None
+              ) -> Dict[str, str]:
     """Compile every named source that is not built yet, all in parallel.
-    Returns ``{name: library path}``; raises with nvcc's output on failure."""
+    Returns ``{name: library path}``; raises with nvcc's output on failure.
+    With ``logs``, compiles with ``-Xptxas=-v`` and stores each compiled
+    source's output there (registers, shared memory and spills per kernel)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     paths = {}
@@ -64,7 +67,7 @@ def build_all(names=KERNEL_SOURCES, *, verbose: bool = False) -> Dict[str, str]:
         paths[name] = out
         if not os.path.exists(out):
             cmd = _command(name, out + ".tmp")
-            if verbose:
+            if logs is not None:
                 cmd.insert(1, "-Xptxas=-v")
             procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                  stderr=subprocess.STDOUT, text=True))
@@ -75,8 +78,8 @@ def build_all(names=KERNEL_SOURCES, *, verbose: bool = False) -> Dict[str, str]:
             errors.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
             continue
         os.replace(out + ".tmp", out)
-        if verbose and log:
-            print(f"[build] {name}.cu:\n{log}")
+        if logs is not None:
+            logs[name] = log
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths

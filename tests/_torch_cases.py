@@ -10,11 +10,14 @@ __all__ = ["BNN_KERNEL_SHAPES", "PAGED_CASES", "QNN_KERNEL_SHAPES", "TRAIN_KERNE
 TRAIN_KERNEL_SHAPES = [(512, 960, 960), (512, 960, 320), (512, 960, 2560),
                        (512, 2560, 960), (37, 100, 130), (129, 968, 65)]
 
-# the BNN kernels: a decode shape and the training path's gate/up and down
-# shapes, then ragged M and N with K not a multiple of 32 (968, packed too)
-# and not a multiple of 8 (100, unpacked only)
-BNN_KERNEL_SHAPES = [(4, 960, 2560), (512, 960, 2560), (512, 2560, 960), (129, 968, 65),
-                     (37, 100, 130)]
+# the BNN kernels: a decode shape and the training path's four (K, N) at
+# M = 512 (q/o, k/v, gate/up, down: every contraction split and both tile
+# widths of the backward pair), then ragged M and N with K not a multiple of
+# 32 (968, packed too) and not a multiple of 8 (100, unpacked only), and a
+# ragged N at the down shape; the ragged shapes take the backward's 4-byte
+# load route (N = 65, 130, 962), the last one with 160-column tiles
+BNN_KERNEL_SHAPES = [(4, 960, 2560), (512, 960, 960), (512, 960, 320), (512, 960, 2560),
+                     (512, 2560, 960), (129, 968, 65), (37, 100, 130), (512, 2560, 962)]
 
 
 # kernel 10: the serve path's (K, N) projections at decode (M = 4), the

@@ -143,6 +143,122 @@ def test_wrappers_take_plain_on_cpu_and_check_inputs():
         tk.bnn_bwd_dw_plain(x, w, g[:, :4])
 
 
+# ---------------------------------------------------------------------------
+# kernels 8 and 9 on the card: a plain model of their arithmetic and plan
+# ---------------------------------------------------------------------------
+
+# resident blocks by cluster size 1..8 that bnn_bwd_max_blocks reported on an
+# NVIDIA H100 80GB HBM3 (chip_smoke.py's bnn-kernels phase prints them), the
+# same for both tile widths
+H100_MAX_BLOCKS = dict(enumerate((132, 132, 117, 120, 110, 102, 105, 120), start=1))
+BWD_PATH_SHAPES = [(512, 960, 960), (512, 960, 320), (512, 960, 2560), (512, 2560, 960)]
+
+
+def _h100_max_blocks(bn, splits):
+    return H100_MAX_BLOCKS[splits]
+
+
+def _bf16_planes(g):
+    """The kernels' split of float32 g into three bf16 planes (round to
+    nearest even, as __floats2bfloat162_rn): g1 = bf16(g), g2 = bf16(g -
+    g1), g3 = bf16(g - g1 - g2)."""
+    g1 = g.to(torch.bfloat16).float()
+    r = g - g1
+    g2 = r.to(torch.bfloat16).float()
+    return g1, g2, (r - g2).to(torch.bfloat16).float()
+
+
+def _split_values(kind, rng):
+    if kind == "normal":  # the operands of the kernel checks
+        return bnn_case(rng, 64, 8, 96)[2].ravel()
+    if kind == "zeros_ones":
+        return np.array([0.0, -0.0, 1.0, -1.0, 0.5, -2.0, 3.0, 255.0], dtype=np.float32)
+    mant = rng.uniform(1.0, 2.0, size=4096)
+    sign_ = np.where(rng.random(4096) < 0.5, -1.0, 1.0)
+    if kind == "large":  # up to just below bf16's overflow point, 3.3961776e38
+        return (sign_ * mant * 2.0 ** rng.integers(100, 127, size=4096)).clip(
+            -3.39e38, 3.39e38).astype(np.float32)
+    # small normals whose residuals stay normal too
+    return (sign_ * mant * 2.0 ** rng.integers(-100, -60, size=4096)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["normal", "zeros_ones", "large", "small"])
+def test_bwd_bf16_planes_sum_back_to_g(kind):
+    """The three bf16 planes of g sum back to g exactly in float32, so every
+    (+-1 x plane) product on the tensor cores is exact (the sum of -0 is +0,
+    the same value)."""
+    g = torch.from_numpy(_split_values(kind, np.random.default_rng(17)))
+    g1, g2, g3 = _bf16_planes(g)
+    for plane in (g1, g2, g3):
+        assert torch.equal(plane.to(torch.bfloat16).float(), plane)  # bf16 values
+    assert torch.equal((g1 + g2) + g3, g)
+    assert torch.isfinite(g3).all()
+
+
+def _kernel_model(x, w, g, want_dx):
+    """A plain model of kernels 8 and 9's numerics in float32: per split of
+    the card's plan (``bwd_plan`` under the H100's cluster occupancy), the
+    g1 plane's products summed in one accumulator and the g2 and g3 planes'
+    in another, the split's partial hi + lo, the partials added in split
+    order, then the hard-tanh mask of the output's own operand."""
+    m, k = x.shape
+    n = w.shape[1]
+    _, splits, per = tk.bwd_plan(m, k, n, want_dx, _h100_max_blocks)
+    sx, sw = tk._sgn(x), tk._sgn(w)
+    g1, g2, g3 = _bf16_planes(g)
+    total = None
+    for s in range(splits):
+        sl = slice(s * per, (s + 1) * per)
+        if want_dx:  # contraction over n
+            hi = g1[:, sl] @ sw[:, sl].T
+            lo = torch.cat([g2[:, sl], g3[:, sl]], 1) @ torch.cat([sw[:, sl], sw[:, sl]], 1).T
+        else:  # contraction over m
+            hi = sx[sl].T @ g1[sl]
+            lo = torch.cat([sx[sl], sx[sl]]).T @ torch.cat([g2[sl], g3[sl]])
+        part = hi + lo
+        total = part if total is None else total + part
+    own = x if want_dx else w
+    return torch.where(own.abs() <= 1.0, total, 0.0)
+
+
+@pytest.mark.parametrize("want_dx", [True, False], ids=["dx", "dw"])
+def test_bwd_plane_sums_meet_the_tolerance_at_gate_up(want_dx):
+    """At the training path's gate/up shape (512, 960, 2560), the model of
+    the kernels' plane-wise float32 sums is within atol = rtol = 1e-4 of the
+    float64 plain version on every element (the bound the card is held
+    to), and far inside it."""
+    x, w, g = (torch.from_numpy(a) for a in bnn_case(np.random.default_rng(7), 512, 960, 2560))
+    got = _kernel_model(x, w, g, want_dx)
+    want = (tk.bnn_bwd_dx_plain if want_dx else tk.bnn_bwd_dw_plain)(x, w, g)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=ATOL)
+    assert float(((got - want).abs() / (ATOL + ATOL * want.abs())).max()) < 0.5
+
+
+@pytest.mark.parametrize("want_dx", [True, False], ids=["dx", "dw"])
+@pytest.mark.parametrize("m,k,n", BWD_PATH_SHAPES + [(4, 960, 2560), (129, 968, 65),
+                                                     (37, 100, 130), (512, 2560, 962)])
+def test_bwd_plan_covers_the_contraction_once(m, k, n, want_dx):
+    """Every plan, with the card's occupancy and with the CPU default, cuts
+    the contraction into 1-8 non-empty ranges of whole 64-step stages that
+    cover it exactly once; at the path's shapes the H100 plan keeps every
+    block resident in one wave on at least half of the 132 SMs."""
+    t = n if want_dx else m
+    rows = m if want_dx else n
+    for max_blocks in (None, _h100_max_blocks):
+        bn, splits, per = tk.bwd_plan(m, k, n, want_dx, max_blocks)
+        assert bn in tk.BWD_TILE_COLS and 1 <= splits <= tk.BWD_MAX_SPLITS
+        assert per % tk.BWD_STAGE == 0
+        covered = np.zeros(t, dtype=int)
+        for s in range(splits):
+            lo, hi = s * per, min(t, (s + 1) * per)
+            assert hi > lo
+            covered[lo:hi] += 1
+        assert (covered == 1).all()
+        if max_blocks is not None and (m, k, n) in BWD_PATH_SHAPES:
+            blocks = -(-rows // tk.BWD_TILE_ROWS) * -(-k // bn) * splits
+            assert tk.NUM_SMS // 2 <= blocks <= H100_MAX_BLOCKS[splits]
+
+
 def test_core_bnn_matches_reference():
     rng = np.random.default_rng(4)
     x, w, _ = bnn_case(rng, 5, 24, 7)
