@@ -8,7 +8,10 @@ Phases (each prints its own line; any failure exits non-zero):
 2. build   — compile every kernel in src/repro_torch/csrc/ with nvcc, in
              parallel, and print the build time.
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
-             at the shapes of the path that runs it: CAC bit-exact; paged
+             at the shapes of the path that runs it: CAC bit-exact and
+             repeatable (M = 4 and 32 at the four projections, timed, and
+             ragged shapes around the streaming template's edges, one with
+             every term a mismatch); paged
              attention within 2e-5 (fp32 and int8 pools, decode, chunk and
              the speculative verify's B = 4 x C = 4 window);
              the training CAC forward bit-exact and its STE backward (fused,
@@ -41,13 +44,20 @@ Phases (each prints its own line; any failure exits non-zero):
              within the stated tolerances.
 8. bnn-kernels — the BNN kernels (6: sign product, 7: its packed serve
              form, 8/9: the SignSTE dx and dw) against their plain versions
-             at the decode shapes (M = 4), the training shapes (M = 512) and
-             three ragged shapes: forwards bit-exact and 7 equal to 6,
+             at the decode shapes (M = 4), the unpacked serve's prefill
+             shapes (M = 16, 32), the training shapes (M = 512) and three
+             ragged shapes: forwards bit-exact on the planned route and on
+             both of kernel 6's routes (streaming, tensor cores),
+             repeatable, and 7 equal to 6,
              backward within atol = rtol = 1e-4 on every element and
              repeatable, with each backward launch's plan and the card's
              cluster occupancy; times with plain, library (torch.matmul on
              +-1 operands) and bound. The build prints the -Xptxas -v lines
-             of kernels 8 and 9.
+             of the product template (kernels 6 at large M, 8, 9), its sign
+             pass and the streaming template (kernels 1 and 6 at small M).
+   route sweep — kernel 6 on both routes at M = 16..128, gate/up and down,
+             float32 and int8 weights: the times that set the route
+             threshold.
 9. bnn-serve — phases 4, profile and 5 again in bnn mode (packed planes:
              224 kernel-7 and 32 attention launches per tick, 0 elsewhere),
              plus one unpacked drain (224 kernel-6 launches per tick) whose
@@ -128,6 +138,11 @@ _NO_LAUNCHES = {"bnn": 0, "bnn_bwd_dw": 0, "bnn_bwd_dx": 0, "bnn_packed": 0, "ca
 PATH_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
 BNN_SHAPES = [(N_SLOTS, k, n) for k, n in PATH_KN] + [(512, k, n) for k, n in PATH_KN]
 BNN_RAGGED = [(129, 968, 65), (37, 100, 130), (512, 2560, 962)]
+# kernel 6 on int8 signs at the unpacked serve's prefill buckets and chunks
+BNN_PREFILL = [(m, k, n) for m in (16, 32) for k, n in PATH_KN]
+# kernel 6's route sweep: both routes at these M, gate/up and down, both
+# weight kinds (the route threshold in kernels/bnn_matmul.py is set from it)
+ROUTE_SWEEP_M = (16, 32, 33, 48, 64, 128)
 # +-1 products and their integer sums are exact on the tensor cores, so the
 # sign products' operations bound, and the SignSTE backward's (each term a
 # +-1 times g), is 2 M K N at the dense bf16 rate (data sheet)
@@ -190,40 +205,96 @@ def time_ms(torch, fn, *, iters: int = 20, warmup: int = 3, flush=None) -> float
 
 
 def phase_cac(torch, np, dev, flush):
+    """Kernel 1 against its plain version, bit-exact: at the serve path's
+    eight shapes (M = 4 decode and 32 prefill chunk x the four (K, N)),
+    timed, on its plan and at every split count (``_split_sweep``); at
+    ragged shapes that cut every edge of the streaming template
+    (M in {1, 4, 16, 17, 32, 33}; N not a multiple of 16; K = 8 and K not a
+    multiple of 16), with x and tau at -128 and 127; and at K = 2560 with
+    every term a mismatch (one byte lane's count past 255 before its
+    flush). Every launch is repeated and must repeat bit for bit. Bound:
+    bytes = x, tau, s read once and y written once; operations M K N
+    compare/add pairs at the CUDA cores' rate; the larger. Also times a
+    kernel that does no work (the floor of ``time_ms``). Returns the rows
+    and that floor."""
     from repro_torch.core.backend import pack_signs
-    from repro_torch.kernels.cac_matmul import cac_matmul_kernel_call, cac_matmul_plain
+    from repro_torch.kernels.cac_matmul import (cac_matmul_kernel_call, cac_matmul_plain,
+                                                card_stream_plan)
 
     rng = np.random.default_rng(SEED)
-    shapes = [(m, k, n) for m in (4, 32)
-              for (k, n) in ((960, 960), (960, 320), (960, 2560), (2560, 960))]
-    ragged = [(5, 24, 130), (33, 40, 7), (1, 8, 1), (17, 968, 333)]
+    shapes = [(m, k, n) for m in (4, 32) for (k, n) in PATH_KN]
+    ragged = [(5, 24, 130), (33, 40, 7), (1, 8, 1), (17, 968, 333), (4, 8, 130),
+              (16, 200, 333), (32, 24, 1000), (1, 2568, 2560), (33, 2560, 960)]
     rows = []
-    for m, k, n in shapes + ragged:
-        x = torch.from_numpy(rng.integers(-128, 128, size=(m, k)).astype(np.int8)).to(dev)
-        tau = torch.from_numpy(rng.integers(-128, 128, size=(k, n)).astype(np.int8)).to(dev)
-        s = torch.from_numpy(np.where(rng.random((k, n)) < 0.5, 1, -1).astype(np.int8))
-        sp = pack_signs(s).to(dev)
+    for m, k, n in shapes + ragged + [(4, 2560, 960)]:
+        x = rng.integers(-128, 128, size=(m, k)).astype(np.int8)
+        tau = rng.integers(-128, 128, size=(k, n)).astype(np.int8)
+        s = np.where(rng.random((k, n)) < 0.5, 1, -1).astype(np.int8)
+        x.flat[:2], tau.flat[:2] = (-128, 127), (127, -128)
+        mismatch = len(rows) == len(shapes) + len(ragged)  # the last case
+        if mismatch:  # x < tau everywhere with s = +1: every term is -1
+            x[:], tau[:], s[:] = -128, 127, 1
+        x, tau = torch.from_numpy(x).to(dev), torch.from_numpy(tau).to(dev)
+        sp = pack_signs(torch.from_numpy(s)).to(dev)
         got = cac_matmul_kernel_call(x, tau, sp)
+        again = cac_matmul_kernel_call(x, tau, sp)
         torch.cuda.synchronize()
         want = cac_matmul_plain(x, tau, sp)
         err = float((got - want).abs().max())
         if err != 0.0:
             fail(f"cac_matmul M={m} K={k} N={n}: max |kernel - plain| = {err} (must be 0)")
-        row = {"M": m, "K": k, "N": n, "max_abs_err": err}
-        if (m, k, n) in shapes:
+        if not torch.equal(got, again):
+            fail(f"cac_matmul M={m} K={k} N={n}: a second launch gave other values")
+        if mismatch and not bool((got == -k).all()):
+            fail(f"cac_matmul all-mismatch K={k}: not every sum is -K")
+        row = {"M": m, "K": k, "N": n, "max_abs_err": err,
+               "plan": list(card_stream_plan(x.device.index, m, k, n))}
+        if (m, k, n) in shapes and not mismatch:
             row["ms"] = time_ms(torch, lambda: cac_matmul_kernel_call(x, tau, sp), flush=flush)
+            row["ms_by_splits"] = _split_sweep(torch, x, tau, sp, flush)
             row["plain_ms"] = time_ms(torch, lambda: cac_matmul_plain(x, tau, sp),
                                       iters=5, flush=flush)
             nbytes = m * k + k * n + k * n // 8 + 4 * m * n
-            t_bytes = nbytes / HBM_BYTES_S * 1e3
-            t_ops = 2.0 * m * k * n / CUDA_CORE_OPS_S * 1e3
-            row["bound_ms"] = max(t_bytes, t_ops)
-            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            row["bound_ms"], row["bound_by"] = _bound(nbytes, 2.0 * m * k * n, CUDA_CORE_OPS_S)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
-        print(f"[kernels] cac_matmul M={m} K={k} N={n} bit-exact"
+        print(f"[kernels] cac_matmul M={m} K={k} N={n} bit-exact, repeatable"
+              + (" (every term a mismatch)" if mismatch else "")
+              + f"; plan (rows a tile, splits, groups a split) {row['plan']}"
               + (f" ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
-                 f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']})" if "ms" in row else ""))
-    return rows
+                 f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}, "
+                 f"{100 * row['bound_share']:.1f}%); ms by split count "
+                 + ", ".join(f"{sp_} {t:.5f}" for sp_, t in row["ms_by_splits"].items())
+                 if "ms" in row else ""))
+    tiny = torch.empty(1, device=dev)
+    floor = time_ms(torch, lambda: tiny.zero_(), flush=flush)
+    print(f"[kernels] timing floor: one 1-element zero_ (a kernel that does no work) "
+          f"{floor:.5f} ms")
+    return rows, floor
+
+
+def _split_sweep(torch, x, tau, sp, flush):
+    """Kernel 1 at every split count its plan could take (the same row
+    tile), device ms each: the data behind stream_plan's rule."""
+    from repro_torch.kernels import cac_matmul as cac
+
+    m, k = x.shape
+    n = tau.shape[1]
+    mt, _, _ = cac.stream_plan(m, k, n)
+    groups = -(-k // cac.STREAM_GROUP)
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    out = {}
+    for s in range(1, cac.STREAM_MAX_SPLITS + 1):
+        per = -(-groups // s)
+        if -(-groups // per) != s:
+            continue
+        args = (x.data_ptr(), tau.data_ptr(), sp.data_ptr(), y.data_ptr(), m, n, k, mt, s, per,
+                stream)
+        if cac._lib()(*args) != 0:
+            fail(f"cac_matmul M={m} K={k} N={n}: the launch refused {s} splits")
+        out[s] = time_ms(torch, lambda: cac._lib()(*args), flush=flush)
+    return out
 
 
 def _paged_case(torch, np, rng, dev, b, c, t, quantized, hq=15, hkv=5, d=64, bs=16):
@@ -467,12 +538,16 @@ def phase_bnn_kernels(torch, np, dev, flush):
           f"clusters of 1..{bnn.BWD_MAX_SPLITS}: {occupancy}")
     rng = np.random.default_rng(SEED + 7)
     rows = []
-    for m, k, n in BNN_SHAPES + BNN_RAGGED:
+    for m, k, n in BNN_SHAPES + BNN_RAGGED + BNN_PREFILL:
         x, w, g = (torch.from_numpy(a).to(dev) for a in _bnn_operands(np, rng, m, k, n))
         wb = sign(w).to(torch.int8)
         wp = pack_signs(wb) if k % 8 == 0 else None
         want = bnn.bnn_matmul_plain(x, w)
         got = {"f32": bnn.bnn_matmul_kernel_call(x, w), "int8": bnn.bnn_matmul_kernel_call(x, wb)}
+        for route in ("stream", "tc"):  # both routes of kernel 6, whichever the plan takes
+            got[f"f32 {route}"] = bnn.bnn_matmul_kernel_call(x, w, route=route)
+            got[f"int8 {route}"] = bnn.bnn_matmul_kernel_call(x, wb, route=route)
+        again = bnn.bnn_matmul_kernel_call(x, w)
         if wp is not None:
             got["packed"] = bnn.bnn_packed_matmul_kernel_call(x, wp)
         torch.cuda.synchronize()
@@ -480,11 +555,16 @@ def phase_bnn_kernels(torch, np, dev, flush):
             if not torch.equal(y, want):
                 fail(f"bnn forward ({name} weights) M={m} K={k} N={n}: max |kernel - plain| = "
                      f"{float((y - want).abs().max())} (must be 0)")
+        if not torch.equal(again, got["f32"]):
+            fail(f"bnn forward M={m} K={k} N={n}: a second launch gave other values")
         if wp is not None and not (torch.equal(got["packed"], got["int8"]) and torch.equal(
                 bnn.bnn_packed_matmul_plain(x, wp), want)):
             fail(f"bnn packed forward M={m} K={k} N={n}: kernel 7 != kernel 6")
-        row = {"M": m, "K": k, "N": n, "fwd_max_abs_err": 0.0}
-        train = m > N_SLOTS
+        row = {"M": m, "K": k, "N": n, "fwd_max_abs_err": 0.0,
+               "fwd_plan": {str(t.dtype)[6:]: list(bnn._card_fwd_plan(x.device.index, m, k, n,
+                                                                         t.dtype))
+                            for t in (w, wb)}}
+        train = m > 32
         if train:
             dx, dw = bnn.bnn_bwd_dx_call(x, w, g), bnn.bnn_bwd_dw_call(x, w, g)
             again = (bnn.bnn_bwd_dx_call(x, w, g), bnn.bnn_bwd_dw_call(x, w, g))
@@ -503,7 +583,7 @@ def phase_bnn_kernels(torch, np, dev, flush):
             # (tile columns, splits, steps a split) of each launch
             row["bwd_plan"] = {nm: list(bnn._card_plan(x.device.index, m, k, n, nm == "dx"))
                                for nm in ("dx", "dw")}
-        if (m, k, n) in BNN_SHAPES:
+        if (m, k, n) in BNN_SHAPES + BNN_PREFILL:
             xs, ws = sign(x), sign(w)
             ops = 2.0 * m * k * n
             t_cuda_core = ops / CUDA_CORE_OPS_S * 1e3
@@ -528,11 +608,12 @@ def phase_bnn_kernels(torch, np, dev, flush):
                                  lambda: bnn.bnn_matmul_plain(x, wb),
                                  lambda: torch.matmul(xs, ws),
                                  4 * m * k + k * n + 4 * m * n),
-                    "fwd_packed": (lambda: bnn.bnn_packed_matmul_kernel_call(x, wp),
-                                   lambda: bnn.bnn_packed_matmul_plain(x, wp),
-                                   lambda: torch.matmul(xs, ws),
-                                   4 * m * k + k * n // 8 + 4 * m * n),
                 }
+                if m == N_SLOTS:
+                    timed["fwd_packed"] = (lambda: bnn.bnn_packed_matmul_kernel_call(x, wp),
+                                           lambda: bnn.bnn_packed_matmul_plain(x, wp),
+                                           lambda: torch.matmul(xs, ws),
+                                           4 * m * k + k * n // 8 + 4 * m * n)
             for name, (kern, plain, lib, nbytes) in timed.items():
                 bound, by = _bound(nbytes, ops, TENSOR_CORE_OPS_S)
                 row[name] = {"ms": time_ms(torch, kern, flush=flush),
@@ -540,6 +621,7 @@ def phase_bnn_kernels(torch, np, dev, flush):
                              "library_ms": time_ms(torch, lib, flush=flush),
                              "bound_ms": bound, "bound_by": by, "bytes": nbytes,
                              "ops_cuda_core_ms": t_cuda_core}
+                row[name]["bound_share"] = bound / row[name]["ms"]
                 if name.startswith("bwd"):
                     row[name]["ops_three_planes_ms"] = BWD_PLANES * ops / TENSOR_CORE_OPS_S * 1e3
         rows.append(row)
@@ -555,9 +637,43 @@ def phase_bnn_kernels(torch, np, dev, flush):
                            if "ops_three_planes_ms" in row[nm] else "") + ")"
                         for nm in ("fwd_int8", "fwd_packed", "fwd_f32", "bwd_dx", "bwd_dw")
                         if nm in row)
-        print(f"[bnn-kernels] M={m} K={k} N={n}: forward bit-exact (float32, int8"
-              f"{', packed = kernel 6' if wp is not None else ''}){errs}{times}")
+        print(f"[bnn-kernels] M={m} K={k} N={n}: forward bit-exact (float32, int8, both routes"
+              f"{', packed = kernel 6' if wp is not None else ''}), repeatable; kernel-6 plans "
+              f"{row['fwd_plan']}{errs}{times}")
     return rows
+
+
+def phase_route_sweep(torch, np, dev, flush):
+    """Kernel 6 on both routes (bit-exact) at ROUTE_SWEEP_M rows, gate/up
+    and down, float32 and int8 weights: device ms per launch, L2 flushed.
+    The route thresholds (kernels/bnn_matmul.py FWD_STREAM_MAX_M, by weight
+    dtype) are set from these times: the largest M where the streaming
+    route is the faster at both projections."""
+    from repro_torch.core.ste import sign
+    from repro_torch.kernels import bnn_matmul as bnn
+
+    rng = np.random.default_rng(SEED + 9)
+    sweep = []
+    for k, n in ((960, 2560), (2560, 960)):
+        for m in ROUTE_SWEEP_M:
+            x, w, _ = (torch.from_numpy(a).to(dev) for a in _bnn_operands(np, rng, m, k, n))
+            want = bnn.bnn_matmul_plain(x, w)
+            entry = {"M": m, "K": k, "N": n}
+            for kind, wt in (("int8", sign(w).to(torch.int8)), ("f32", w)):
+                for route in ("stream", "tc"):
+                    if not torch.equal(bnn.bnn_matmul_kernel_call(x, wt, route=route), want):
+                        fail(f"bnn forward route sweep M={m} K={k} N={n} {kind} {route}: "
+                             f"not bit-exact")
+                    entry[f"{kind}_{route}_ms"] = time_ms(
+                        torch, lambda: bnn.bnn_matmul_kernel_call(x, wt, route=route),
+                        flush=flush)
+            sweep.append(entry)
+            print(f"[bnn-kernels] route sweep M={m} K={k} N={n} (ms; streams up to M = "
+                  f"{bnn.FWD_STREAM_MAX_M[torch.int8]} int8, "
+                  f"{bnn.FWD_STREAM_MAX_M[torch.float32]} float32): "
+                  + ", ".join(f"{key[:-3]} {val:.5f}" for key, val in entry.items()
+                              if key.endswith("_ms")))
+    return sweep
 
 
 def _qnn_operands(np, rng, m, k, n):
@@ -1253,9 +1369,11 @@ def phase_train_path(torch, np, dev, mode, tag="train"):
                                            main)
     result = {"steps": steps, "profiled_step": row, "max_memory_allocated": peak,
               "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ}
-    # kernels 8 and 9 each run a sign pass and then the product
-    groups = ({"bnn_bwd_dx": ("bnn_sign_kernel<true", "bnn_bwd_kernel<true"),
-               "bnn_bwd_dw": ("bnn_sign_kernel<false", "bnn_bwd_kernel<false")}
+    # kernels 8, 9 and 6 (its tensor-core route at M = 512) each run a sign
+    # pass and then the product template in its mode (1 dx, 0 dw, 2 fwd)
+    groups = ({"bnn_bwd_dx": ("bnn_sign_kernel<true", "bnn_bwd_kernel<1,"),
+               "bnn_bwd_dw": ("bnn_sign_kernel<false, false, float, false>", "bnn_bwd_kernel<0,"),
+               "bnn": ("bnn_sign_kernel<false, false, float, true>", "bnn_bwd_kernel<2,")}
               if mode == "bnn" else None)
     share = _device_share(prof, label, groups)
     print(f"[{tag}] peak memory {peak / 2**30:.2f} GiB; steps "
@@ -1485,19 +1603,24 @@ def main() -> int:
     paths = build.build_all(logs=logs)
     print(f"[build] {len(paths)} kernels built in {time.perf_counter() - t0:.2f} s: "
           f"{sorted(paths)}")
-    show = False  # the -Xptxas -v lines of kernels 8 and 9: the product and its sign pass
-    for line in logs.get("bnn_matmul", "").splitlines():
-        if "Compiling entry function" in line:
-            show = "bnn_bwd" in line or "bnn_sign" in line
-        if show and ("Compiling entry function" in line or "Used" in line or "spill" in line):
-            print(f"[build] ptxas -v {line.strip()}")
+    # the -Xptxas -v lines (registers, spills) of the redesigned kernels: the
+    # product template (kernels 6 at large M, 8, 9) and its sign pass, and
+    # the streaming template (kernel 1, kernel 6 at small M)
+    for source in ("cac_matmul", "bnn_matmul"):
+        show = False
+        for line in logs.get(source, "").splitlines():
+            if "Compiling entry function" in line:
+                show = any(nm in line for nm in ("bnn_bwd", "bnn_sign", "stream_kernel"))
+            if show and ("Compiling entry function" in line or "Used" in line or "spill" in line):
+                print(f"[build] ptxas -v {source}: {line.strip()}")
 
     dev = torch.device("cuda")
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
-    cac_rows = phase_cac(torch, np, dev, flush)
+    cac_rows, timing_floor = phase_cac(torch, np, dev, flush)
     attn_rows = phase_paged(torch, np, dev, flush)
     train_rows = phase_train_kernels(torch, np, dev, flush)
     bnn_rows = phase_bnn_kernels(torch, np, dev, flush)
+    route_sweep = phase_route_sweep(torch, np, dev, flush)
     qnn_rows = phase_qnn_kernels(torch, np, dev, flush)
     del flush
     from repro_torch.configs import get_config
@@ -1609,8 +1732,10 @@ def main() -> int:
         "shapes": [r for r in qnn_rows if "ms" in r]})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
-        json.dump({"device": smi, "kernels": kernels, "path": path, "training": training,
-                   "train_kernels": train_rows, "bnn_kernels": bnn_rows, "bnn_path": bnn_path,
+        json.dump({"device": smi, "kernels": kernels, "timing_floor_ms": timing_floor,
+                   "path": path, "training": training,
+                   "train_kernels": train_rows, "bnn_kernels": bnn_rows,
+                   "bnn_route_sweep": route_sweep, "bnn_path": bnn_path,
                    "bnn_training": bnn_training, "qnn_kernels": qnn_rows, "qnn_path": qnn_path,
                    "spec": spec}, fh, indent=1, sort_keys=True)
     print(smi)

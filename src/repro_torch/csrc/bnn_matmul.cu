@@ -14,40 +14,44 @@
 // packed serve form (bit j of byte r of column n is row 8r + j, 1 -> +1);
 // g float32 (M, N). All row-major and contiguous.
 //
-// Forward (kernels 6 and 7: one template, three weight kinds). The work is
-// exact integer counting, done as the paper's BNN PE does it (XNOR +
-// popcount, src/repro/core/bnn.py): with the signs of 32 consecutive K rows
-// packed into one word on each side, a word pair contributes
-// 32 - 2 * popc(xbits ^ wbits) to the dot product. A block computes a BM x
-// 64 tile of y (BM = 64, or 16 when M <= 16 as in decode) and walks its K
-// range in stages of 4 words (128 rows):
-//   - x: a warp reads 32 consecutive x of one row and __ballot_sync(x >= 0)
-//     is the word;
-//   - w: a thread builds the word of one column from 32 rows of w in the
-//     dtype it is stored in (float32 or int8, no cast pass), or from the 4
-//     bytes of wp that hold those rows (the 4 bytes lie N bytes apart);
-//   - each thread then XORs and popcounts its RM x 4 register tile.
-// Rows at or past the end of the block's K range give 0 bits on both
-// sides, so they count as agreements and add nothing to the mismatch count;
-// the result over a range of length L is L - 2 * mismatches, and no
-// padding constant (the reference's +-1 per padded row) is needed. At the
-// decode shapes the (M, N) tiles are too few to fill the card, so K is
-// split over gridDim.z and the partial sums meet through atomicAdd into a
-// zeroed output: every partial and total is an integer of magnitude
-// <= K < 2^24, exact in float32, so the result is exact and deterministic
-// in any order. With one split a block stores its tile directly.
+// Kernel 6 has two routes, chosen by the caller's plan
+// (repro_torch.kernels.bnn_matmul.fwd_plan) from M:
+//   - small M (decode M = 4, prefill buckets and chunks of at most 32 rows):
+//     stream_matmul.cuh's streaming template (ops SIGN_I8, SIGN_F32), shared
+//     with the served CAC: w read once in 16-byte loads, sign mismatches
+//     counted four columns a word in byte lanes, K split over warps and a
+//     cluster, one launch, no memset, no atomics. Bound by the latency of one
+//     pass over the weight bytes (0.75 us of bytes at the gate/up projection).
+//   - large M (the training shape, M = 512): the tensor cores. A transposing
+//     sign pass writes S[n][k] = sign(w[k][n]) as bf16 +-1 (0 for the pad
+//     rows K <= k < KP), K-major, the wgmma B operand; the product template
+//     below (mode FWD) forms A = sign(x) in registers from float32 x tiles
+//     that TMA brings into shared memory, one bf16 plane and one float32
+//     accumulator: every partial sum is an integer of magnitude <= K < 2^24,
+//     exact in any order. No mask epilogue. Bound by bytes (x, w and y once:
+//     5.09 us at (512, 960, 2560); the 2 M K N products take 2.54 us at the
+//     bf16 rate); the popcount form could not reach it (M K N / 32 __popc at
+//     16 a clock an SM is 10.6 us there).
 //
-// What bounds the forward on the H100: bytes. At decode (M = 4) it is the
-// weight read (1 bit per weight packed, 1 byte unpacked int8); at the
-// training shape (512, 960, 2560) the 2 M K N sign products are exact on the
-// tensor cores, whose rate puts them under the 17 MB of float operands. The
-// popcount form needs 1/32 of an integer instruction per product, so the
-// CUDA cores are not the limit either; the block re-reads its w slab once
-// per M tile (from L2).
+// Kernel 7 (packed planes; not redesigned): one block computes a BM x 64
+// tile of y (BM = 64, or 16 when M <= 16 as in decode) by XNOR + popcount
+// over 32-row words, as the paper's BNN PE does (src/repro/core/bnn.py): a
+// word pair contributes 32 - 2 * popc(xbits ^ wbits). Per stage of 4 words
+// (128 rows) a warp forms x words with __ballot_sync(x >= 0) and a thread
+// the w word of one column from the 4 bytes of wp that hold those rows (N
+// bytes apart). Rows past the end of the block's K range give 0 bits on
+// both sides, agreements that add nothing to the mismatch count, so the
+// result over a range of length L is L - 2 * mismatches. At the decode
+// shapes the (M, N) tiles are too few to fill the card, so K is split over
+// gridDim.z and the partial sums meet through atomicAdd into a zeroed
+// output (exact integers in float32, so deterministic in any order); with
+// one split a block stores its tile directly. Its bound at decode is the
+// 1-bit weight read.
 //
-// Backward (kernels 8 and 9: one template, instantiated for dx and dw, two
-// tile widths and two load routes). Each is a float32 product with +-1 on
-// one side:
+// Backward (kernels 8 and 9: one product template, instantiated for dx and
+// dw, two tile widths and two load routes; kernel 6's tensor-core route is
+// its third mode, FWD, in dx's layout with one plane and no mask). Each is a
+// float32 product with +-1 on one side:
 //   dx (M, K) = (g @ sign(w)^T) * 1[|x| <= 1], contraction over N;
 //   dw (K, N) = (sign(x)^T @ g) * 1[|w| <= 1], computed as its transpose
 //     dw^T (N, K) = g^T @ sign(x), contraction over M,
@@ -136,55 +140,43 @@
 #include <algorithm>
 #include <cstring>
 
+#include "stream_matmul.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
 
 constexpr int FWD_THREADS = 256;
-constexpr int FWD_BN = 64;         // output columns per forward block
-constexpr int SW = 4;              // 32-row words per forward stage
-constexpr int STAGE_K = 32 * SW;   // K rows per forward stage
+constexpr int FWD_BN = 64;         // output columns per kernel-7 block
+constexpr int SW = 4;              // 32-row words per kernel-7 stage
+constexpr int STAGE_K = 32 * SW;   // K rows per kernel-7 stage
 constexpr int NUM_SMS = 132;
 constexpr int TARGET_BLOCKS = 2 * NUM_SMS;
 
-enum WeightKind { W_F32 = 0, W_I8 = 1, W_PACKED = 2 };
-
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// The sign word of rows 32q..32q+31 of column n: bit j set where row 32q + j
-// has sign +1. Rows at or past k_end give 0 (for the packed kind, k_end is a
-// multiple of 8, so whole bytes are kept or dropped). Every load reads a
-// valid address (the row index is clamped to K - 1) and the bound is
-// applied to the bit, so no load waits behind a branch.
-template <int KIND>
-__device__ __forceinline__ uint32_t weight_word(const void* __restrict__ w, int q, int n,
+// The sign word of rows 32q..32q+31 of column n from the packed planes: bit
+// j set where row 32q + j has sign +1. Rows at or past k_end (a multiple of
+// 8) give 0, whole bytes at a time. Every load reads a valid address (the
+// byte row is clamped) and the bound is applied to the bits, so no load
+// waits behind a branch.
+__device__ __forceinline__ uint32_t packed_word(const uint8_t* __restrict__ wp, int q, int n,
                                                 int N, int K, int k_end) {
   uint32_t word = 0;
-  if constexpr (KIND == W_PACKED) {
-    const uint8_t* wp = static_cast<const uint8_t*>(w);
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int r = 4 * q + b;  // byte row r holds K rows 8r..8r+7
-      const uint32_t byte = wp[(size_t)min(r, K / 8 - 1) * N + n];
-      word |= (8 * r < k_end ? byte : 0u) << (8 * b);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int k = 32 * q + j;
-      const size_t at = (size_t)min(k, K - 1) * N + n;
-      const bool pos = KIND == W_F32 ? static_cast<const float*>(w)[at] >= 0.f
-                                     : static_cast<const int8_t*>(w)[at] >= 0;
-      word |= (uint32_t)(pos && k < k_end) << j;
-    }
+  for (int b = 0; b < 4; ++b) {
+    const int r = 4 * q + b;  // byte row r holds K rows 8r..8r+7
+    const uint32_t byte = wp[(size_t)min(r, K / 8 - 1) * N + n];
+    word |= (8 * r < k_end ? byte : 0u) << (8 * b);
   }
   return word;
 }
 
-template <int KIND, int BM>
+// kernel 7
+template <int BM>
 __global__ void __launch_bounds__(FWD_THREADS)
-bnn_fwd_kernel(const float* __restrict__ x, const void* __restrict__ w, float* __restrict__ y,
-               int M, int N, int K, int k_per_split) {
+bnn_packed_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
+                  float* __restrict__ y, int M, int N, int K, int k_per_split) {
   constexpr int RM = BM / 16;  // output rows per thread: ty + 16 i
   constexpr int WARPS = FWD_THREADS / 32;
   constexpr int X_PER_WARP = BM * SW / WARPS;  // x words each warp forms per stage
@@ -226,7 +218,7 @@ bnn_fwd_kernel(const float* __restrict__ x, const void* __restrict__ w, float* _
     for (int e = tid; e < SW * FWD_BN; e += FWD_THREADS) {
       const int s = e / FWD_BN, c = e % FWD_BN;
       const int n = n0 + c;
-      wb[s][c] = n < N ? weight_word<KIND>(w, kc / 32 + s, n, N, K, k_end) : 0u;
+      wb[s][c] = n < N ? packed_word(wp, kc / 32 + s, n, N, K, k_end) : 0u;
     }
     __syncthreads();
 #pragma unroll
@@ -440,8 +432,9 @@ __device__ __forceinline__ void split3(float a, float b, uint32_t& p1, uint32_t&
   p3 = bf16x2_bits(__floats2bfloat162_rn(ra - f2.x, rb - f2.y));  // exact
 }
 
-// +1 or -1 as bf16 bits, from v >= 0
-__device__ __forceinline__ uint32_t sign_bf16(float v) { return v >= 0.f ? 0x3F80u : 0xBF80u; }
+// +1 or -1 as bf16 bits, from v >= 0 (float32 or int8 v)
+template <typename V>
+__device__ __forceinline__ uint32_t sign_bf16(V v) { return v >= 0 ? 0x3F80u : 0xBF80u; }
 
 constexpr int BWD_THREADS = 256;   // two consumer warpgroups
 constexpr int BWD_BM = 128;        // output rows per block: 64 per warpgroup (wgmma M)
@@ -453,12 +446,15 @@ constexpr int SIGN_TC = 32;        // columns per sign-pass block (dw)
 
 // The +-1 operand as bf16, laid out for the product: S[c][t] = sign(B[t][c])
 // for t < T (row stride TP = T rounded up to 8, so rows are 16-byte
-// aligned; S[c][t] for T <= t < TP is -1, which meets g = 0 there).
+// aligned; S[c][t] for T <= t < TP is -1, which meets g = 0 there, or with
+// ZERO_PAD 0, which meets kernel 6's sign(x) = +1 of a zero-filled x).
 //   DX: B[t][c] = w[c, t], T = N: S is w's own layout, 8 values a thread.
-//   DW: B[t][c] = x[t, c], T = M: S is x transposed, through a shared tile.
-template <bool DX, bool VEC>
+//   transposing form, through a shared tile:
+//     DW: B[t][c] = x[t, c], T = M: S is x transposed;
+//     kernel 6: B[t][c] = w[t, c] (float32 or int8), T = K: S = sign(w)^T.
+template <bool DX, bool VEC, typename SRC = float, bool ZERO_PAD = false>
 __global__ void __launch_bounds__(256)
-bnn_sign_kernel(const float* __restrict__ src, uint16_t* __restrict__ s, int K, int T, int TP) {
+bnn_sign_kernel(const SRC* __restrict__ src, uint16_t* __restrict__ s, int K, int T, int TP) {
   // the product kernel may start now: it waits for this grid before it
   // reads s (griddepcontrol.wait), and its own loads of g go ahead
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -489,9 +485,10 @@ bnn_sign_kernel(const float* __restrict__ src, uint16_t* __restrict__ s, int K, 
 #pragma unroll
     for (int i = 0; i < SIGN_TT * SIGN_TC / 256; ++i) {
       const int e = threadIdx.x + 256 * i;
-      const int t = e / SIGN_TC, c = e % SIGN_TC;  // neighbouring threads on c: x rows
+      const int t = e / SIGN_TC, c = e % SIGN_TC;  // neighbouring threads on c: src rows
       const bool in = t0 + t < T && c0 + c < K;
-      tile[c][t] = in ? (uint16_t)sign_bf16(src[(size_t)(t0 + t) * K + c0 + c]) : 0xBF80;
+      tile[c][t] = in ? (uint16_t)sign_bf16(src[(size_t)(t0 + t) * K + c0 + c])
+                      : (ZERO_PAD ? 0 : 0xBF80);
     }
     __syncthreads();
     const int c = threadIdx.x / (SIGN_TT / 8), j = threadIdx.x % (SIGN_TT / 8);
@@ -534,23 +531,31 @@ __device__ __forceinline__ int g_offset(int i, int j) {
   return (j >> 5) * PART + i * 128 + ((((j & 31) >> 2) ^ (i & 7)) << 4) + ((j & 3) << 2);
 }
 
-// out[r][c] = mask(r, c) * sum_t A[r][t] * B[t][c] over a 128 x 160 tile:
+// The product modes: kernels 9 (dw), 8 (dx) and 6 at large M (fwd).
+enum ProductMode { P_DW = 0, P_DX = 1, P_FWD = 2 };
+
+// out[r][c] = mask(r, c) * sum_t A[r][t] * B[t][c] over a 128 x BN tile:
 //   DX: out = dx (M, K): r = m, c = k, t = n; A = g[m, n], B = sign(w[k, n]),
 //       mask = 1[|x[m, k]| <= 1]
 //   DW: out = dw^T (N, K), stored as dw (K, N): r = n, c = k, t = m;
 //       A = g[m, n], B = sign(x[m, k]), mask = 1[|w[k, n]| <= 1]
+//   FWD (kernel 6, in DX's layout, called with N := kernel 6's K and K :=
+//       its N): out = y: r = m, c = n, t = k; A = sign(x[m, k]) formed in
+//       registers from the float32 x tile (the `g` operand), one bf16 plane
+//       and the hi accumulator only, B = sign(w[k, n]), no mask.
 // B comes as bnn_sign_kernel's S (row stride TP). The block's contraction
 // range is split s = its cluster rank, of gridDim.z. VEC (N % 4 == 0, K %
 // 4 == 0, 16-byte-aligned operands): thread 0 loads each stage with TMA
 // (g_map, s_map) onto the stage's mbarrier. Otherwise every thread copies
 // with cp.async (4 bytes of g, 16 of S) into the same layout.
-template <bool DX, bool VEC, int BN>
+template <int MODE, bool VEC, int BN>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 bnn_bwd_kernel(const __grid_constant__ CUtensorMap g_map,
                const __grid_constant__ CUtensorMap s_map, const float* __restrict__ x,
                const float* __restrict__ w, const float* __restrict__ g,
                const uint16_t* __restrict__ sgn, float* __restrict__ out, int M, int N, int K,
                int TP, int t_per_split) {
+  constexpr bool DX = MODE != P_DW, FWD = MODE == P_FWD;
   using L = BwdSmem<DX, BN>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_addr = (uint32_t)__cvta_generic_to_shared(smem_raw);
@@ -627,12 +632,14 @@ bnn_bwd_kernel(const __grid_constant__ CUtensorMap g_map,
     }
   };
 
-  float hi[BN / 2], lo[BN / 2];
+  float hi[BN / 2], lo[FWD ? 1 : BN / 2];  // FWD: hi only
   uint32_t a[2][3][4];  // two steps' A fragments: [plane][register]
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) hi[i] = lo[i] = 0.f;
+  for (int i = 0; i < BN / 2; ++i) hi[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (FWD ? 1 : BN / 2); ++i) lo[i] = 0.f;
   fence_operands(hi);
-  fence_operands(lo);
+  if (!FWD) fence_operands(lo);
 
 #pragma unroll
   for (int s = 0; s < BWD_STAGES - 1; ++s)
@@ -681,13 +688,20 @@ bnn_bwd_kernel(const __grid_constant__ CUtensorMap g_map,
         p[2] = make_float2(at(t + 8, row_a), at(t + 9, row_a));
         p[3] = make_float2(at(t + 8, row_a + 8), at(t + 9, row_a + 8));
       }
+      if constexpr (FWD) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) split3(p[j].x, p[j].y, ak[0][j], ak[1][j], ak[2][j]);
+        for (int j = 0; j < 4; ++j) ak[0][j] = sign_bf16(p[j].x) | sign_bf16(p[j].y) << 16;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) split3(p[j].x, p[j].y, ak[0][j], ak[1][j], ak[2][j]);
+      }
       wgmma_fence();
       const uint64_t desc = swizzle128_desc(bt_addr + 32 * kk);  // 16 bf16 further along t
       wgmma_bf16<BN>(hi, ak[0], desc);
-      wgmma_bf16<BN>(lo, ak[1], desc);
-      wgmma_bf16<BN>(lo, ak[2], desc);
+      if constexpr (!FWD) {
+        wgmma_bf16<BN>(lo, ak[1], desc);
+        wgmma_bf16<BN>(lo, ak[2], desc);
+      }
       wgmma_commit();
     }
     // every group of stage s - 1 has completed in this warpgroup (the wait
@@ -701,7 +715,7 @@ bnn_bwd_kernel(const __grid_constant__ CUtensorMap g_map,
   }
   wgmma_wait<0>();
   fence_operands(hi);
-  fence_operands(lo);
+  if (!FWD) fence_operands(lo);
   const int rows = DX ? M : K, cols = DX ? K : N;
   const float* own = DX ? x : w;
 
@@ -730,6 +744,7 @@ bnn_bwd_kernel(const __grid_constant__ CUtensorMap g_map,
       if (FIXED_COL) break;
       continue;
     }
+    if constexpr (FWD) break;  // no mask
     const float* o = own + (size_t)row * cols + col0;
     if constexpr (VEC) {
       cp_async16(mask + i * BWD_THREADS, o, 16);
@@ -744,13 +759,14 @@ bnn_bwd_kernel(const __grid_constant__ CUtensorMap g_map,
   }
   cp_async_commit();
 
-  // this block's partial tile, hi + lo, into E (accumulator element 4j + e
-  // sits at row row_a + 8 (e / 2), column 8 j + 2 tig + e % 2)
+  // this block's partial tile, hi + lo (FWD: hi), into E (accumulator
+  // element 4j + e sits at row row_a + 8 (e / 2), column 8 j + 2 tig + e % 2)
+  const auto part = [&](int i) { return FWD ? hi[i] : hi[i] + lo[FWD ? 0 : i]; };
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = 8 * j + 2 * tig;
-    const float v0 = hi[4 * j] + lo[4 * j], v1 = hi[4 * j + 1] + lo[4 * j + 1];
-    const float v2 = hi[4 * j + 2] + lo[4 * j + 2], v3 = hi[4 * j + 3] + lo[4 * j + 3];
+    const float v0 = part(4 * j), v1 = part(4 * j + 1);
+    const float v2 = part(4 * j + 2), v3 = part(4 * j + 3);
     if constexpr (DX) {
       *reinterpret_cast<float2*>(E + row_a * L::E_LD + col) = make_float2(v0, v1);
       *reinterpret_cast<float2*>(E + (row_a + 8) * L::E_LD + col) = make_float2(v2, v3);
@@ -788,9 +804,11 @@ bnn_bwd_kernel(const __grid_constant__ CUtensorMap g_map,
     }
     // the mask from the operand's own value (NaN fails it); where it is 0
     // the result is +0, as the plain version's select gives
-    const float4 m = mask[i * BWD_THREADS];
-    v = make_float4(fabsf(m.x) <= 1.f ? v.x : 0.f, fabsf(m.y) <= 1.f ? v.y : 0.f,
-                    fabsf(m.z) <= 1.f ? v.z : 0.f, fabsf(m.w) <= 1.f ? v.w : 0.f);
+    if constexpr (!FWD) {
+      const float4 m = mask[i * BWD_THREADS];
+      v = make_float4(fabsf(m.x) <= 1.f ? v.x : 0.f, fabsf(m.y) <= 1.f ? v.y : 0.f,
+                      fabsf(m.z) <= 1.f ? v.z : 0.f, fabsf(m.w) <= 1.f ? v.w : 0.f);
+    }
     float* o = out + (size_t)row * cols + col0;
     if (VEC) {  // cols % 4 == 0: the whole float4 is inside
       *reinterpret_cast<float4*>(o) = v;
@@ -802,15 +820,6 @@ bnn_bwd_kernel(const __grid_constant__ CUtensorMap g_map,
     }
   }
   if (nsplit > 1) cluster.sync();  // no block leaves while another still reads its E
-}
-
-template <int KIND>
-void launch_fwd(const float* x, const void* w, float* y, int M, int N, int K, bool small,
-                dim3 grid, int k_per_split, cudaStream_t st) {
-  if (small)
-    bnn_fwd_kernel<KIND, 16><<<grid, FWD_THREADS, 0, st>>>(x, w, y, M, N, K, k_per_split);
-  else
-    bnn_fwd_kernel<KIND, 64><<<grid, FWD_THREADS, 0, st>>>(x, w, y, M, N, K, k_per_split);
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (so the
@@ -854,17 +863,18 @@ bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The launch configuration of kernel 8 (DX) or 9 with `splits` blocks a
-// cluster (grid x: column tiles, y: row tiles, z: splits).
-template <bool DX, bool VEC, int BN>
+// The launch configuration of the product in mode MODE with `splits` blocks
+// a cluster (grid x: column tiles, y: row tiles, z: splits).
+template <int MODE, bool VEC, int BN>
 cudaError_t bwd_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[2], int M, int N,
                        int K, int splits) {
+  constexpr bool DX = MODE != P_DW;
   constexpr int bytes = BwdSmem<DX, BN>::BYTES;
   static uint64_t configured = 0;  // a bit per device: the attribute is set there
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && (dev >= 64 || !(configured >> dev & 1))) {
-    err = cudaFuncSetAttribute(bnn_bwd_kernel<DX, VEC, BN>,
+    err = cudaFuncSetAttribute(bnn_bwd_kernel<MODE, VEC, BN>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err == cudaSuccess && dev < 64) configured |= (uint64_t)1 << dev;
   }
@@ -884,17 +894,24 @@ cudaError_t bwd_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[2], 
   return err;
 }
 
-template <bool DX, bool VEC, int BN>
-cudaError_t launch_bwd(const float* x, const float* w, const float* g, uint16_t* sgn,
-                       float* out, int M, int N, int K, int splits, int t_per_split,
-                       cudaStream_t st) {
+// The sign pass, then the product, in the product's convention: the
+// contraction T = N (DX, FWD) or M (DW), output columns K. For FWD, g is
+// kernel 6's x (M, N := its K), `src` its w (N rows := its K, K columns :=
+// its N), and x and w (the mask operands) are unused.
+template <int MODE, bool VEC, int BN, typename SRC = float>
+cudaError_t launch_bwd(const float* x, const float* w, const SRC* src, const float* g,
+                       uint16_t* sgn, float* out, int M, int N, int K, int splits,
+                       int t_per_split, cudaStream_t st) {
+  constexpr bool DX = MODE != P_DW;
   const int T = DX ? N : M, TP = cdiv(T, 8) * 8;
-  if (DX)
-    bnn_sign_kernel<true, VEC><<<(unsigned)cdiv(K * (TP / 8), 256), 256, 0, st>>>(w, sgn, K, T,
-                                                                                   TP);
+  const dim3 transposing(cdiv(K, SIGN_TC), cdiv(TP, SIGN_TT));
+  if constexpr (MODE == P_DX)
+    bnn_sign_kernel<true, VEC><<<(unsigned)cdiv(K * (TP / 8), 256), 256, 0, st>>>(src, sgn, K,
+                                                                                   T, TP);
+  else if constexpr (MODE == P_DW)  // (the transpose reads x a float at a time either way)
+    bnn_sign_kernel<false, false><<<transposing, 256, 0, st>>>(src, sgn, K, T, TP);
   else
-    bnn_sign_kernel<false, false><<<dim3(cdiv(K, SIGN_TC), cdiv(TP, SIGN_TT)), 256, 0, st>>>(
-        x, sgn, K, T, TP);  // (the transpose reads x a float at a time either way)
+    bnn_sign_kernel<false, false, SRC, true><<<transposing, 256, 0, st>>>(src, sgn, K, T, TP);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   CUtensorMap g_map = {}, s_map = {};  // unused by the 4-byte route
@@ -905,41 +922,45 @@ cudaError_t launch_bwd(const float* x, const float* w, const float* g, uint16_t*
     return cudaErrorNotSupported;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[2];
-  err = bwd_config<DX, VEC, BN>(cfg, attr, M, N, K, splits);
+  err = bwd_config<MODE, VEC, BN>(cfg, attr, M, N, K, splits);
   if (err != cudaSuccess) return err;
   cfg.stream = st;
-  return cudaLaunchKernelEx(&cfg, bnn_bwd_kernel<DX, VEC, BN>, g_map, s_map, x, w, g,
+  return cudaLaunchKernelEx(&cfg, bnn_bwd_kernel<MODE, VEC, BN>, g_map, s_map, x, w, g,
                             static_cast<const uint16_t*>(sgn), out, M, N, K, TP, t_per_split);
 }
 
-// How many blocks of kernel 8 (want_dx != 0) or 9 with `bn`-column tiles can
-// be resident at once when `splits` blocks form a cluster (each block takes
-// a whole SM): the card's cluster occupancy times splits, or -1 if it
-// cannot say.
-template <bool DX, int BN>
+// How many blocks of the product in mode MODE with `bn`-column tiles can be
+// resident at once when `splits` blocks form a cluster (each block takes a
+// whole SM): the card's cluster occupancy times splits, or -1 if it cannot
+// say.
+template <int MODE, int BN>
 int max_blocks(int splits) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[2];
   int clusters = 0;
-  cudaError_t err = bwd_config<DX, true, BN>(cfg, attr, BWD_BM, BWD_BM, BN, splits);
+  cudaError_t err = bwd_config<MODE, true, BN>(cfg, attr, BWD_BM, BWD_BM, BN, splits);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&clusters, bnn_bwd_kernel<DX, true, BN>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, bnn_bwd_kernel<MODE, true, BN>, &cfg);
   return err == cudaSuccess ? clusters * splits : -1;
+}
+
+bool plan_ok(int T, int bn, int splits, int t_per_split) {
+  return (bn == 128 || bn == 160) && splits >= 1 && splits <= BWD_MAX_SPLITS &&
+         t_per_split > 0 && t_per_split % BWD_TK == 0 && (long long)splits * t_per_split >= T &&
+         (long long)(splits - 1) * t_per_split < T;
 }
 
 }  // namespace
 
-// Kernels 6 and 7. x float32 (M, K); w by w_kind: 0 float32 (K, N), 1 int8
-// (K, N), 2 uint8 bitplanes (K/8, N) with K % 8 == 0 -> y float32 (M, N),
-// exact integer sums. Launches on `stream`, does not synchronise, returns
-// cudaGetLastError() (or the memset's error).
-extern "C" int bnn_fwd_launch(const void* x, const void* w, void* y, int M, int N, int K,
-                              int w_kind, void* stream) {
+// Kernel 7. x float32 (M, K), wp uint8 bitplanes (K/8, N), K % 8 == 0 -> y
+// float32 (M, N), exact integer sums. Launches on `stream` (after a memset
+// of y when K is split), does not synchronise, returns cudaGetLastError()
+// (or the memset's error).
+extern "C" int bnn_packed_launch(const void* x, const void* wp, void* y, int M, int N, int K,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // float32 holds every count exactly only while |y| <= K < 2^24
-  if (M <= 0 || N <= 0 || K <= 0 || K >= (1 << 24) || w_kind < W_F32 || w_kind > W_PACKED ||
-      (w_kind == W_PACKED && K % 8))
-    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || K <= 0 || K >= (1 << 24) || K % 8) return (int)cudaErrorInvalidValue;
   const bool small = M <= 16;
   const int gn = cdiv(N, FWD_BN), gm = cdiv(M, small ? 16 : 64);
   // split K (in whole stages) until the blocks reach TARGET_BLOCKS
@@ -952,16 +973,87 @@ extern "C" int bnn_fwd_launch(const void* x, const void* w, void* y, int M, int 
   }
   const dim3 grid(gn, gm, parts);
   const float* xf = static_cast<const float*>(x);
+  const uint8_t* w8 = static_cast<const uint8_t*>(wp);
   float* yf = static_cast<float*>(y);
-  if (w_kind == W_F32)
-    launch_fwd<W_F32>(xf, w, yf, M, N, K, small, grid, k_per_split, st);
-  else if (w_kind == W_I8)
-    launch_fwd<W_I8>(xf, w, yf, M, N, K, small, grid, k_per_split, st);
+  if (small)
+    bnn_packed_kernel<16><<<grid, FWD_THREADS, 0, st>>>(xf, w8, yf, M, N, K, k_per_split);
   else
-    launch_fwd<W_PACKED>(xf, w, yf, M, N, K, small, grid, k_per_split, st);
+    bnn_packed_kernel<64><<<grid, FWD_THREADS, 0, st>>>(xf, w8, yf, M, N, K, k_per_split);
   return (int)cudaGetLastError();
 }
 
+// Kernel 6, small-M route (stream_matmul.cuh). x float32 (M, K); w float32
+// (w_kind 0) or int8 (w_kind 1) (K, N) -> y float32 (M, N), exact integer
+// sums, by the caller's plan (repro_torch.kernels.cac_matmul.stream_plan):
+// `mt` rows a tile, `splits` blocks a cluster, `groups_per_split` 8-row
+// groups each. One launch; writes every element of y; does not
+// synchronise; returns the launch's error or cudaErrorInvalidValue.
+extern "C" int bnn_fwd_stream_launch(const void* x, const void* w, void* y, int M, int N, int K,
+                                     int w_kind, int mt, int splits, int groups_per_split,
+                                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* yf = static_cast<float*>(y);
+  cudaError_t err;
+  if (w_kind == 0)
+    err = stream::launch<stream::SIGN_F32>(x, w, nullptr, yf, M, N, K, mt, splits,
+                                           groups_per_split, st);
+  else if (w_kind == 1)
+    err = stream::launch<stream::SIGN_I8>(x, w, nullptr, yf, M, N, K, mt, splits,
+                                          groups_per_split, st);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// Resident blocks of kernel 6's small-M route with `mt`-row tiles in
+// clusters of `splits` (its two weight kinds take the same registers and
+// shared memory); -1 if the card cannot say.
+extern "C" int stream_max_blocks(int mt, int splits) {
+  return stream::max_blocks<stream::SIGN_I8>(mt, splits);
+}
+
+// Kernel 6, tensor-core route. x float32 (M, K); w float32 (w_kind 0) or
+// int8 (w_kind 1) (K, N) -> y float32 (M, N), exact integer sums. `sgn` is
+// scratch of N * KP bf16 (KP = K rounded up to 8) for S = sign(w)^T, written
+// here first. Output tiles are 128 rows x `bn` columns (n); the contraction
+// K is cut into `splits` ranges of `k_per_split` (a multiple of 64) by the
+// caller's plan (repro_torch.kernels.bnn_matmul.fwd_plan). Two kernels (the
+// sign pass, then the product), writes every element of y, does not
+// synchronise, returns the first launch error or cudaErrorInvalidValue.
+extern "C" int bnn_fwd_tc_launch(const void* x, const void* w, void* y, void* sgn, int M, int N,
+                                 int K, int w_kind, int bn, int splits, int k_per_split,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0 || K <= 0 || K >= (1 << 24) || (w_kind != 0 && w_kind != 1) ||
+      !plan_ok(K, bn, splits, k_per_split) || (long long)N * (cdiv(K, 8) * 8) >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const float* xf = static_cast<const float*>(x);
+  uint16_t* sf = static_cast<uint16_t*>(sgn);
+  float* yf = static_cast<float*>(y);
+  // TMA wants x's row stride a multiple of 16 bytes; the float4 stores N % 4
+  const bool vec = N % 4 == 0 && K % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16) == 0;
+  const int route = (w_kind == 1 ? 4 : 0) | (vec ? 2 : 0) | (bn == 160 ? 1 : 0);
+  cudaError_t err;
+  switch (route) {
+#define BNN_FWD_ROUTE(R, SRC, VEC, BN)                                                        \
+  case R:                                                                                     \
+    err = launch_bwd<P_FWD, VEC, BN, SRC>(nullptr, nullptr, static_cast<const SRC*>(w), xf, \
+                                          sf, yf, M, K, N, splits, k_per_split, st);          \
+    break;
+    BNN_FWD_ROUTE(0, float, false, 128)
+    BNN_FWD_ROUTE(1, float, false, 160)
+    BNN_FWD_ROUTE(2, float, true, 128)
+    BNN_FWD_ROUTE(3, float, true, 160)
+    BNN_FWD_ROUTE(4, int8_t, false, 128)
+    BNN_FWD_ROUTE(5, int8_t, false, 160)
+    BNN_FWD_ROUTE(6, int8_t, true, 128)
+    default:
+      BNN_FWD_ROUTE(7, int8_t, true, 160)
+#undef BNN_FWD_ROUTE
+  }
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
 
 // Kernels 8 (want_dx != 0: out = dx (M, K)) and 9 (want_dx == 0: out = dw
 // (K, N)). x (M, K), w (K, N), g (M, N), all float32; `sgn` is scratch of
@@ -981,9 +1073,7 @@ extern "C" int bnn_bwd_launch(const void* x, const void* w, const void* g, void*
                               int t_per_split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int T = want_dx ? N : M;
-  if (M <= 0 || N <= 0 || K <= 0 || (bn != 128 && bn != 160) || splits < 1 ||
-      splits > BWD_MAX_SPLITS || t_per_split <= 0 || t_per_split % BWD_TK ||
-      (long long)splits * t_per_split < T || (long long)(splits - 1) * t_per_split >= T ||
+  if (M <= 0 || N <= 0 || K <= 0 || !plan_ok(T, bn, splits, t_per_split) ||
       (long long)K * (cdiv(T, 8) * 8) >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);
@@ -997,26 +1087,35 @@ extern "C" int bnn_bwd_launch(const void* x, const void* w, const void* g, void*
   const int route = (want_dx ? 4 : 0) | (vec ? 2 : 0) | (bn == 160 ? 1 : 0);
   cudaError_t err;
   switch (route) {
-#define BNN_BWD_ROUTE(R, DX, VEC, BN)                                                    \
-  case R:                                                                                \
-    err = launch_bwd<DX, VEC, BN>(xf, wf, gf, sf, of, M, N, K, splits, t_per_split, st); \
+#define BNN_BWD_ROUTE(R, MODE, VEC, BN)                                                     \
+  case R:                                                                                   \
+    err = launch_bwd<MODE, VEC, BN>(xf, wf, MODE == P_DX ? wf : xf, gf, sf, of, M, N, K,    \
+                                    splits, t_per_split, st);                               \
     break;
-    BNN_BWD_ROUTE(0, false, false, 128)
-    BNN_BWD_ROUTE(1, false, false, 160)
-    BNN_BWD_ROUTE(2, false, true, 128)
-    BNN_BWD_ROUTE(3, false, true, 160)
-    BNN_BWD_ROUTE(4, true, false, 128)
-    BNN_BWD_ROUTE(5, true, false, 160)
-    BNN_BWD_ROUTE(6, true, true, 128)
+    BNN_BWD_ROUTE(0, P_DW, false, 128)
+    BNN_BWD_ROUTE(1, P_DW, false, 160)
+    BNN_BWD_ROUTE(2, P_DW, true, 128)
+    BNN_BWD_ROUTE(3, P_DW, true, 160)
+    BNN_BWD_ROUTE(4, P_DX, false, 128)
+    BNN_BWD_ROUTE(5, P_DX, false, 160)
+    BNN_BWD_ROUTE(6, P_DX, true, 128)
     default:
-      BNN_BWD_ROUTE(7, true, true, 160)
+      BNN_BWD_ROUTE(7, P_DX, true, 160)
 #undef BNN_BWD_ROUTE
   }
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-extern "C" int bnn_bwd_max_blocks(int want_dx, int bn, int splits) {
+// Resident blocks of the product in `mode` (0: kernel 9, dw; 1: kernel 8,
+// dx; 2: kernel 6's tensor-core route) with `bn`-column tiles in clusters of
+// `splits`; -1 if the card cannot say or the arguments are out of range.
+extern "C" int bnn_bwd_max_blocks(int mode, int bn, int splits) {
   if (splits < 1 || splits > BWD_MAX_SPLITS || (bn != 128 && bn != 160)) return -1;
-  if (want_dx) return bn == 128 ? max_blocks<true, 128>(splits) : max_blocks<true, 160>(splits);
-  return bn == 128 ? max_blocks<false, 128>(splits) : max_blocks<false, 160>(splits);
+  if (mode == P_DW)
+    return bn == 128 ? max_blocks<P_DW, 128>(splits) : max_blocks<P_DW, 160>(splits);
+  if (mode == P_DX)
+    return bn == 128 ? max_blocks<P_DX, 128>(splits) : max_blocks<P_DX, 160>(splits);
+  if (mode == P_FWD)
+    return bn == 128 ? max_blocks<P_FWD, 128>(splits) : max_blocks<P_FWD, 160>(splits);
+  return -1;
 }

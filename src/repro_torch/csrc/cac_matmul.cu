@@ -12,109 +12,41 @@
 //   y    (M, N)    float  exact integer sums (|y| <= K < 2^24)
 //
 // What bounds it on the H100: there is no tensor-core form of a compare and
-// select, so the work is M*K*N integer compare/add pairs on the CUDA cores;
-// the bytes are small (tau + s = 1.125 B per edge, read once per M tile).
-// At decode sizes (M <= 32) both bounds are microseconds and the first
-// design's limit is parallelism: one thread per output column gives only
-// N/128 blocks.
+// select. At the serve path's shapes (M = 4 at decode, 32 in a prefill
+// chunk) the bytes are tau and s (1.125 B per edge, 2.8 MB at the gate/up
+// projection, 0.84 us at 3.35 TB/s), read once; at M = 4 a pass over them
+// is bound by the latency of the loads, at M = 32 by the integer compares.
 //
-// First design: one thread per column n (coalesced int8 tau and uint8 s
-// loads across n), 4 or 16 rows of x staged in shared memory per step (all
-// threads read the same x byte: a broadcast), the 8 bits of one s byte
-// consumed per inner group. K is split over gridDim.z until about two
-// blocks per SM are in flight; the partial sums meet in the zeroed fp32
-// output through atomicAdd. Every partial and running sum is an integer of
-// magnitude at most K < 2^24, which fp32 holds exactly, so the adds are
-// exact in any order and the result is deterministic. Ragged M, N and K
-// (K % 8 == 0) are masked here; no padding is needed.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design: stream_matmul.cuh's streaming template (op CAC), shared with the
+// sign product's small-M route: tau read 16 columns a 16-byte load and s 16
+// columns (8 K rows) a load, the compares done four columns a word in byte
+// lanes (a term is +1 exactly when [x >= tau] equals the s bit, so y = K -
+// 2 * mismatches), K split over the warps of a block and, where the tiles
+// are few, over a cluster whose partial counts meet in distributed shared
+// memory in rank order. One launch, no memset, no atomics; bit-exact and
+// repeatable. It serves every M: a larger M than the path's takes ceil(M /
+// 16) row tiles, each reading tau and s again (from L2). Ragged M and N are
+// masked here (N not a multiple of 16 takes byte loads); K % 8 == 0.
+#include "stream_matmul.cuh"
 
-#include <algorithm>
-
-namespace {
-
-constexpr int CAC_TN = 128;  // output columns per block, one per thread
-// activation rows per block: 4 covers a decode tick of 4 slots without
-// looping over empty rows, 16 the prefill chunks
-constexpr int CAC_TM_SMALL = 4;
-constexpr int CAC_TM_LARGE = 16;
-constexpr int CAC_KC = 256;  // K rows of x staged per shared-memory step
-constexpr int CAC_TARGET_BLOCKS = 264;  // about two blocks per SM on 132 SMs
-
-template <int CAC_TM>
-__global__ void __launch_bounds__(CAC_TN)
-cac_hw_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ tau,
-              const uint8_t* __restrict__ s, float* __restrict__ y,
-              int M, int N, int K, int k_per_split) {
-  __shared__ int8_t xs[CAC_TM][CAC_KC];
-  const int n = blockIdx.x * CAC_TN + threadIdx.x;
-  const int m0 = blockIdx.y * CAC_TM;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
-  int sum[CAC_TM];
-#pragma unroll
-  for (int r = 0; r < CAC_TM; ++r) sum[r] = 0;
-
-  for (int kc = k_begin; kc < k_end; kc += CAC_KC) {
-    const int kn = min(CAC_KC, k_end - kc);  // a multiple of 8
-    __syncthreads();
-    for (int i = threadIdx.x; i < CAC_TM * CAC_KC; i += CAC_TN) {
-      const int r = i / CAC_KC, kk = i % CAC_KC;
-      const int m = m0 + r;
-      xs[r][kk] = (m < M && kk < kn) ? x[(size_t)m * K + kc + kk] : (int8_t)0;
-    }
-    __syncthreads();
-    if (n < N) {
-      for (int kk = 0; kk < kn; kk += 8) {
-        const unsigned bits = s[(size_t)((kc + kk) >> 3) * N + n];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int t = tau[(size_t)(kc + kk + j) * N + n];
-          const int sg = ((bits >> j) & 1u) ? 1 : -1;
-#pragma unroll
-          for (int r = 0; r < CAC_TM; ++r) sum[r] += (xs[r][kk + j] >= t) ? sg : -sg;
-        }
-      }
-    }
-  }
-  if (n < N) {
-#pragma unroll
-    for (int r = 0; r < CAC_TM; ++r)
-      if (m0 + r < M) atomicAdd(&y[(size_t)(m0 + r) * N + n], (float)sum[r]);
-  }
+// x (M, K) int8, tau (K, N) int8, s (K/8, N) uint8 -> y (M, N) float, by the
+// caller's plan (repro_torch.kernels.cac_matmul.stream_plan): `mt` rows a
+// tile (4 or 16), `splits` blocks a cluster, each taking `groups_per_split`
+// of the K/8 row groups. Writes every element of y, launches on `stream`,
+// does not synchronise, returns the launch's error, or cudaErrorInvalidValue
+// for a plan or shape it does not take.
+extern "C" int cac_matmul_launch(const void* x, const void* tau, const void* s, void* y,
+                                 int M, int N, int K, int mt, int splits, int groups_per_split,
+                                 void* stream) {
+  if (K % 8 != 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = stream::launch<stream::CAC>(
+      x, tau, static_cast<const uint8_t*>(s), static_cast<float*>(y), M, N, K, mt, splits,
+      groups_per_split, static_cast<cudaStream_t>(stream));
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-}  // namespace
-
-// x (M, K) int8, tau (K, N) int8, s (K/8, N) uint8 -> y (M, N) float.
-// Zeroes y, launches on `stream`, does not synchronise, returns
-// cudaGetLastError().
-extern "C" int cac_matmul_launch(const void* x, const void* tau, const void* s, void* y,
-                                 int M, int N, int K, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // fp32 holds every sum exactly only while |y| <= K < 2^24
-  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || K >= (1 << 24))
-    return (int)cudaErrorInvalidValue;
-  const int tm = M <= CAC_TM_SMALL ? CAC_TM_SMALL : CAC_TM_LARGE;
-  const int grid_n = (N + CAC_TN - 1) / CAC_TN;
-  const int grid_m = (M + tm - 1) / tm;
-  int ksplit = (CAC_TARGET_BLOCKS + grid_n * grid_m - 1) / (grid_n * grid_m);
-  ksplit = std::max(1, std::min(ksplit, K / 8));
-  int k_per_split = (K + ksplit - 1) / ksplit;
-  k_per_split = (k_per_split + 7) / 8 * 8;
-  ksplit = (K + k_per_split - 1) / k_per_split;
-  cudaError_t err = cudaMemsetAsync(y, 0, (size_t)M * N * sizeof(float), st);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(grid_n, grid_m, ksplit);
-  if (tm == CAC_TM_SMALL) {
-    cac_hw_kernel<CAC_TM_SMALL><<<grid, CAC_TN, 0, st>>>(
-        static_cast<const int8_t*>(x), static_cast<const int8_t*>(tau),
-        static_cast<const uint8_t*>(s), static_cast<float*>(y), M, N, K, k_per_split);
-  } else {
-    cac_hw_kernel<CAC_TM_LARGE><<<grid, CAC_TN, 0, st>>>(
-        static_cast<const int8_t*>(x), static_cast<const int8_t*>(tau),
-        static_cast<const uint8_t*>(s), static_cast<float*>(y), M, N, K, k_per_split);
-  }
-  return (int)cudaGetLastError();
+// Resident blocks of the kernel with `mt`-row tiles in clusters of `splits`
+// (the plan weighs waves with it); -1 if the card cannot say.
+extern "C" int stream_max_blocks(int mt, int splits) {
+  return stream::max_blocks<stream::CAC>(mt, splits);
 }

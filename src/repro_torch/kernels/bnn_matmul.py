@@ -6,11 +6,20 @@ The kernels (``csrc/bnn_matmul.cu``) replace the reference's Pallas
 ``bnn_matmul_kernel_call``, ``bnn_packed_matmul_kernel_call``,
 ``bnn_bwd_dx_call`` and ``bnn_bwd_dw_call`` (``repro/kernels/bnn_matmul.py``).
 Sign is ``+1 if v >= 0 else -1`` throughout (+0 and -0 give +1, NaN gives
--1), never ``torch.sign``. The forwards count sign agreements with XNOR and
-popcount over 32-row words and read the weights as stored (float32 or int8
-+-1, or the packed ``(K/8, N)`` bitplanes), so the serve routes make no
-per-call cast; they mask their own ragged edges, so the reference's padding
-constants do not carry over. The source says what bounds each kernel.
+-1), never ``torch.sign``. The forwards read the weights as stored (float32
+or int8 +-1, or the packed ``(K/8, N)`` bitplanes), so the serve routes make
+no per-call cast; they mask their own ragged edges, so the reference's
+padding constants do not carry over. The source says what bounds each
+kernel.
+
+Kernel 6 takes one of two routes by M (``fwd_plan``): up to
+``FWD_STREAM_MAX_M`` rows (32 for int8 weights: decode, prefill buckets and
+chunks; 16 for float32) the
+streaming template of ``csrc/stream_matmul.cuh``, shared with the served
+CAC (byte-lane sign mismatch counts, ``cac_matmul.stream_plan``); above it
+the bf16 tensor cores, a sign pass writing sign(w)^T once and the backward
+pair's product template with one plane. Kernel 7 keeps the XNOR-popcount
+form over 32-row words.
 
 The backward pair runs on the bf16 tensor cores (``wgmma``), g split into
 three bf16 planes whose sum is g exactly, so every product is exact; the
@@ -34,7 +43,7 @@ import functools
 import torch
 
 from . import build, ref
-from .cac_matmul import _on_card
+from .cac_matmul import _on_card, card_stream_plan, stream_plan
 
 __all__ = [
     "bnn_bwd_dw_call",
@@ -47,10 +56,10 @@ __all__ = [
     "bnn_packed_matmul_plain",
     "bwd_plan",
     "card_max_blocks",
+    "fwd_plan",
 ]
 
-_W_KIND = {torch.float32: 0, torch.int8: 1}  # the launcher's w_kind; 2 = packed
-_PACKED = 2
+_W_KIND = {torch.float32: 0, torch.int8: 1}  # the launchers' w_kind
 # the backward kernels' tiling (csrc/bnn_matmul.cu): output tiles of 128 rows
 # x 128 or 160 columns (the columns are K's), 64 contraction steps a stage,
 # at most 8 splits (one cluster); the H100's SMs
@@ -60,6 +69,20 @@ BWD_TILE_ROWS, BWD_TILE_COLS, BWD_STAGE, BWD_MAX_SPLITS, NUM_SMS = 128, (128, 16
 # H100 so that the plan picks, at each path shape, the tile width that ran
 # faster there (PERF.md, PR 15)
 BWD_EPILOGUE_STAGES = 5
+# the product template's modes (the launcher's bnn_bwd_max_blocks): 0 dw, 1 dx,
+# 2 kernel 6's tensor-core route
+FWD_MODE = 2
+# Kernel 6 streams the weights (cac_matmul.stream_plan) for M up to this
+# many rows, by weight dtype, and takes the tensor cores above it. The
+# serve path runs int8 signs at M = 4 (decode) and at most 32 (prefill
+# buckets and chunks); the training path float32 weights at M = 512. Set
+# from chip_smoke.py's route sweep on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (device ms per launch, streaming / tensor cores, gate/up and down; PERF.md
+# has the run): int8 M = 32 0.01649 / 0.01720 and 0.01579 / 0.01853, M =
+# 48 0.01669 / 0.01850 and 0.02036 / 0.01847; float32 M = 16 0.01743 /
+# 0.01956 and 0.02106 / 0.02066, M = 32 0.02574 / 0.01973 and 0.02259 /
+# 0.02064.
+FWD_STREAM_MAX_M = {torch.int8: 32, torch.float32: 16}
 
 
 def _check_fwd(x: torch.Tensor, w: torch.Tensor, packed: bool) -> None:
@@ -157,15 +180,37 @@ def bwd_plan(m: int, k: int, n: int, want_dx: bool, max_blocks=None) -> tuple:
     return best[1], best[2], best[3] * BWD_STAGE
 
 
-def card_max_blocks(index: int, want_dx: bool, bn: int, splits: int) -> int:
-    """How many blocks of kernel 8 (``want_dx``) or 9 with ``bn`` tile
-    columns card ``index`` keeps resident in clusters of ``splits`` (the
-    launcher's ``bnn_bwd_max_blocks``); 0 where none fits."""
+def _route(m: int, w_dtype, route) -> str:
+    return route or ("stream" if m <= FWD_STREAM_MAX_M[w_dtype] else "tc")
+
+
+def fwd_plan(m: int, k: int, n: int, w_dtype=torch.int8, max_blocks=None, route=None) -> tuple:
+    """Kernel 6's route and plan at x (m, k), w (k, n) of ``w_dtype``:
+    ``("stream", mt, splits, groups_per_split)`` (``cac_matmul.stream_plan``)
+    for m up to ``FWD_STREAM_MAX_M[w_dtype]``, else ``("tc", bn, splits,
+    k_per_split)``: the tensor-core product in the backward dx's layout,
+    output tiles of 128 rows m x ``bn`` columns n, the contraction k cut as
+    ``bwd_plan`` cuts dx's (``max_blocks`` as there). ``route`` forces one
+    ("stream" or "tc"), as the tests and chip_smoke.py's route sweep do."""
+    route = _route(m, w_dtype, route)
+    if route == "stream":
+        return ("stream",) + stream_plan(m, k, n)
+    if route != "tc":
+        raise ValueError(f"unknown kernel-6 route {route!r}; known: stream, tc")
+    return ("tc",) + bwd_plan(m, n, k, True, max_blocks)
+
+
+def card_max_blocks(index: int, mode: int, bn: int, splits: int) -> int:
+    """How many blocks of the product template in ``mode`` (0 or False:
+    kernel 9; 1 or True: kernel 8; ``FWD_MODE``: kernel 6's tensor-core
+    route) with ``bn`` tile columns card ``index`` keeps resident in
+    clusters of ``splits`` (the launcher's ``bnn_bwd_max_blocks``); 0 where
+    none fits."""
     fn = build.load("bnn_matmul").bnn_bwd_max_blocks
     if fn.argtypes is None:
         fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
     with torch.cuda.device(index):
-        return max(0, fn(int(want_dx), bn, splits))
+        return max(0, fn(int(mode), bn, splits))
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,6 +218,16 @@ def _card_plan(index: int, m: int, k: int, n: int, want_dx: bool) -> tuple:
     """``bwd_plan`` under card ``index``'s occupancy, once per card, shape
     and kernel."""
     return bwd_plan(m, k, n, want_dx, lambda bn, s: card_max_blocks(index, want_dx, bn, s))
+
+
+@functools.lru_cache(maxsize=None)
+def _card_fwd_plan(index: int, m: int, k: int, n: int, w_dtype, route=None) -> tuple:
+    """``fwd_plan`` under card ``index``'s occupancy, once per card, shape,
+    weight dtype and route."""
+    if _route(m, w_dtype, route) == "stream":
+        return ("stream",) + card_stream_plan(index, m, k, n, "bnn_matmul")
+    return fwd_plan(m, k, n, w_dtype, lambda bn, s: card_max_blocks(index, FWD_MODE, bn, s),
+                    route)
 
 
 def _lib(name: str, n_ptr: int, n_int: int):
@@ -183,7 +238,7 @@ def _lib(name: str, n_ptr: int, n_int: int):
     return fn
 
 
-def _fwd_call(caller, x: torch.Tensor, w: torch.Tensor, kind: int) -> torch.Tensor:
+def _fwd_call(caller, x: torch.Tensor, w: torch.Tensor, launch) -> torch.Tensor:
     x, w = _on_card(caller.__name__, x, w)
     m, k = x.shape
     n = w.shape[1]
@@ -192,21 +247,33 @@ def _fwd_call(caller, x: torch.Tensor, w: torch.Tensor, kind: int) -> torch.Tens
         return y
     if k == 0:
         return y.zero_()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib("bnn_fwd_launch", 3, 4)(x.data_ptr(), w.data_ptr(), y.data_ptr(), m, n, k, kind,
-                                       stream)
+    err = launch(x, w, y, m, k, n, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{caller.__name__} kernel launch failed: CUDA error {err}")
     caller.launches += 1
     return y
 
 
-def bnn_matmul_kernel_call(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def bnn_matmul_kernel_call(x: torch.Tensor, w: torch.Tensor, route=None) -> torch.Tensor:
     """Launch kernel 6: x float32 (M, K), w float32 or int8 (K, N) ->
-    (M, N) float32 sign(x) @ sign(w), exact integers. Adds one to
-    ``bnn_matmul_kernel_call.launches`` per launch."""
+    (M, N) float32 sign(x) @ sign(w), exact integers, on the route
+    ``fwd_plan`` picks by M (``route`` forces "stream" or "tc"). Adds one
+    to ``bnn_matmul_kernel_call.launches`` per call (the tensor-core route
+    is two kernels, a sign pass and the product)."""
     _check_fwd(x, w, packed=False)
-    return _fwd_call(bnn_matmul_kernel_call, x, w, _W_KIND[w.dtype])
+    kind = _W_KIND[w.dtype]
+
+    def launch(x, w, y, m, k, n, stream):
+        plan = _card_fwd_plan(x.device.index, m, k, n, w.dtype, route)
+        if plan[0] == "stream":
+            return _lib("bnn_fwd_stream_launch", 3, 7)(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                                                       m, n, k, kind, *plan[1:], stream)
+        kp = -(-k // 8) * 8
+        sgn = torch.empty(n * kp, dtype=torch.int16, device=x.device)  # sign(w)^T as bf16
+        return _lib("bnn_fwd_tc_launch", 4, 7)(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                                               sgn.data_ptr(), m, n, k, kind, *plan[1:], stream)
+
+    return _fwd_call(bnn_matmul_kernel_call, x, w, launch)
 
 
 def bnn_packed_matmul_kernel_call(x: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
@@ -214,7 +281,12 @@ def bnn_packed_matmul_kernel_call(x: torch.Tensor, wp: torch.Tensor) -> torch.Te
     (M, N) float32 sign(x) @ unpack(wp), exact integers. Adds one to
     ``bnn_packed_matmul_kernel_call.launches`` per launch."""
     _check_fwd(x, wp, packed=True)
-    return _fwd_call(bnn_packed_matmul_kernel_call, x, wp, _PACKED)
+
+    def launch(x, wp, y, m, k, n, stream):
+        return _lib("bnn_packed_launch", 3, 3)(x.data_ptr(), wp.data_ptr(), y.data_ptr(), m, n,
+                                               k, stream)
+
+    return _fwd_call(bnn_packed_matmul_kernel_call, x, wp, launch)
 
 
 def _bwd_call(caller, x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles with
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 into ``build/kernels/lib<name>-<hash>.so`` at the repository root (the
-hash is of the source, so an edited kernel rebuilds). No ``--use_fast_math``:
+hash is of the source and the shared ``*.cuh`` headers, so an edited kernel
+rebuilds). No ``--use_fast_math``:
 the paged-attention tolerance relies on accurate ``expf``, and the training
 CAC on IEEE-rounded ``__fmul_rn``/``__fadd_rn``. Nothing is
 built at import time; ``load(name)`` builds on first use and ``build_all``
@@ -44,9 +45,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path, named by a hash of its source and of every
+    shared header in ``csrc/`` (``*.cuh``), so an edit to either rebuilds."""
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as fh:
+            digest.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def _command(name: str, out: str) -> List[str]:

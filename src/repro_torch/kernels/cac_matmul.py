@@ -6,7 +6,10 @@ The kernel (``csrc/cac_matmul.cu``) replaces the reference's Pallas
 activations and thresholds and the packed ``(K'/8, N)`` sign planes of the
 serve form directly, so no per-call unpack happens on the card, and masks
 its own ragged M, N and K' edges (the Pallas s=0 padding contract does not
-carry over).
+carry over). It is the streaming template of ``csrc/stream_matmul.cuh``
+(shared with the sign product's small-M route): byte-lane mismatch counts,
+K split over the warps of a block and, where the tiles are few, over a
+cluster, by ``stream_plan`` (computed here, checked by the launcher).
 
 The training kernels (``csrc/cac_train.cu``) replace the reference's
 ``cac_train_fwd_call``, ``cac_train_bwd_dx_call``, ``cac_train_bwd_dw_call``
@@ -21,6 +24,7 @@ plain PyTorch, a few rows of M at a time.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -28,6 +32,9 @@ import torch
 from . import build, ref
 
 __all__ = [
+    "STREAM_BN",
+    "STREAM_GROUP",
+    "STREAM_MAX_SPLITS",
     "cac_matmul_kernel_call",
     "cac_matmul_plain",
     "cac_train_bwd_dw_call",
@@ -38,9 +45,16 @@ __all__ = [
     "cac_train_bwd_fused_plain",
     "cac_train_fwd_call",
     "cac_train_fwd_plain",
+    "card_stream_plan",
+    "stream_plan",
 ]
 
 _M_CHUNK = 8  # rows per slice of the plain version's (M, K, N) broadcast
+# the streaming template's tiling (csrc/stream_matmul.cuh): 128 columns a
+# block, 8-row groups of K, at most 8 splits (one cluster); row tiles of 4
+# at decode, 8 otherwise; two blocks an SM on the H100's 132
+STREAM_BN, STREAM_GROUP, STREAM_MAX_SPLITS, STREAM_SMS = 128, 8, 8, 132
+STREAM_MT = (4, 8)
 _TRAIN_CHUNK_ELEMS = 1 << 24  # (rows, K, N) elements per slice of the plain training versions
 
 
@@ -75,11 +89,55 @@ def cac_matmul_plain(x_int: torch.Tensor, tau: torch.Tensor, s_packed: torch.Ten
                                          device=x_int.device)
 
 
+def stream_plan(m: int, k: int, n: int, max_blocks=None) -> tuple:
+    """(mt, splits, groups_per_split) for the streaming template at x (m,
+    k), weights (k, n): row tiles of ``mt`` (4 when m <= 4, the decode
+    tick; else 8, and ceil(m / 8) tiles), and the ceil(k / 8) row groups
+    cut into ``splits`` ranges of ``groups_per_split``, split s taking [s g,
+    (s + 1) g), none empty. ``max_blocks(mt, splits)`` is how many blocks
+    the card keeps resident in clusters of ``splits`` (two an SM when
+    None). Takes the most splits whose blocks all fit in one wave (so the
+    most SMs share the loads and the compares), one split where even that
+    does not fit. chip_smoke.py times every split count at the serve path's
+    shapes beside it (PERF.md)."""
+    mt = STREAM_MT[0] if m <= STREAM_MT[0] else STREAM_MT[1]
+    groups = -(-k // STREAM_GROUP)
+    tiles = -(-m // mt) * -(-n // STREAM_BN)
+    best = (1, groups)
+    for s in range(2, min(STREAM_MAX_SPLITS, groups) + 1):
+        per = -(-groups // s)
+        if -(-groups // per) != s:  # the same ranges as fewer splits
+            continue
+        cap = 2 * STREAM_SMS if max_blocks is None else max_blocks(mt, s)
+        if tiles * s <= cap:
+            best = (s, per)
+    return (mt,) + best
+
+
+def card_stream_max_blocks(index: int, mt: int, splits: int, source: str = "cac_matmul") -> int:
+    """Blocks of the streaming kernel of ``csrc/<source>.cu`` (kernel 1, or
+    kernel 6's small-M route in ``bnn_matmul``) with ``mt``-row tiles that
+    card ``index`` keeps resident in clusters of ``splits`` (the launcher's
+    ``stream_max_blocks``); 0 where none fits."""
+    fn = build.load(source).stream_max_blocks
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    with torch.cuda.device(index):
+        return max(0, fn(mt, splits))
+
+
+@functools.lru_cache(maxsize=None)
+def card_stream_plan(index: int, m: int, k: int, n: int, source: str = "cac_matmul") -> tuple:
+    """``stream_plan`` under card ``index``'s occupancy for ``source``'s
+    streaming kernel, once per card, shape and source."""
+    return stream_plan(m, k, n, lambda mt, s: card_stream_max_blocks(index, mt, s, source))
+
+
 def _lib():
     lib = build.load("cac_matmul")
     fn = lib.cac_matmul_launch
     if fn.argtypes is None:  # declare once: pointers must not pass as 32-bit ints
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -98,11 +156,13 @@ def cac_matmul_kernel_call(x_int: torch.Tensor, tau: torch.Tensor,
     m, k = x_int.shape
     n = tau.shape[1]
     y = torch.empty((m, n), dtype=torch.float32, device=x_int.device)
-    if m == 0:
+    if m == 0 or n == 0:
         return y
+    if k == 0:
+        return y.zero_()
     stream = torch.cuda.current_stream(x_int.device).cuda_stream
     err = _lib()(x_int.data_ptr(), tau.data_ptr(), s_packed.data_ptr(), y.data_ptr(),
-                 m, n, k, stream)
+                 m, n, k, *card_stream_plan(x_int.device.index, m, k, n), stream)
     if err != 0:
         raise RuntimeError(f"cac_matmul kernel launch failed: CUDA error {err}")
     cac_matmul_kernel_call.launches += 1

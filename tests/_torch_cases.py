@@ -2,8 +2,15 @@
 card-only tests can import them on a machine without JAX)."""
 import numpy as np
 
-__all__ = ["BNN_KERNEL_SHAPES", "PAGED_CASES", "QNN_KERNEL_SHAPES", "TRAIN_KERNEL_SHAPES",
-           "bnn_case", "cac_case", "cac_train_case", "paged_case", "qnn_case", "window_clear"]
+__all__ = ["BNN_KERNEL_SHAPES", "LANE_FLUSH_ROWS", "PAGED_CASES", "QNN_KERNEL_SHAPES",
+           "TRAIN_KERNEL_SHAPES", "bnn_case", "byte_lane_mismatches", "cac_case",
+           "cac_train_case", "paged_case", "qnn_case", "to_words", "window_clear"]
+
+HI = 0x80808080
+# the streaming kernels' byte-lane flush: a thread counts at most 16 rows a
+# chunk and a warp's four k-lanes are summed in byte lanes, so no lane holds
+# more than 64 rows' mismatches before it is widened (csrc/stream_matmul.cuh)
+LANE_FLUSH_ROWS = 64
 
 # the training path's (K, N) projections at M = batch 4 x seq 128, and two
 # ragged shapes that cut every tile edge
@@ -127,3 +134,37 @@ PAGED_CASES = [
     (4, 4, 6, 2, 16, 8, 4, False),  # speculative verify window (B=4, C=4)
     (4, 4, 6, 2, 16, 8, 4, True),   # int8 verify window
 ]
+
+
+def to_words(b):
+    """Torch uint8 or int8 (..., N) -> int64 (..., ceil(N / 4)) 32-bit words
+    of four byte lanes, column 4 c + i in byte i (the kernels' little-endian
+    uint32 view of 16-byte row loads); N is zero-padded to a multiple of 4."""
+    import torch
+
+    b = b.to(torch.uint8).to(torch.int64)
+    pad = -b.shape[-1] % 4
+    if pad:
+        b = torch.nn.functional.pad(b, (0, pad))
+    b = b.reshape(b.shape[:-1] + (-1, 4))
+    return b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24
+
+
+def byte_lane_mismatches(mis, n, flush_rows=LANE_FLUSH_ROWS):
+    """The streaming kernels' count, modelled in plain PyTorch: ``mis``
+    int64 (M, K, W) words whose bit 7 of each byte lane is a mismatch bit
+    (other bits anything), reduced as the kernels do: ``(mis & 0x80808080)
+    >> 7`` added into 32-bit words of byte-lane counters over runs of
+    ``flush_rows`` consecutive rows (a lane that passes 255 carries into the
+    next one, and the top lane out of the word, as in uint32 arithmetic),
+    each run's lanes then widened into int32 sums. -> int64 (M, n)
+    mismatch counts."""
+    import torch
+
+    lanes = (mis & HI) >> 7
+    m, k, w = lanes.shape
+    total = torch.zeros((m, w, 4), dtype=torch.int64)
+    for a in range(0, k, flush_rows):
+        packed = lanes[:, a:a + flush_rows].sum(dim=1) & 0xFFFFFFFF  # uint32 wrap
+        total += torch.stack([(packed >> (8 * i)) & 0xFF for i in range(4)], dim=-1)
+    return total.reshape(m, 4 * w)[:, :n]

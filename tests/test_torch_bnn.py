@@ -29,7 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_cases import bnn_case
+from _torch_cases import LANE_FLUSH_ROWS, bnn_case, byte_lane_mismatches, to_words
 from test_torch_lm import _hold, port_cfg
 
 import repro.core.backend as jax_backend
@@ -50,6 +50,7 @@ from repro_torch.core.backend import LinearSpec, get_backend, pack_signs
 from repro_torch.core.convert import from_reference, tree_to_serve
 from repro_torch.core.ste import sign
 from repro_torch.kernels import bnn_matmul as tk
+from repro_torch.kernels import cac_matmul
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
@@ -116,6 +117,76 @@ def test_bnn_train_matmul_vjp_matches_reference(m, k, n):
     # the inclusive window: an exact |x| = 1 passes the gradient, |x| > 1 not
     assert tx.grad[0, 0] != 0 and tx.grad[-1, -1] != 0
     assert np.all(tx.grad.numpy()[np.abs(x) > 1.0] == 0)
+
+
+def sign_byte_lane_model(x, w, flush_rows=LANE_FLUSH_ROWS):
+    """Kernel 6's small-M arithmetic in plain PyTorch, word for word: x
+    float32 (M, K), w float32 or int8 (K, N) -> (M, N) float32. Each side's
+    negative bit is formed as !(v >= 0) (so +0 and -0 give +1 and NaN -1)
+    into bit 7 of a byte lane; the mismatch bits (xn ^ wn) & 0x80808080 are
+    counted in byte lanes (``byte_lane_mismatches``), and y = K - 2 *
+    mismatches."""
+    k = x.shape[1]
+    xn = torch.where(x >= 0, 0, 0x80808080).to(torch.int64)[:, :, None]  # (M, K, 1)
+    wn = to_words(torch.where(w >= 0, 0, 0x80).to(torch.uint8))[None]  # (1, K, W)
+    mis = byte_lane_mismatches(xn ^ wn, w.shape[1], flush_rows)
+    return (k - 2 * mis).to(torch.float32)
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES + [(4, 1000, 20), (2, 8, 3)])
+def test_sign_byte_lane_model_bit_exact_against_reference(m, k, n):
+    """The streaming kernel's sign-mismatch count, modelled in plain
+    PyTorch, equals the reference's Pallas kernel (interpret mode) and the
+    plain version bit for bit: float32 w with exact +0.0, -0.0 and NaN in x
+    and w, and int8 +-1 w; K not a multiple of 8, 16 or 32, and K past 255
+    rows."""
+    x, w, _ = bnn_case(np.random.default_rng(m + 11 * k + n), m, k, n, nan=True)
+    w[0, 0], w[-1, -1] = -0.0, np.nan
+    want = np.asarray(jops.bnn_matmul(jnp.asarray(x), jnp.asarray(w), interpret=True))
+    wb = sign(_t(w)).to(torch.int8)
+    for wt in (_t(w), wb):
+        got = sign_byte_lane_model(_t(x), wt)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(got.numpy(), tk.bnn_matmul_plain(_t(x), wt).numpy())
+    np.testing.assert_array_equal(
+        np.asarray(jops.bnn_matmul(jnp.asarray(x), jnp.asarray(wb.numpy()), interpret=True)),
+        want)
+
+
+# the serve path's and the training path's (K, N)
+PATH_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
+
+
+@pytest.mark.parametrize("m", [1, 4, 15, 16, 17, 31, 32, 33, 64, 512])
+@pytest.mark.parametrize("w_dtype", [torch.int8, torch.float32], ids=["int8", "float32"])
+def test_fwd_route_by_rows(m, w_dtype):
+    """Kernel 6's route: the streaming template up to FWD_STREAM_MAX_M rows
+    of the weight dtype (int8: decode M = 4, prefill buckets and chunks of
+    16 and 32), the tensor cores above it (float32 at training M = 512);
+    the thresholds' neighbours on either side; a forced route is taken as
+    asked; each plan is the one its route's planner gives."""
+    for k, n in PATH_KN + [(100, 130)]:
+        plan = tk.fwd_plan(m, k, n, w_dtype)
+        assert plan[0] == ("stream" if m <= tk.FWD_STREAM_MAX_M[w_dtype] else "tc")
+        assert tk.fwd_plan(m, k, n, w_dtype, route="stream")[1:] == \
+            cac_matmul.stream_plan(m, k, n)
+        assert tk.fwd_plan(m, k, n, w_dtype, route="tc")[1:] == tk.bwd_plan(m, n, k, True)
+    assert tk.FWD_STREAM_MAX_M[torch.int8] >= 32  # every unpacked serve M streams
+    assert tk.FWD_STREAM_MAX_M[torch.float32] < 512  # the training M takes the tensor cores
+    with pytest.raises(ValueError):
+        tk.fwd_plan(m, 960, 960, w_dtype, route="nope")
+
+
+@pytest.mark.parametrize("k,n", PATH_KN + [(100, 130), (968, 65)])
+def test_fwd_tc_plan_covers_k_once(k, n):
+    """The tensor-core route's plan at the training path's M = 512 (and a
+    ragged M), with the H100's occupancy: 128-row tiles of 128 or 160
+    columns, K cut into 1-8 ranges of whole 64-step stages, none empty."""
+    for m in (512, 129):
+        _, bn, splits, per = tk.fwd_plan(m, k, n, torch.float32, _h100_max_blocks)
+        assert bn in tk.BWD_TILE_COLS and 1 <= splits <= tk.BWD_MAX_SPLITS
+        assert per % tk.BWD_STAGE == 0
+        assert (splits - 1) * per < k <= splits * per
 
 
 def test_wrappers_take_plain_on_cpu_and_check_inputs():

@@ -5,13 +5,17 @@ machine without the reference installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Without a GPU every test here skips. CAC is held bit-exact; paged attention
+Without a GPU every test here skips. CAC is held bit-exact and repeatable
+(the streaming template's ragged edges: M around its 4- and 16-row tiles, N
+not a multiple of 16, K = 8 and K not a multiple of 16); paged attention
 at 2e-5, the bound the reference holds its fused kernel to against the
 gather oracle. The training CAC forward is bit-exact (the kernel rounds the
 product and then the sum, as plain PyTorch does); its STE backward within
 atol/rtol 1e-4 off the |pre| = 1 window edge, split and fused alike (the
 kernels sum in another order, with float atomics). The BNN forwards
-(kernels 6 and 7) are bit-exact, 7 equal to 6 on the same signs; the
+(kernels 6 and 7) are bit-exact, 7 equal to 6 on the same signs, kernel 6 on
+both of its routes (streaming and tensor cores) at the route threshold and
+one row past it; the
 SignSTE backward pair (8 and 9) within atol/rtol 1e-4 everywhere (their
 masks read the operand itself, so no element sits on an ambiguous edge; the
 sums are reordered) and bit-for-bit repeatable. The int8 matmul (kernel 10)
@@ -53,6 +57,50 @@ def test_cac_kernel_bit_exact_on_card(cuda, m, k, n):
     torch.cuda.synchronize()
     assert cac_matmul_kernel_call.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), cac_matmul_plain(*args).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 8, 1), (4, 8, 130), (16, 200, 333), (17, 968, 65),
+                                   (32, 960, 2560), (33, 40, 130), (1, 2568, 2560)])
+def test_cac_streaming_edges_on_card(cuda, m, k, n):
+    """Kernel 1 at the streaming template's edges, x and tau at -128 and
+    127: bit-exact against the plain version, and a second launch repeats
+    bit for bit (the split partials meet in a fixed order, no atomics)."""
+    rng = np.random.default_rng(3 * m + k + n)
+    x, tau, s = cac_case(rng, m, k, n)
+    x.flat[:2], tau.flat[:2] = (-128, 127), (127, -128)
+    args = (torch.from_numpy(x), torch.from_numpy(tau), pack_signs(torch.from_numpy(s)))
+    dev = [a.to(cuda) for a in args]
+    before = cac_matmul_kernel_call.launches
+    got, again = cac_matmul_kernel_call(*dev), cac_matmul_kernel_call(*dev)
+    torch.cuda.synchronize()
+    assert cac_matmul_kernel_call.launches == before + 2
+    assert torch.equal(got, again)
+    np.testing.assert_array_equal(got.cpu().numpy(), cac_matmul_plain(*args).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("past", [0, 1], ids=["at", "past"])
+@pytest.mark.parametrize("w_dtype", [torch.int8, torch.float32], ids=["int8", "float32"])
+@pytest.mark.parametrize("k,n", [(960, 2560), (2560, 960), (100, 130)])
+def test_bnn_forward_routes_on_card(cuda, past, w_dtype, k, n):
+    """Kernel 6 at its weight dtype's route threshold and one row past it:
+    the planned route and both forced routes bit-exact against the plain
+    version, each call one counted launch, and a second launch repeats bit
+    for bit."""
+    m = bnn.FWD_STREAM_MAX_M[w_dtype] + past
+    assert bnn.fwd_plan(m, k, n, w_dtype)[0] == ("tc" if past else "stream")
+    rng = np.random.default_rng(m + 3 * k + n)
+    x, w, _ = (torch.from_numpy(a).to(cuda) for a in bnn_case(rng, m, k, n, nan=True))
+    wt = w if w_dtype == torch.float32 else sign(w).to(torch.int8)
+    want = bnn.bnn_matmul_plain(x, w)
+    before = bnn.bnn_matmul_kernel_call.launches
+    for route in (None, "stream", "tc"):
+        got = bnn.bnn_matmul_kernel_call(x, wt, route=route)
+        assert torch.equal(got, want), route
+        assert torch.equal(bnn.bnn_matmul_kernel_call(x, wt, route=route), got)
+    torch.cuda.synchronize()
+    assert bnn.bnn_matmul_kernel_call.launches == before + 6
 
 
 @pytest.mark.cuda
