@@ -16,7 +16,13 @@ Phases (each prints its own line; any failure exits non-zero):
              the speculative verify's B = 4 x C = 4 window);
              the training CAC forward bit-exact and its STE backward (fused,
              and the split dx + dw pair) within atol = rtol = 1e-4 off the
-             |pre| = 1 window edge, at M = 512 and two ragged shapes. Times
+             |pre| = 1 window edge, at M = 512 and two ragged shapes, the
+             fused one bit-repeatable; on a dyadic grid with +-0, +-inf and
+             NaN rows and columns (every product and sum exact) the forward
+             and the fused backward equal their plain versions bit for bit,
+             window edges included; the -Xptxas -v lines and the hot loops'
+             instruction mix of kernels 2 and 5, their cluster occupancy and
+             a sweep of their split counts. Times
              the kernel, its plain version and, where one exists, a library
              call that computes the same function (gather + SDPA for
              attention; timed here only, the port never calls it).
@@ -36,7 +42,8 @@ Phases (each prints its own line; any failure exits non-zero):
              and 1 with the split pair, launch counts exact per step (448
              forward, 224 fused; 224 dx + 224 dw on the split step), finite
              losses; ms per step, peak memory, and one more step under
-             torch.profiler (device busy, idle share, top kernels).
+             torch.profiler (device busy, idle share, top kernels, the device
+             ms of kernels 2 and 5).
 7. train parity — one train step of the same model cut to 2 layers on the
              card and on the CPU plain path, CAC outputs held equal where
              the two split a Sign at a near-zero pre-activation (see
@@ -121,6 +128,8 @@ PARITY_TIE = 1e-3  # code units from a half-way point where the codes may differ
 # two ragged shapes that cut every tile edge
 TRAIN_SHAPES = [(512, 960, 960), (512, 960, 320), (512, 960, 2560), (512, 2560, 960)]
 TRAIN_RAGGED = [(37, 100, 130), (129, 968, 65)]
+# the dyadic grid's bit-exact checks of kernels 2 and 5: q/o and the ragged shapes
+TRAIN_DYADIC = [(512, 960, 960)] + TRAIN_RAGGED
 TRAIN_TOL = 1e-4  # atol = rtol for dx/dw/dbeta, the reference's own STE-backward bound
 WINDOW_EPS = 1e-4  # |pre| within this of 1: the reference leaves the element out
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3
@@ -415,12 +424,83 @@ def _close_err(torch, got, want, keep):
     return float(d.max()), ok
 
 
+def _dyadic_operands(np, rng, m, k, n, sparse=False):
+    """Training CAC operands on a dyadic grid (as
+    ``tests/_torch_cases.cac_train_dyadic_case``): every product and sum of
+    the forward and the STE backward exact in float32, many pre-activations
+    exactly 0 or +-1: x and g multiples of 1/4 in [-2, 2], w in {+-0.5, +-1,
+    +-2}, beta = -x' w; rows 1.. of x and columns 1.. of w take +0, -0,
+    +inf, -inf, NaN (with ``sparse`` at one element each, x[1 + i, i] and
+    w[i, 1 + i]: a non-finite x or w makes a whole row of dw or column of dx
+    NaN), columns 2.. of beta all five."""
+    special = (0.0, -0.0, np.inf, -np.inf, np.nan)
+    x = (rng.integers(-8, 9, size=(m, k)) * 0.25).astype(np.float32)
+    w = rng.choice(np.array([-2, -1, -0.5, 0.5, 1, 2], np.float32), size=(k, n))
+    beta = -(rng.integers(-8, 9, size=(k, n)) * 0.25).astype(np.float32) * w
+    g = (rng.integers(-8, 9, size=(m, n)) * 0.25).astype(np.float32)
+    for i, v in enumerate(special):
+        if 1 + i < m:
+            x[1 + i, i % k if sparse else slice(None)] = v
+        if 1 + i < n:
+            w[i % k if sparse else slice(None), 1 + i] = v
+        if 2 + i < n:
+            beta[:, 2 + i] = v
+    return x, w, beta.astype(np.float32), g
+
+
+def _bits_equal(torch, a, b):
+    """Equal bit for bit, any NaN matching any NaN at the same place."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(torch.where(na, 0, a).view(torch.int32),
+                                               torch.where(nb, 0, b).view(torch.int32))
+
+
+def _train_split_sweep(torch, cac, x, w, beta, g, flush):
+    """Kernel 2 at every K split count of 1..8 and kernel 5 at every
+    cluster size of 1..min(16, N tiles), through the launchers (these
+    launches are timing only, not counted): the times the plans in
+    kernels/cac_matmul.py are checked against."""
+    m, k = x.shape
+    n = w.shape[1]
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    dx, dw, db = torch.empty_like(x), torch.empty_like(w), torch.empty_like(w)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fwd = cac._train_lib("cac_train_fwd_launch")
+    bwd = cac._train_lib("cac_train_bwd_fused_launch")
+    slices = -(-k // cac.TRAIN_FWD_SLICE)
+    out = {"fwd": {}, "bwd": {}}
+    for s in range(1, cac.TRAIN_MAX_SPLITS + 1):
+        if s > slices or -(-slices // -(-slices // s)) != s:
+            continue
+        launch = lambda: fwd(x.data_ptr(), w.data_ptr(), beta.data_ptr(), y.data_ptr(), m, n, k,
+                             s, stream)
+        if launch() != 0:
+            fail(f"cac_train_fwd launcher refused {s} splits at M={m} K={k} N={n}")
+        out["fwd"][s] = time_ms(torch, launch, flush=flush)
+    for c in range(1, min(cac.TRAIN_BWD_MAX_CLUSTER, -(-n // cac.TRAIN_BWD_TILE[1])) + 1):
+        launch = lambda: bwd(x.data_ptr(), w.data_ptr(), beta.data_ptr(), g.data_ptr(),
+                             dx.data_ptr(), dw.data_ptr(), db.data_ptr(), m, n, k, c, stream)
+        if launch() != 0:
+            fail(f"cac_train_bwd_fused launcher refused a cluster of {c} at M={m} K={k} N={n}")
+        out["bwd"][c] = time_ms(torch, launch, flush=flush)
+    torch.cuda.synchronize()
+    print(f"[kernels] cac_train M={m} K={k} N={n} split sweep ms: fwd "
+          + ", ".join(f"{s}: {t:.5f}" for s, t in out["fwd"].items()) + "; fused bwd "
+          + ", ".join(f"{c}: {t:.5f}" for c, t in out["bwd"].items()))
+    return out
+
+
 def phase_train_kernels(torch, np, dev, flush):
     """Kernels 2-5 against their plain versions: forward bit-exact; dx, dw,
     dbeta of the fused kernel and of the split pair within TRAIN_TOL of the
-    plain fused backward and of each other, off the |pre| = 1 window edge.
-    Inputs as the reference's kernel tests draw them (x, g ~ N(0, 1); w,
-    beta ~ N(0, 0.25)). Timed at the path's shapes. Operations per (m, k, n):
+    plain fused backward and of each other, off the |pre| = 1 window edge,
+    and a second fused launch equal bit for bit; on the dyadic grid
+    (``_dyadic_operands``) at q/o and the ragged shapes, the forward and the
+    fused backward bit-equal to their plain versions. Inputs as the
+    reference's kernel tests draw them (x, g ~ N(0, 1); w, beta ~ N(0,
+    0.25)). Timed at the path's shapes, with each launch's plan and a sweep
+    of the split counts. Operations per (m, k, n) as the bound counts them
+    (the kernels issue fewer instructions; PERF.md):
     4 in the forward (mul, add, compare, count), 6 for dx (mul, add,
     abs-compare, select, multiply-add), 7 for dw+dbeta (the same, a
     multiply-add and an add), 9 fused; the CUDA-core rate stands in for
@@ -428,6 +508,12 @@ def phase_train_kernels(torch, np, dev, flush):
     beta) summed over K)."""
     from repro_torch.kernels import cac_matmul as cac
 
+    fwd_blocks, bwd_blocks = (cac._train_lib(f"cac_train_{nm}_max_blocks")
+                              for nm in ("fwd", "bwd_fused"))
+    print(f"[kernels] cac_train cluster occupancy (blocks resident): fwd by split "
+          f"{[fwd_blocks(s) for s in range(1, cac.TRAIN_MAX_SPLITS + 1)]}, fused bwd at "
+          f"M={TRAIN_SHAPES[0][0]} by cluster "
+          f"{[bwd_blocks(c, TRAIN_SHAPES[0][0]) for c in range(1, cac.TRAIN_BWD_MAX_CLUSTER + 1)]}")
     rng = np.random.default_rng(SEED + 2)
     rows = []
     for m, k, n in TRAIN_SHAPES + TRAIN_RAGGED:
@@ -447,7 +533,28 @@ def phase_train_kernels(torch, np, dev, flush):
         plain = cac.cac_train_bwd_fused_plain(x, w, beta, g)
         dx_keep, dw_keep = _window_clear(torch, x, w, beta)
         row = {"M": m, "K": k, "N": n, "fwd_max_abs_err": fwd_err,
-               "left_out": {"dx": int((~dx_keep).sum()), "dw": int((~dw_keep).sum())}}
+               "left_out": {"dx": int((~dx_keep).sum()), "dw": int((~dw_keep).sum())},
+               "fwd_splits": cac.card_train_fwd_plan(dev.index or 0, m, k, n)[0],
+               "bwd_cluster": cac.card_train_bwd_plan(dev.index or 0, m, k, n)}
+        again = cac.cac_train_bwd_fused_call(x, w, beta, g)
+        for name, a, b in zip(("dx", "dw", "dbeta"), fused, again):
+            if not _bits_equal(torch, a, b):
+                fail(f"cac_train_bwd_fused M={m} K={k} N={n}: {name} differs between two "
+                     f"launches (must repeat bit for bit)")
+        if (m, k, n) in TRAIN_DYADIC:
+            xd, wd, bd, _ = (torch.from_numpy(a).to(dev) for a in _dyadic_operands(np, rng, m, k, n))
+            if not _bits_equal(torch, cac.cac_train_fwd_call(xd, wd, bd),
+                               cac.cac_train_fwd_plain(xd, wd, bd)):
+                fail(f"cac_train_fwd M={m} K={k} N={n}: differs from plain on the dyadic grid")
+            xd, wd, bd, gd = (torch.from_numpy(a).to(dev)
+                              for a in _dyadic_operands(np, rng, m, k, n, sparse=True))
+            for name, a, b in zip(("dx", "dw", "dbeta"),
+                                  cac.cac_train_bwd_fused_call(xd, wd, bd, gd),
+                                  cac.cac_train_bwd_fused_plain(xd, wd, bd, gd)):
+                if not _bits_equal(torch, a, b):
+                    fail(f"cac_train_bwd_fused M={m} K={k} N={n}: {name} differs from plain on "
+                         f"the dyadic grid (every product and sum there is exact)")
+            row["dyadic_bit_exact"] = True
         for name, a, b, c, keep in zip(("dx", "dw", "dbeta"), fused, split, plain,
                                        (dx_keep, dw_keep, dw_keep)):
             for which, got, want in (("fused", a, c), ("split", b, c), ("fused-split", a, b)):
@@ -480,14 +587,17 @@ def phase_train_kernels(torch, np, dev, flush):
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 }
+            row["split_sweep"] = _train_split_sweep(torch, cac, x, w, beta, g, flush)
         rows.append(row)
         errs = " ".join(f"{nm}={row[nm + '_fused_max_abs_err']:.2e}" for nm in ("dx", "dw", "dbeta"))
         times = "".join(f" {nm} {row[nm]['ms']:.4f} ms (plain {row[nm]['plain_ms']:.3f}, bound "
                         f"{row[nm]['bound_ms']:.6f} {row[nm]['bound_by']})"
                         for nm in ("fwd", "bwd_fused", "bwd_dx", "bwd_dw") if nm in row)
-        print(f"[kernels] cac_train M={m} K={k} N={n}: fwd bit-exact; bwd fused/split within "
-              f"{TRAIN_TOL} ({errs}; left out dx {row['left_out']['dx']}, dw "
-              f"{row['left_out']['dw']}){times}")
+        print(f"[kernels] cac_train M={m} K={k} N={n}: fwd bit-exact (K split {row['fwd_splits']}"
+              f"); bwd fused/split within {TRAIN_TOL} ({errs}; left out dx "
+              f"{row['left_out']['dx']}, dw {row['left_out']['dw']}), fused repeatable (cluster "
+              f"{row['bwd_cluster']})"
+              + ("; dyadic grid bit-exact" if row.get("dyadic_bit_exact") else "") + times)
     return rows
 
 
@@ -1374,7 +1484,9 @@ def phase_train_path(torch, np, dev, mode, tag="train"):
     groups = ({"bnn_bwd_dx": ("bnn_sign_kernel<true", "bnn_bwd_kernel<1,"),
                "bnn_bwd_dw": ("bnn_sign_kernel<false, false, float, false>", "bnn_bwd_kernel<0,"),
                "bnn": ("bnn_sign_kernel<false, false, float, true>", "bnn_bwd_kernel<2,")}
-              if mode == "bnn" else None)
+              if mode == "bnn" else
+              {"cac_train_fwd": ("cac_train_fwd_kernel",),
+               "cac_train_bwd_fused": ("cac_train_bwd_fused_kernel",)})
     share = _device_share(prof, label, groups)
     print(f"[{tag}] peak memory {peak / 2**30:.2f} GiB; steps "
           f"{[round(r['ms'], 1) for r in steps[:TRAIN_STEPS]]} ms"
@@ -1389,7 +1501,7 @@ def phase_train_path(torch, np, dev, mode, tag="train"):
         print(f"[{tag}]   {r['ms']:9.3f} ms {r['count']:6d}x {r['name']}")
     for name, r in share["groups"].items():
         print(f"[{tag}] profiled step: {name} {r['ms']:.3f} device ms in {r['count']} kernel "
-              f"launches (sign pass + product per call)")
+              f"launches" + (" (sign pass + product per call)" if mode == "bnn" else ""))
     return result
 
 
@@ -1604,15 +1716,27 @@ def main() -> int:
     print(f"[build] {len(paths)} kernels built in {time.perf_counter() - t0:.2f} s: "
           f"{sorted(paths)}")
     # the -Xptxas -v lines (registers, spills) of the redesigned kernels: the
-    # product template (kernels 6 at large M, 8, 9) and its sign pass, and
-    # the streaming template (kernel 1, kernel 6 at small M)
-    for source in ("cac_matmul", "bnn_matmul"):
+    # product template (kernels 6 at large M, 8, 9) and its sign pass, the
+    # streaming template (kernel 1, kernel 6 at small M), and kernels 2 and 5
+    redesigned = ("bnn_bwd", "bnn_sign", "stream_kernel", "cac_train_fwd_kernel",
+                  "cac_train_bwd_fused_kernel")
+    for source in ("cac_matmul", "bnn_matmul", "cac_train"):
         show = False
         for line in logs.get(source, "").splitlines():
             if "Compiling entry function" in line:
-                show = any(nm in line for nm in ("bnn_bwd", "bnn_sign", "stream_kernel"))
+                show = any(nm in line for nm in redesigned)
             if show and ("Compiling entry function" in line or "Used" in line or "spill" in line):
                 print(f"[build] ptxas -v {source}: {line.strip()}")
+    # kernels 2 and 5: the instructions of their hot loop. An iteration of
+    # kernel 2's is a K slice, 512 terms a thread; kernel 5's is a pass, 128
+    # terms a thread, and its body also holds the code a new N tile runs
+    # (the window bounds), so its count is no per-term figure
+    for kernel, ops in build.hot_loop_mix(paths["cac_train"], ("cac_train_fwd_kernelILb1",
+                                                               "cac_train_bwd_fused_kernelILb1")).items():
+        per = (f", {sum(ops.values()) / 512:.2f} a term" if "fwd" in kernel else
+               " (with the tile-start code)")
+        print(f"[build] sass {kernel[-40:]}: {sum(ops.values())} instructions an iteration{per}: "
+              f"{ops}")
 
     dev = torch.device("cuda")
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2

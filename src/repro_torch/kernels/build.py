@@ -14,14 +14,16 @@ compiles every source in parallel (one ``nvcc`` each, all started together).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict, List, Optional
 
-__all__ = ["CSRC", "BUILD_DIR", "KERNEL_SOURCES", "build_all", "load"]
+__all__ = ["CSRC", "BUILD_DIR", "KERNEL_SOURCES", "build_all", "hot_loop_mix", "load"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -99,3 +101,43 @@ def load(name: str) -> ctypes.CDLL:
     cdll = ctypes.CDLL(build_all((name,))[name])
     _LIBS[name] = cdll
     return cdll
+
+
+def hot_loop_mix(lib: str, kernels) -> Dict[str, Dict[str, int]]:
+    """The opcode counts of the hot loop of each kernel in the built library
+    ``lib`` whose name contains one of ``kernels``, from ``cuobjdump -sass``:
+    ``{kernel name: {opcode: count}}``. A loop is a backward branch; its own
+    body leaves out the loops nested in it, and the hot loop is the one whose
+    own body holds the most FP32 arithmetic (FADD, FMUL, FFMA, FSET,
+    FSETP). Opcodes lose their modifiers (compares keep theirs); a
+    predicated instruction counts as issued."""
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if not any(k in name for k in kernels):
+            continue
+        ins = [(int(a, 16), t.strip()) for a, t in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+        loops = []
+        for addr, text in ins:
+            target = re.search(r"BRA[^0-9]*0x([0-9a-f]+)", text)
+            if target and int(target.group(1), 16) < addr:
+                loops.append((int(target.group(1), 16), addr))
+        best = None
+        for lo, hi in loops:
+            nested = [(c, d) for c, d in loops if (c, d) != (lo, hi) and lo <= c and d <= hi]
+            ops = collections.Counter()
+            for addr, text in ins:
+                if lo <= addr <= hi and not any(c <= addr <= d for c, d in nested):
+                    op = re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+                    ops[op if op.startswith(("FSET", "FSETP", "ISETP")) else op.split(".")[0]] += 1
+            fp32 = sum(n for op, n in ops.items() if op.split(".")[0] in
+                       ("FADD", "FMUL", "FFMA", "FSET", "FSETP"))
+            if best is None or fp32 > best[0]:
+                best = (fp32, ops)
+        if best is not None:
+            out[name] = dict(best[1].most_common())
+    return out

@@ -15,7 +15,11 @@ The training kernels (``csrc/cac_train.cu``) replace the reference's
 ``cac_train_fwd_call``, ``cac_train_bwd_dx_call``, ``cac_train_bwd_dw_call``
 and ``cac_train_bwd_fused_call``. All four are bound by operations on the
 CUDA cores at the training path's shapes (no tensor-core form of a
-compare-select; the source says how each reduces across blocks). Each
+compare-select; the source says how each reduces across blocks). The
+forward (kernel 2) splits K, and the fused backward (kernel 5) the N tiles,
+over a thread block cluster by ``train_fwd_plan`` and ``train_bwd_plan``
+(computed here from the card's SM count and cluster occupancy, checked by
+the launchers); both write each output once, in a fixed order. Each
 wrapper takes float32 (M, K) x, (K, N) w and beta (and (M, N) g), launches
 on PyTorch's current stream, raises on a CPU tensor or a failed launch, and
 counts its launches; its ``*_plain`` twin computes the same function in
@@ -35,6 +39,7 @@ __all__ = [
     "STREAM_BN",
     "STREAM_GROUP",
     "STREAM_MAX_SPLITS",
+    "TRAIN_MAX_SPLITS",
     "cac_matmul_kernel_call",
     "cac_matmul_plain",
     "cac_train_bwd_dw_call",
@@ -46,7 +51,11 @@ __all__ = [
     "cac_train_fwd_call",
     "cac_train_fwd_plain",
     "card_stream_plan",
+    "card_train_bwd_plan",
+    "card_train_fwd_plan",
     "stream_plan",
+    "train_bwd_plan",
+    "train_fwd_plan",
 ]
 
 _M_CHUNK = 8  # rows per slice of the plain version's (M, K, N) broadcast
@@ -56,6 +65,13 @@ _M_CHUNK = 8  # rows per slice of the plain version's (M, K, N) broadcast
 STREAM_BN, STREAM_GROUP, STREAM_MAX_SPLITS, STREAM_SMS = 128, 8, 8, 132
 STREAM_MT = (4, 8)
 _TRAIN_CHUNK_ELEMS = 1 << 24  # (rows, K, N) elements per slice of the plain training versions
+# the training kernels' tiling (csrc/cac_train.cu): kernel 2 owns 128 x 64
+# tiles of y and walks K in slices of 16 rows, split over at most 8 cluster
+# ranks; kernel 5 owns a 32-row K tile and walks 64-column N tiles, split
+# over at most 16 ranks (a non-portable cluster size); two blocks an SM
+TRAIN_FWD_TILE, TRAIN_FWD_SLICE = (128, 64), 16
+TRAIN_BWD_TILE = (32, 64)
+TRAIN_MAX_SPLITS, TRAIN_BWD_MAX_CLUSTER, TRAIN_BLOCKS_PER_SM = 8, 16, 2
 
 
 def _check(x_int: torch.Tensor, tau: torch.Tensor, s_packed: torch.Tensor) -> None:
@@ -238,12 +254,94 @@ def cac_train_bwd_fused_plain(x, w, beta, g):
     return _bwd_plain(x, w, beta, g, True, True)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def train_fwd_plan(m: int, k: int, n: int, max_blocks=None, sms: int = STREAM_SMS) -> tuple:
+    """(splits, slices_per_split) for kernel 2 at x (m, k), w (k, n): the
+    ceil(k / 16) K slices cut into ``splits`` ranges (a cluster of that many
+    blocks per 128 x 64 tile of y), none empty. Takes the split count of 1,
+    2, 4 or 8 that needs the fewest K slices counted one after another: the
+    waves of blocks the card holds at once (``max_blocks(splits)``, or two
+    an SM of ``sms``) times a block's slices, plus one for a split block's
+    cluster reduction; the larger on a tie. A count of which no cluster
+    fits is skipped. (On the H100, clusters of 3, 6 and 7 were slower than
+    4 at all four path shapes: chip_smoke.py's split sweep, PERF.md.)"""
+    bm, bn = TRAIN_FWD_TILE
+    tiles = _cdiv(m, bm) * _cdiv(n, bn)
+    slices = _cdiv(k, TRAIN_FWD_SLICE)
+    best = None
+    for s in (1, 2, 4, 8):
+        if s > slices:
+            break
+        per = _cdiv(slices, s)
+        if _cdiv(slices, per) != s:  # the same ranges as fewer splits
+            continue
+        cap = TRAIN_BLOCKS_PER_SM * sms if max_blocks is None else max_blocks(s)
+        if cap < s:
+            continue
+        cost = _cdiv(tiles * s, cap) * (per + (s > 1))
+        if best is None or cost <= best[0]:
+            best = (cost, s, per)
+    return best[1:]
+
+
+def train_bwd_plan(m: int, k: int, n: int, max_blocks=None, sms: int = STREAM_SMS) -> int:
+    """The cluster size of kernel 5 at x (m, k), w (k, n): each of the
+    ceil(k / 32) K tiles is a cluster whose ranks split the ceil(n / 64) N
+    tiles between them (M is walked inside every block). Takes the size
+    that needs the fewest N tiles walked one after another: the waves of
+    clusters the card holds at once (``max_blocks(size)`` blocks, or two an
+    SM of ``sms``) times the most N tiles a rank takes; the larger on a
+    tie. A size of which no cluster fits is skipped."""
+    bk, bn = TRAIN_BWD_TILE
+    k_tiles, n_tiles = _cdiv(k, bk), _cdiv(n, bn)
+    best = None
+    for c in range(1, min(TRAIN_BWD_MAX_CLUSTER, n_tiles) + 1):
+        cap = TRAIN_BLOCKS_PER_SM * sms if max_blocks is None else max_blocks(c)
+        if cap < c:
+            continue
+        cost = _cdiv(k_tiles * c, cap) * _cdiv(n_tiles, c)
+        if best is None or cost <= best[0]:
+            best = (cost, c)
+    return best[1]
+
+
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def card_train_fwd_plan(index: int, m: int, k: int, n: int) -> tuple:
+    """``train_fwd_plan`` under card ``index``'s SM count and occupancy."""
+    fn = _train_lib("cac_train_fwd_max_blocks")
+    with torch.cuda.device(index):
+        return train_fwd_plan(m, k, n, fn, _sms(index))
+
+
+@functools.lru_cache(maxsize=None)
+def card_train_bwd_plan(index: int, m: int, k: int, n: int) -> int:
+    """``train_bwd_plan`` under card ``index``'s SM count and occupancy."""
+    fn = _train_lib("cac_train_bwd_fused_max_blocks")
+    with torch.cuda.device(index):
+        return train_bwd_plan(m, k, n, lambda c: fn(c, m), _sms(index))
+
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_TRAIN_ARGTYPES = {
+    "cac_train_fwd_launch": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    "cac_train_fwd_max_blocks": [_INT],
+    "cac_train_bwd_fused_launch": [_PTR] * 7 + [_INT] * 4 + [_PTR],
+    "cac_train_bwd_fused_max_blocks": [_INT] * 2,
+    "cac_train_bwd_launch": [_PTR] * 7 + [_INT] * 3 + [_PTR],
+}
+
+
 def _train_lib(name: str):
     fn = getattr(build.load("cac_train"), name)
     if fn.argtypes is None:  # declare once: pointers must not pass as 32-bit ints
-        n_ptr = 4 if name == "cac_train_fwd_launch" else 7
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn.argtypes, fn.restype = _TRAIN_ARGTYPES[name], ctypes.c_int
     return fn
 
 
@@ -255,7 +353,8 @@ def _on_card(what: str, *ts: torch.Tensor):
 
 def cac_train_fwd_call(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """Launch kernel 2: (M, N) float32 y = sum_k Sign(x w + beta), exact
-    integers. Adds one to ``cac_train_fwd_call.launches`` per launch."""
+    integers, K split by ``card_train_fwd_plan``. Adds one to
+    ``cac_train_fwd_call.launches`` per launch."""
     _check_train(x, w, beta)
     x, w, beta = _on_card("cac_train_fwd_call", x, w, beta)
     m, k = x.shape
@@ -265,9 +364,10 @@ def cac_train_fwd_call(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor) -> 
         return y
     if k == 0:
         return y.zero_()
+    splits, _ = card_train_fwd_plan(x.device.index, m, k, n)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _train_lib("cac_train_fwd_launch")(x.data_ptr(), w.data_ptr(), beta.data_ptr(),
-                                             y.data_ptr(), m, n, k, stream)
+                                             y.data_ptr(), m, n, k, splits, stream)
     if err != 0:
         raise RuntimeError(f"cac_train_fwd kernel launch failed: CUDA error {err}")
     cac_train_fwd_call.launches += 1
@@ -279,16 +379,21 @@ def _bwd_call(fn, x, w, beta, g, want_dx: bool, want_dw: bool):
     x, w, beta, g = _on_card(fn.__name__, x, w, beta, g)
     m, k = x.shape
     n = w.shape[1]
-    dx = torch.empty_like(x) if want_dx else None  # the launch zeroes its outputs
+    # kernel 5 writes every element once; kernels 3 and 4 zero theirs first
+    dx = torch.empty_like(x) if want_dx else None
     dw = torch.empty_like(w) if want_dw else None
     db = torch.empty_like(w) if want_dw else None
     if m == 0 or k == 0 or n == 0:
         return tuple(None if t is None else t.zero_() for t in (dx, dw, db))
     ptr = lambda t: None if t is None else t.data_ptr()
+    args = (x.data_ptr(), w.data_ptr(), beta.data_ptr(), g.data_ptr(), ptr(dx), ptr(dw),
+            ptr(db), m, n, k)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _train_lib("cac_train_bwd_launch")(x.data_ptr(), w.data_ptr(), beta.data_ptr(),
-                                             g.data_ptr(), ptr(dx), ptr(dw), ptr(db),
-                                             m, n, k, stream)
+    if want_dx and want_dw:
+        cluster = card_train_bwd_plan(x.device.index, m, k, n)
+        err = _train_lib("cac_train_bwd_fused_launch")(*args, cluster, stream)
+    else:
+        err = _train_lib("cac_train_bwd_launch")(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {err}")
     fn.launches += 1
@@ -307,7 +412,8 @@ def cac_train_bwd_dw_call(x, w, beta, g) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def cac_train_bwd_fused_call(x, w, beta, g):
-    """Launch kernel 5: (dx, dw, dbeta) from one mask recompute. Adds one to
+    """Launch kernel 5: (dx, dw, dbeta) from one mask recompute, the N tiles
+    split by ``card_train_bwd_plan``; bit-repeatable. Adds one to
     ``.launches`` per launch."""
     return _bwd_call(cac_train_bwd_fused_call, x, w, beta, g, True, True)
 

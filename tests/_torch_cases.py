@@ -4,7 +4,8 @@ import numpy as np
 
 __all__ = ["BNN_KERNEL_SHAPES", "LANE_FLUSH_ROWS", "PAGED_CASES", "QNN_KERNEL_SHAPES",
            "TRAIN_KERNEL_SHAPES", "bnn_case", "byte_lane_mismatches", "cac_case",
-           "cac_train_case", "paged_case", "qnn_case", "to_words", "window_clear"]
+           "cac_train_case", "cac_train_dyadic_case", "paged_case", "qnn_case", "to_words",
+           "window_clear"]
 
 HI = 0x80808080
 # the streaming kernels' byte-lane flush: a thread counts at most 16 rows a
@@ -85,6 +86,34 @@ def cac_train_case(rng, m, k, n, scale=0.5):
     beta = (rng.normal(size=(k, n)) * scale).astype(np.float32)
     g = rng.normal(size=(m, n)).astype(np.float32)
     return x, w, beta, g
+
+
+SPECIAL_VALUES = (0.0, -0.0, np.inf, -np.inf, np.nan)
+
+
+def cac_train_dyadic_case(rng, m, k, n, sparse=False):
+    """Training CAC operands on a dyadic grid, so that every product and sum
+    of the forward and of the STE backward is exact in float32 (in any
+    order) and many pre-activations are exactly 0 (Sign's tie) or exactly
+    +-1 (the window's edges): x and g multiples of 1/4 in [-2, 2], w in
+    {+-0.5, +-1, +-2}, beta = -x' w with x' from x's grid. Rows 1.. of x and
+    columns 1.. of w take +0, -0, +inf, -inf, NaN in turn, and columns 2.. of
+    beta all five. With ``sparse`` x and w take them at one element each
+    (x[1 + i, i], w[i, 1 + i]): a non-finite x or w makes a whole row of dw
+    or column of dx NaN (g 0 x, g 0 w outside the window), and the rest stays
+    to compare."""
+    x = (rng.integers(-8, 9, size=(m, k)) * 0.25).astype(np.float32)
+    w = rng.choice(np.array([-2, -1, -0.5, 0.5, 1, 2], np.float32), size=(k, n))
+    beta = -(rng.integers(-8, 9, size=(k, n)) * 0.25).astype(np.float32) * w
+    g = (rng.integers(-8, 9, size=(m, n)) * 0.25).astype(np.float32)
+    for i, v in enumerate(SPECIAL_VALUES):
+        if 1 + i < m:
+            x[1 + i, i % k if sparse else slice(None)] = v
+        if 1 + i < n:
+            w[i % k if sparse else slice(None), 1 + i] = v
+        if 2 + i < n:
+            beta[:, 2 + i] = v
+    return x, w, beta.astype(np.float32), g
 
 
 def window_clear(x, w, beta, eps=1e-4, rows=8):

@@ -9,10 +9,14 @@ Without a GPU every test here skips. CAC is held bit-exact and repeatable
 (the streaming template's ragged edges: M around its 4- and 16-row tiles, N
 not a multiple of 16, K = 8 and K not a multiple of 16); paged attention
 at 2e-5, the bound the reference holds its fused kernel to against the
-gather oracle. The training CAC forward is bit-exact (the kernel rounds the
-product and then the sum, as plain PyTorch does); its STE backward within
-atol/rtol 1e-4 off the |pre| = 1 window edge, split and fused alike (the
-kernels sum in another order, with float atomics). The BNN forwards
+gather oracle. The training CAC forward is bit-exact (it compares the
+rounded product with the remapped -beta, which decides as the plain
+version's rounded sum does); its STE backward within atol/rtol 1e-4 off
+the |pre| = 1 window edge, split and fused alike (the kernels sum in
+another order), the fused one bit-repeatable (fixed order, no atomics);
+on the dyadic grid, where every product and sum is exact, both are equal
+to their plain versions bit for bit, window edges and +-0, +-inf and NaN
+included. The BNN forwards
 (kernels 6 and 7) are bit-exact, 7 equal to 6 on the same signs, kernel 6 on
 both of its routes (streaming and tensor cores) at the route threshold and
 one row past it; the
@@ -26,8 +30,8 @@ import numpy as np
 import pytest
 import torch
 from _torch_cases import (BNN_KERNEL_SHAPES, PAGED_CASES, QNN_KERNEL_SHAPES,
-                          TRAIN_KERNEL_SHAPES, bnn_case, cac_case, cac_train_case, paged_case,
-                          qnn_case, window_clear)
+                          TRAIN_KERNEL_SHAPES, bnn_case, cac_case, cac_train_case,
+                          cac_train_dyadic_case, paged_case, qnn_case, window_clear)
 
 from repro_torch.core.backend import pack_signs
 from repro_torch.core.ste import sign
@@ -138,6 +142,31 @@ def test_cac_train_kernels_on_card(cuda, m, k, n):
         for got in (a, b):
             torch.testing.assert_close(torch.where(keep, got, 0), torch.where(keep, c, 0),
                                        atol=1e-4, rtol=1e-4, msg=name)
+    for a, b in zip(fused, cac.cac_train_bwd_fused_call(x, w, beta, g)):
+        assert bits_equal(a, b)  # kernel 5 repeats bit for bit
+
+
+def bits_equal(a, b):
+    """Equal bit for bit, any NaN matching any NaN at the same place."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(torch.where(na, 0, a).view(torch.int32),
+                                               torch.where(nb, 0, b).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(512, 960, 960), (37, 100, 130), (129, 968, 65)])
+def test_cac_train_kernels_exact_on_dyadic_grid(cuda, m, k, n):
+    """Kernel 2 and kernel 5 on the dyadic grid (exact products and sums,
+    many pre-activations exactly 0 or +-1) with +-0, +-inf and NaN rows and
+    columns: both equal their plain versions bit for bit."""
+    rng = np.random.default_rng(m + 2 * k + n)
+    x, w, beta, _ = (torch.from_numpy(a).to(cuda) for a in cac_train_dyadic_case(rng, m, k, n))
+    assert bits_equal(cac.cac_train_fwd_call(x, w, beta), cac.cac_train_fwd_plain(x, w, beta))
+    x, w, beta, g = (torch.from_numpy(a).to(cuda)
+                     for a in cac_train_dyadic_case(rng, m, k, n, sparse=True))
+    got = cac.cac_train_bwd_fused_call(x, w, beta, g)
+    for name, a, b in zip(("dx", "dw", "dbeta"), got, cac.cac_train_bwd_fused_plain(x, w, beta, g)):
+        assert bits_equal(a, b), name
 
 
 @pytest.mark.cuda

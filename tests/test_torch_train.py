@@ -26,7 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_cases import cac_train_case
+from _torch_cases import cac_train_case, cac_train_dyadic_case
 
 from repro.configs import get_smoke as jax_get_smoke
 from repro.core import bika as jbika
@@ -65,7 +65,8 @@ def _t(a):
 
 
 def _pre(x, w, beta):
-    return x[:, :, None] * w[None] + beta[None]
+    with np.errstate(invalid="ignore"):  # inf - inf, 0 * inf in the special-value cases
+        return x[:, :, None] * w[None] + beta[None]
 
 
 def _sign_clear_rows(x, w, beta, eps=1e-6):
@@ -140,6 +141,258 @@ def test_plain_versions_chunk_over_m(monkeypatch):
     np.testing.assert_array_equal(tcac.cac_train_fwd_plain(x, w, beta), whole_y)
     for a, b in zip(tcac.cac_train_bwd_fused_plain(x, w, beta, g), whole):
         np.testing.assert_allclose(a, b, atol=1e-6, rtol=1e-6)
+
+
+def cac_train_threshold_model(x, w, beta):
+    """Kernel 2's arithmetic in plain PyTorch, term for term: x (M, K), w
+    and beta (K, N) float32 -> (M, N) float32 y = 2 sum_k [fl(x w) >= nb]
+    - K, with nb = -beta, except nb(+inf) = -FLT_MAX (only a -inf or NaN
+    product fails) and nb(-inf) = NaN (nothing passes). Equal to
+    sum_k Sign(fl(fl(x w) + beta)) wherever nothing flushes subnormals."""
+    inf = torch.tensor(float("inf"))
+    nb = torch.where(beta == inf, -torch.finfo(torch.float32).max,
+                     torch.where(beta == -inf, torch.nan, -beta))
+    count = (x[:, :, None] * w[None] >= nb[None]).sum(dim=1, dtype=torch.int32)
+    return (2 * count - x.shape[1]).to(torch.float32)
+
+
+# ragged and small; (9, 40, 12) holds every special row of x against every
+# special column of w and beta
+DYADIC_SHAPES = [(9, 40, 12), (33, 100, 17), (6, 7, 130)]
+
+
+@pytest.mark.parametrize("m,k,n", DYADIC_SHAPES)
+def test_cac_train_threshold_model_matches_reference_kernel(m, k, n):
+    """On the dyadic grid (products and sums exact, many pre-activations
+    exactly 0) with rows and columns of +-0, +-inf and NaN in x, w and beta,
+    the compare against nb(beta) equals the JAX Pallas kernel (interpret
+    mode) and the port's plain version bit for bit: no output is left out."""
+    x, w, beta, _ = cac_train_dyadic_case(np.random.default_rng(m + k + n), m, k, n)
+    assert np.count_nonzero(_pre(x, w, beta) == 0) > 50  # Sign's tie is exercised
+    got = cac_train_threshold_model(_t(x), _t(w), _t(beta)).numpy()
+    want = np.asarray(jops.cac_train_matmul(jnp.asarray(x), jnp.asarray(w), jnp.asarray(beta),
+                                            interpret=True))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, tcac.cac_train_fwd_plain(_t(x), _t(w), _t(beta)).numpy())
+
+
+@pytest.mark.parametrize("scale_exp", [-70, -64])
+def test_cac_train_threshold_model_on_subnormal_products(scale_exp):
+    """Products and beta in the subnormal range (the card does not flush
+    them; XLA's CPU does, so the reference is not asked): exactly
+    cancelling pairs, pairs an ulp apart and random ones; the compare equals
+    the port's plain version bit for bit."""
+    rng = np.random.default_rng(-scale_exp)
+    m, k, n = 7, 48, 9
+    scale = np.float32(2.0 ** scale_exp)
+    x, w, beta, _ = cac_train_dyadic_case(rng, m, k, n, sparse=True)
+    x, w = x * scale, w * scale
+    beta = (beta * scale * scale).astype(np.float32)  # -x' w at the products' scale
+    beta[:, -1] += np.float32(2.0 ** -149)  # one ulp of the subnormals past the tie
+    x[-1] = (rng.normal(size=k) * scale).astype(np.float32)
+    assert np.any((np.abs(x[:, :, None] * w[None]) < np.finfo(np.float32).tiny)
+                  & (x[:, :, None] * w[None] != 0))
+    got = cac_train_threshold_model(_t(x), _t(w), _t(beta))
+    np.testing.assert_array_equal(got.numpy(),
+                                  tcac.cac_train_fwd_plain(_t(x), _t(w), _t(beta)).numpy())
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("m,k,n", DYADIC_SHAPES)
+def test_cac_train_backward_exact_on_dyadic_grid(m, k, n, fused):
+    """Every product and sum of the STE backward is exact on the dyadic
+    grid, so the port's plain backward (fused or split) equals jax.vjp of
+    the reference's op bit for bit, the |pre| = 1 window edges included,
+    and with them the NaN a non-finite x or w leaves in its dw row or dx
+    column (single +-0, +-inf and NaN elements in x and w; whole columns of
+    them in beta, which the window leaves out)."""
+    x, w, beta, g = cac_train_dyadic_case(np.random.default_rng(k + 3), m, k, n,
+                                          sparse=True)
+    if not fused:  # the reference's split dx kernel selects the product g w after it is
+        # formed, so a non-finite w outside the window adds 0 there and NaN in its fused
+        # kernel and the port's plain versions: the split case keeps x and w finite
+        x[~np.isfinite(x)], w[~np.isfinite(w)] = 0.0, 0.0
+    assert np.count_nonzero(np.abs(_pre(x, w, beta)) == 1) > 50  # the edges are hit
+    _, pull = jax.vjp(lambda *a: jops.cac_train_matmul(*a, interpret=True, fused_bwd=fused),
+                      jnp.asarray(x), jnp.asarray(w), jnp.asarray(beta))
+    want = [np.asarray(a) for a in pull(jnp.asarray(g))]
+    if fused:
+        got = tcac.cac_train_bwd_fused_plain(_t(x), _t(w), _t(beta), _t(g))
+    else:
+        got = (tcac.cac_train_bwd_dx_plain(_t(x), _t(w), _t(beta), _t(g)),
+               *tcac.cac_train_bwd_dw_plain(_t(x), _t(w), _t(beta), _t(g)))
+    for name, a, b in zip(("dx", "dw", "dbeta"), got, want):
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+
+
+def window_on_p(b):
+    """Kernel 5's STE window as bounds on the rounded product (``window_on_p``
+    in csrc/cac_train.cu) in numpy: (lo, hi) float32 with |fl(p + b)| <= 1
+    exactly when lo <= p <= hi."""
+    b = np.float32(b)
+    if not np.isfinite(b):
+        return np.float32(np.nan), np.float32(np.nan)
+    if abs(b) >= 2.0 ** 25:
+        return -b, -b
+    lo_d, hi_d = (-1.0 - 2.0 ** -24) - np.float64(b), (1.0 + 2.0 ** -24) - np.float64(b)
+    lo, hi = np.float32(lo_d), np.float32(hi_d)  # to nearest, then inwards
+    if np.float64(lo) < lo_d:
+        lo = np.nextafter(lo, np.float32(np.inf))
+    if np.float64(hi) > hi_d:
+        hi = np.nextafter(hi, np.float32(-np.inf))
+    return lo, hi
+
+
+def _beta_family(name):
+    rng = np.random.default_rng(len(name))
+    if name == "normal":  # the training path's beta ~ N(0, 0.25)
+        return (rng.normal(size=4000) * 0.5).astype(np.float32)
+    if name == "wide":  # every binade, subnormals to 3e38
+        return (rng.normal(size=4000) * 10.0 ** rng.uniform(-45, 38, size=4000)).astype(np.float32)
+    if name == "binades":  # powers of two and their neighbours, 2^-40 .. 2^40
+        v = np.float32([s * 2.0 ** e for e in range(-40, 41) for s in (1, -1)])
+        return np.concatenate([v, np.nextafter(v, np.float32(np.inf)),
+                               np.nextafter(v, np.float32(-np.inf))])
+    return np.float32([0.0, -0.0, 1.0, -1.0, 1 + 2 ** -23, -1 - 2 ** -23, 0.99999994,
+                       -0.99999994, 2.0 ** -24, -2.0 ** -24, 2.0 ** 24, 2.0 ** 25 - 2,
+                       2.0 ** 25, -2.0 ** 25, 3e38, -3e38, 1e-45, -1e-45, 2.0, -2.0])
+
+
+@pytest.mark.parametrize("family", ["normal", "wide", "binades", "edges"])
+def test_kernel5_window_bounds_on_p(family):
+    """|fl(p + b)| <= 1 holds at lo and hi and fails one float outside each,
+    for every b of the family (the window is monotone in p, so it is exactly
+    [lo, hi]; an empty one has no float in it)."""
+    one = np.float32(1)
+    for b in _beta_family(family):
+        lo, hi = window_on_p(b)
+        inside = lambda p: abs(np.float32(p) + b) <= one
+        below, above = np.nextafter(lo, np.float32(-np.inf)), np.nextafter(hi, np.float32(np.inf))
+        if lo <= hi:
+            assert inside(lo) and inside(hi) and not inside(below) and not inside(above), b
+        else:
+            assert not inside(lo) and not inside(hi), b
+
+
+def _order_key(v):
+    i = int(np.array(v, np.float32).view(np.int32))
+    return i ^ 0x7FFFFFFF if i < 0 else i
+
+
+def _from_key(k):
+    return np.array(k ^ 0x7FFFFFFF if k < 0 else k, np.int32).view(np.float32)[()]
+
+
+def _first_in(guess, inside):
+    """``first_in`` of csrc/cac_train.cu: the first float in [-inf, inf]
+    where ``inside`` holds (false, then true along the floats), stepping
+    from ``guess`` and bisecting the whole range after 8 steps."""
+    lo_key, hi_key = _order_key(-np.inf), _order_key(np.inf)
+    k = 0 if np.isnan(guess) else _order_key(guess)
+    for _ in range(8):
+        if inside(_from_key(k)):
+            if k == lo_key or not inside(_from_key(k - 1)):
+                return _from_key(k)
+            k -= 1
+        elif k == hi_key:
+            return np.float32(np.nan)
+        else:
+            k += 1
+    a, z = lo_key, hi_key
+    if not inside(_from_key(z)):
+        return np.float32(np.nan)
+    while a < z:
+        mid = (a + z) >> 1
+        a, z = (a, mid) if inside(_from_key(mid)) else (mid + 1, z)
+    return _from_key(a)
+
+
+def window_on_x(w, b):
+    """Kernel 5's STE window as bounds on x (``window_on_x`` in
+    csrc/cac_train.cu) in numpy: (lo, hi) float32 with |fl(fl(x w) + b)|
+    <= 1 exactly when lo <= x <= hi (NaN: never)."""
+    w, b = np.float32(w), np.float32(b)
+    plo, phi = window_on_p(b)
+    nan = np.float32(np.nan)
+    if np.isnan(plo) or not np.isfinite(w):
+        return nan, nan
+    if w == 0:
+        big = np.finfo(np.float32).max
+        return (-big, big) if plo <= 0 <= phi else (nan, nan)
+    up = w > 0
+    q = lambda x: np.float32(np.float32(x) * w)
+    with np.errstate(all="ignore"):
+        lo = _first_in(np.float32((plo if up else phi) / w),
+                       lambda x: q(x) >= plo if up else q(x) <= phi)
+        past = _first_in(np.float32((phi if up else plo) / w),
+                         lambda x: q(x) > phi if up else q(x) < plo)
+    return lo, (np.float32(np.inf) if np.isnan(past) else _from_key(_order_key(past) - 1))
+
+
+@pytest.mark.parametrize("family", ["normal", "wide", "edges"])
+def test_kernel5_window_bounds_on_x(family):
+    """lo <= x <= hi decides |fl(fl(x w) + b)| <= 1 for every x tried: random
+    x, the bounds and two floats either side of each, -b / w and its
+    neighbours, +-0, +-inf, NaN and +-FLT_MAX, over (w, b) pairs of the
+    family (w +-0, +-inf, NaN and extremes among them)."""
+    rng = np.random.default_rng(len(family) + 7)
+    ws = np.concatenate([_beta_family(family), np.float32([0.0, -0.0, np.inf, -np.inf, np.nan,
+                                                           1e-45, -3e38, 0.5, -2.0])])
+    bs = np.concatenate([_beta_family(family), np.float32([np.inf, -np.inf, np.nan])])
+    inf, big = np.float32(np.inf), np.finfo(np.float32).max
+    specials = np.float32([0.0, -0.0, np.inf, -np.inf, np.nan, big, -big])
+    for _ in range(400):
+        w, b = rng.choice(ws), rng.choice(bs)
+        lo, hi = window_on_x(w, b)
+        xs = list((rng.normal(size=12) * 3).astype(np.float32)) + list(specials)
+        with np.errstate(all="ignore"):
+            for c in (lo, hi, np.float32(-b / w)):
+                if np.isfinite(c):
+                    up1, dn1 = np.nextafter(c, inf), np.nextafter(c, -inf)
+                    xs += [c, up1, dn1, np.nextafter(up1, inf), np.nextafter(dn1, -inf)]
+            for x in xs:
+                want = abs(np.float32(np.float32(x * w) + b)) <= np.float32(1)
+                assert bool(lo <= x <= hi) == bool(want), (w, b, x, lo, hi)
+
+
+TRAIN_PLAN_SHAPES = [(512, 960, 960), (512, 960, 320), (512, 960, 2560), (512, 2560, 960),
+                     (37, 100, 130), (129, 968, 65), (1, 1, 1), (4096, 17, 64)]
+
+
+@pytest.mark.parametrize("m,k,n", TRAIN_PLAN_SHAPES)
+def test_train_plans_cover_k_and_n(m, k, n):
+    """Kernel 2's plan cuts the K slices into non-empty ranges that cover K
+    (at most 8 ranks) and kernel 5's cluster has an N tile for every rank
+    (at most 16); a size the card cannot keep resident is never taken."""
+    bm, bn = tcac.TRAIN_FWD_TILE
+    slices = -(-k // tcac.TRAIN_FWD_SLICE)
+    for max_blocks in (None, lambda s: 3 * 132 if s <= 2 else 0):
+        splits, per = tcac.train_fwd_plan(m, k, n, max_blocks)
+        assert 1 <= splits <= tcac.TRAIN_MAX_SPLITS
+        assert (splits - 1) * per < slices <= splits * per
+        cluster = tcac.train_bwd_plan(m, k, n, max_blocks)
+        assert 1 <= cluster <= min(tcac.TRAIN_BWD_MAX_CLUSTER, -(-n // tcac.TRAIN_BWD_TILE[1]))
+        if max_blocks is not None:
+            assert splits <= 2 and cluster <= 2
+
+
+# the H100's cluster occupancy (cudaOccupancyMaxActiveClusters x size) for
+# kernels 2 and 5 at M = 512, sizes 1, 2, ..., as chip_smoke.py prints it
+H100_FWD_BLOCKS = (264, 264, 237, 248, 235, 234, 224, 240)
+H100_BWD_BLOCKS = (264, 264, 237, 248, 235, 234, 224, 240, 207, 210, 176, 192, 182, 196, 210, 224)
+
+
+@pytest.mark.parametrize("k,n,splits,cluster", [(960, 960, 4, 8), (960, 320, 8, 5),
+                                                  (960, 2560, 4, 8), (2560, 960, 4, 15)])
+def test_train_plans_at_the_path_shapes(k, n, splits, cluster):
+    """At M = 512 under the H100's occupancy: kernel 2's split count and
+    kernel 5's cluster size at the path's four projections. Gate/up: 160
+    tiles of y x 4 splits take three waves of 15 + 1 slices, 8 splits six
+    of 8 + 1; kernel 5's 30 K tiles x 8 ranks of 5 N tiles fill one wave of
+    240. Down: 80 K tiles x 15 ranks of one N tile (six waves of 210) tie
+    with 8 ranks (three waves of 2 tiles) and 5: the larger is taken."""
+    assert tcac.train_fwd_plan(512, k, n, lambda s: H100_FWD_BLOCKS[s - 1])[0] == splits
+    assert tcac.train_bwd_plan(512, k, n, lambda c: H100_BWD_BLOCKS[c - 1]) == cluster
 
 
 @pytest.mark.parametrize("name", ["sign_ste", "round_ste", "clip_ste"])
