@@ -7,6 +7,9 @@ Phases (each prints its own line; any failure exits non-zero):
 1. device  — the card's name and power limit (nvidia-smi).
 2. build   — compile every kernel in src/repro_torch/csrc/ with nvcc, in
              parallel, and print the build time.
+   device-ops — one call each of kernel 10 (stream route), kernel 7 and
+             kernel 10's tile route at decode gate/up under torch.profiler:
+             the first two must be one device operation each (no memset).
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
              at the shapes of the path that runs it: CAC bit-exact and
              repeatable (M = 4 and 32 at the four projections, timed, and
@@ -55,18 +58,22 @@ Phases (each prints its own line; any failure exits non-zero):
              shapes (M = 16, 32), the training shapes (M = 512) and three
              ragged shapes: forwards bit-exact on the planned route and on
              both of kernel 6's routes (streaming, tensor cores),
-             repeatable, and 7 equal to 6,
+             repeatable, and 7 equal to 6 wherever K % 8 == 0 (its plan
+             printed, a second launch equal),
              backward within atol = rtol = 1e-4 on every element and
              repeatable, with each backward launch's plan and the card's
              cluster occupancy; times with plain, library (torch.matmul on
-             +-1 operands) and bound. The build prints the -Xptxas -v lines
-             of the product template (kernels 6 at large M, 8, 9), its sign
-             pass and the streaming template (kernels 1 and 6 at small M).
+             +-1 operands) and bound, kernel 7 at M = 4, 16 and 32. The
+             build prints the -Xptxas -v lines of the product template
+             (kernels 6 at large M, 8, 9), its sign pass, the streaming
+             template (kernels 1, 6 at small M, 7) and kernel 10's stream
+             route.
    route sweep — kernel 6 on both routes at M = 16..128, gate/up and down,
              float32 and int8 weights: the times that set the route
              threshold.
-9. bnn-serve — phases 4, profile and 5 again in bnn mode (packed planes:
-             224 kernel-7 and 32 attention launches per tick, 0 elsewhere),
+9. bnn-serve — phases 4, profile (with kernel 7's device ms) and 5 again
+             in bnn mode (packed planes: 224 kernel-7 and 32 attention
+             launches per tick, 0 elsewhere),
              plus one unpacked drain (224 kernel-6 launches per tick) whose
              tokens must equal the packed drain's; the parity holds a Sign
              only where both sides' input lies within 1e-5 of 0.
@@ -76,12 +83,18 @@ Phases (each prints its own line; any failure exits non-zero):
              kernels 8 and 9; the parity holds Signs within 1e-5 of 0 and
              STE masks within 1e-5 of |x| = 1.
 11. qnn8-kernels — kernel 10 (the int8 matmul) against its plain version,
-             bit-exact, at the path's (K, N) for M = 4, 16, 32 and 512 and three
-             ragged shapes (K = 99, 100, 968), with extreme codes (x -128 and
-             127, w +-127, a zero w column at the 1e-12 scale floor, one sum
-             at K * 128 * 127); times with plain, torch._int_mm (cuBLASLt,
-             M = 4 and 16 zero-padded to 32) and bound.
-12. qnn8-serve — phases 4, profile and 5 again in qnn8 mode: 224 kernel-10
+             bit-exact and repeatable on both routes (stream, tile) and the
+             planned one, at the path's (K, N) for M = 4, 16, 32 and 512 and
+             three ragged shapes (K = 99, 100, 968), with extreme codes (x
+             -128 and 127, w +-127, a zero w column at the 1e-12 scale floor,
+             one sum at K * 128 * 127), each shape's plan printed; times of
+             both routes with plain, torch._int_mm (cuBLASLt, M = 4 and 16
+             zero-padded to 32) and bound; the stream route at every split
+             count at M = 4 and 32.
+   qnn route sweep — both routes at M = 16..128, gate/up and down: the
+             times that set QNN_STREAM_MAX_M.
+12. qnn8-serve — phases 4, profile (with kernel 10's device ms) and 5
+             again in qnn8 mode: 224 kernel-10
              and 32 attention launches per tick, 0 elsewhere; the parity holds
              activation codes at half-way ties as for bika.
 13. spec    — dense smollm-360m target <- qnn8 draft (k = 4) of one seeded
@@ -169,6 +182,10 @@ INT8_TENSOR_OPS_S = 1979e12  # H100 SXM dense int8 tensor-core peak (data sheet)
 ACT_SCALE = 0.05  # LinearSpec.act_scale, the serve path's x_scale
 SPEC_K = 4  # the reference's benchmarked speculative window (dense <- qnn8)
 SPEC_TIE = 1e-4  # top-2 logit gap below which target-only and spec may part
+# the profiled drains' device ms of kernel 7 (the streaming template's op 3,
+# SIGN_PACKED) and of kernel 10 (both routes), by kernel name
+KERNEL7_GROUP = {"bnn_packed_matmul": ("stream_kernel<3,",)}
+KERNEL10_GROUP = {"qnn_matmul": ("qnn_stream_kernel", "qnn_kernel<")}
 
 
 def fail(msg: str) -> None:
@@ -640,6 +657,7 @@ def phase_bnn_kernels(torch, np, dev, flush):
     from repro_torch.core.backend import pack_signs
     from repro_torch.core.ste import sign
     from repro_torch.kernels import bnn_matmul as bnn
+    from repro_torch.kernels.cac_matmul import card_stream_plan
 
     occupancy = {f"{nm} {bn}": [bnn.card_max_blocks(dev.index or 0, nm == "dx", bn, s)
                                  for s in range(1, bnn.BWD_MAX_SPLITS + 1)]
@@ -660,6 +678,7 @@ def phase_bnn_kernels(torch, np, dev, flush):
         again = bnn.bnn_matmul_kernel_call(x, w)
         if wp is not None:
             got["packed"] = bnn.bnn_packed_matmul_kernel_call(x, wp)
+            again_packed = bnn.bnn_packed_matmul_kernel_call(x, wp)
         torch.cuda.synchronize()
         for name, y in got.items():
             if not torch.equal(y, want):
@@ -670,10 +689,15 @@ def phase_bnn_kernels(torch, np, dev, flush):
         if wp is not None and not (torch.equal(got["packed"], got["int8"]) and torch.equal(
                 bnn.bnn_packed_matmul_plain(x, wp), want)):
             fail(f"bnn packed forward M={m} K={k} N={n}: kernel 7 != kernel 6")
+        if wp is not None and not torch.equal(again_packed, got["packed"]):
+            fail(f"bnn packed forward M={m} K={k} N={n}: a second launch gave other values")
         row = {"M": m, "K": k, "N": n, "fwd_max_abs_err": 0.0,
                "fwd_plan": {str(t.dtype)[6:]: list(bnn._card_fwd_plan(x.device.index, m, k, n,
                                                                          t.dtype))
                             for t in (w, wb)}}
+        if wp is not None:
+            row["fwd_plan"]["packed"] = ["stream"] + list(card_stream_plan(
+                x.device.index, m, k, n, "bnn_matmul", "packed_max_blocks", bnn.PACKED_MT))
         train = m > 32
         if train:
             dx, dw = bnn.bnn_bwd_dx_call(x, w, g), bnn.bnn_bwd_dw_call(x, w, g)
@@ -719,7 +743,7 @@ def phase_bnn_kernels(torch, np, dev, flush):
                                  lambda: torch.matmul(xs, ws),
                                  4 * m * k + k * n + 4 * m * n),
                 }
-                if m == N_SLOTS:
+                if wp is not None:
                     timed["fwd_packed"] = (lambda: bnn.bnn_packed_matmul_kernel_call(x, wp),
                                            lambda: bnn.bnn_packed_matmul_plain(x, wp),
                                            lambda: torch.matmul(xs, ws),
@@ -748,7 +772,7 @@ def phase_bnn_kernels(torch, np, dev, flush):
                         for nm in ("fwd_int8", "fwd_packed", "fwd_f32", "bwd_dx", "bwd_dw")
                         if nm in row)
         print(f"[bnn-kernels] M={m} K={k} N={n}: forward bit-exact (float32, int8, both routes"
-              f"{', packed = kernel 6' if wp is not None else ''}), repeatable; kernel-6 plans "
+              f"{', packed = kernel 6' if wp is not None else ''}), repeatable; plans "
               f"{row['fwd_plan']}{errs}{times}")
     return rows
 
@@ -817,46 +841,193 @@ def _int_mm_yardstick(torch, x, w, ws):
     return run, ("M=%d" % m if m > 16 else "M=%d zero-padded to 32" % m)
 
 
+def phase_device_ops(torch, np, dev, tries=3):
+    """The device operations (kernels, memsets, copies) of one call each of
+    kernel 10 (stream route), kernel 7 and, for contrast, kernel 10's tile
+    route, at decode gate/up, from one torch.profiler trace (kept under
+    build/profile/, gitignored): each call is synchronised, so its
+    operations lie between the previous call's and the next one's. The
+    stream route and kernel 7 must be one kernel each, no memset; the tile
+    route splits K at decode and so shows its memset. A trace with no device
+    event at all is taken again, up to ``tries`` times. Returns {call: [op
+    names]}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.backend import pack_signs
+    from repro_torch.core.ste import sign
+    from repro_torch.kernels import bnn_matmul as bnn
+    from repro_torch.kernels import qnn_matmul as qnn
+
+    rng = np.random.default_rng(SEED + 17)
+    x, w, ws = (torch.from_numpy(a).to(dev) for a in _qnn_operands(np, rng, N_SLOTS, 960, 2560))
+    xf, wf, _ = (torch.from_numpy(a).to(dev)
+                 for a in _bnn_operands(np, rng, N_SLOTS, 960, 2560))
+    wp = pack_signs(sign(wf).to(torch.int8))
+    calls = {"qnn_matmul stream": lambda: qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE),
+             "bnn_packed_matmul": lambda: bnn.bnn_packed_matmul_kernel_call(xf, wp),
+             "qnn_matmul tile": lambda: qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE,
+                                                                   route="tile")}
+    for fn in calls.values():  # built and planned outside the trace
+        fn()
+    torch.cuda.synchronize()
+    out_dir = os.path.join(ROOT, "build", "profile")
+    os.makedirs(out_dir, exist_ok=True)
+    trace_path = os.path.join(out_dir, "one_call.json")
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for fn in calls.values():
+                fn()
+                torch.cuda.synchronize()
+        prof.export_chrome_trace(trace_path)
+        with open(trace_path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        ops = sorted((float(e["ts"]), e["name"]) for e in events if e.get("ph") == "X"
+                     and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"))
+        if ops:
+            break
+        print(f"[device-ops] trace {attempt} holds no device event; taking it again")
+    else:
+        fail(f"the profiler recorded no device event in {tries} traces")
+    # the calls ran in order, each synchronised: split the ordered operations
+    # by kernel name (the tile route's memset precedes its kernel)
+    result, rest = {}, [name for _, name in ops]
+    for key, marker in (("qnn_matmul stream", "qnn_stream_kernel"),
+                        ("bnn_packed_matmul", "stream_kernel<3,"),
+                        ("qnn_matmul tile", "qnn_kernel<")):
+        end = next((i for i, name in enumerate(rest) if marker in name), None)
+        if end is None:
+            fail(f"device ops: no {marker} kernel in the trace: {rest}")
+        result[key], rest = rest[:end + 1], rest[end + 1:]
+    print("[device-ops] one call at decode gate/up: " + "; ".join(
+        f"{k} {len(v)} ({', '.join(n[:40] for n in v)})" for k, v in result.items()))
+    for key in ("qnn_matmul stream", "bnn_packed_matmul"):
+        if len(result[key]) != 1:
+            fail(f"{key}: one call ran {len(result[key])} device operations: {result[key]}")
+    return result
+
+
+def _qnn_split_sweep(torch, x, w, ws, flush):
+    """Kernel 10's stream route at every split count its plan could take
+    (the same row tile), bit-exact against its planned launch, device ms
+    each: the data behind stream_plan's rule for this kernel."""
+    from repro_torch.kernels import cac_matmul as cac
+    from repro_torch.kernels import qnn_matmul as qnn
+
+    m, k = x.shape
+    n = w.shape[1]
+    _, mt, _, _ = qnn.qnn_plan(m, k, n)
+    groups = -(-k // cac.STREAM_GROUP)
+    want = qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE)
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    launch = qnn._lib("qnn_stream_launch", qnn._STREAM_ARGS)
+    out = {}
+    for s in range(1, cac.STREAM_MAX_SPLITS + 1):
+        per = -(-groups // s)
+        if -(-groups // per) != s:
+            continue
+        args = (x.data_ptr(), w.data_ptr(), ws.data_ptr(), ACT_SCALE, y.data_ptr(), m, n, k, mt,
+                s, per, stream)
+        if launch(*args) != 0:
+            fail(f"qnn_matmul M={m} K={k} N={n}: the stream launch refused {s} splits")
+        torch.cuda.synchronize()
+        if not torch.equal(y, want):
+            fail(f"qnn_matmul M={m} K={k} N={n}: {s} splits gave other values")
+        out[s] = time_ms(torch, lambda: launch(*args), flush=flush)
+    return out
+
+
 def phase_qnn_kernels(torch, np, dev, flush):
-    """Kernel 10 against its plain version on the card: bit-exact (an exact
-    int32 sum and the same two float32 roundings) at the path's (K, N) for
-    M = 4, 16, 32 and 512 and at three ragged shapes, extreme codes
-    included. Times the kernel, its plain version (a float64 product,
-    exact) and ``torch._int_mm`` with the same dequant (cuBLASLt; M = 4
-    and 16 zero-padded to 32). Bound: bytes = x, w, w_scale read once and y written once, over
-    3.35 TB/s; operations 2 M K N over the int8 tensor-core peak (1,979
-    TOPS); the larger."""
+    """Kernel 10 against its plain version on the card, on both routes
+    (stream, tile) and on the planned one: bit-exact (an exact int32 sum and
+    the same two float32 roundings) and repeated bit for bit, at the path's
+    (K, N) for M = 4, 16, 32 and 512 and at three ragged shapes, extreme
+    codes included; each shape's plan printed. Times both routes, the plain
+    version (a float64 product, exact) and ``torch._int_mm`` with the same
+    dequant (cuBLASLt; M = 4 and 16 zero-padded to 32). Bound: bytes = x, w,
+    w_scale read once and y written once, over 3.35 TB/s; operations 2 M K N
+    over the int8 tensor-core peak (1,979 TOPS); the larger. At decode and M
+    = 32 the stream route at every split count (``_qnn_split_sweep``).
+    Returns the rows."""
     from repro_torch.kernels import qnn_matmul as qnn
 
     rng = np.random.default_rng(SEED + 11)
     rows = []
     for m, k, n in QNN_SHAPES + QNN_RAGGED:
         x, w, ws = (torch.from_numpy(a).to(dev) for a in _qnn_operands(np, rng, m, k, n))
-        got = qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE)
+        got = {route: qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE, route=route)
+               for route in (None, "stream", "tile")}
+        again = {route: qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE, route=route)
+                 for route in got}
         torch.cuda.synchronize()
         want = qnn.qnn_matmul_plain(x, w, ws, ACT_SCALE)
-        if not torch.equal(got, want):
-            fail(f"qnn_matmul M={m} K={k} N={n}: max |kernel - plain| = "
-                 f"{float((got - want).abs().max())} (must be 0)")
-        row = {"M": m, "K": k, "N": n, "max_abs_err": 0.0}
+        for route, y in got.items():
+            if not torch.equal(y, want):
+                fail(f"qnn_matmul M={m} K={k} N={n} route {route or 'planned'}: max |kernel - "
+                     f"plain| = {float((y - want).abs().max())} (must be 0)")
+            if not torch.equal(again[route], y):
+                fail(f"qnn_matmul M={m} K={k} N={n} route {route or 'planned'}: a second "
+                     f"launch gave other values")
+        plan = qnn._card_plan(x.device.index, m, k, n)
+        row = {"M": m, "K": k, "N": n, "max_abs_err": 0.0, "plan": list(plan)}
         if (m, k, n) in QNN_SHAPES:
             lib, lib_shape = _int_mm_yardstick(torch, x, w, ws)
             row["library_err"] = float((lib() - want).abs().max())
             row["library_shape"] = lib_shape
             row["ms"] = time_ms(torch, lambda: qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE),
                                 flush=flush)
+            for route in ("stream", "tile"):
+                row[f"{route}_ms"] = time_ms(
+                    torch, lambda: qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE, route=route),
+                    flush=flush)
             row["plain_ms"] = time_ms(torch, lambda: qnn.qnn_matmul_plain(x, w, ws, ACT_SCALE),
                                       iters=5, flush=flush)
             row["library_ms"] = time_ms(torch, lib, flush=flush)
             row["bound_ms"], row["bound_by"] = _bound(m * k + k * n + 4 * n + 4 * m * n,
                                                       2.0 * m * k * n, INT8_TENSOR_OPS_S)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            if m in (N_SLOTS, 32):
+                row["ms_by_splits"] = _qnn_split_sweep(torch, x, w, ws, flush)
         rows.append(row)
-        print(f"[qnn8-kernels] qnn_matmul M={m} K={k} N={n} bit-exact"
-              + (f" ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} library_ms="
+        print(f"[qnn8-kernels] qnn_matmul M={m} K={k} N={n} bit-exact on both routes, "
+              f"repeatable; plan {row['plan']}"
+              + (f" ms={row['ms']:.5f} (stream {row['stream_ms']:.5f}, tile "
+                 f"{row['tile_ms']:.5f}) plain_ms={row['plain_ms']:.5f} library_ms="
                  f"{row['library_ms']:.5f} ({row['library_shape']}, max |lib - plain| "
-                 f"{row['library_err']:.1e}) bound_ms={row['bound_ms']:.6f} ({row['bound_by']})"
-                 if "ms" in row else ""))
+                 f"{row['library_err']:.1e}) bound_ms={row['bound_ms']:.6f} ({row['bound_by']}, "
+                 f"{100 * row['bound_share']:.2f}%)" if "ms" in row else "")
+              + ("; stream ms by split count " + ", ".join(
+                  f"{sp} {t:.5f}" for sp, t in row["ms_by_splits"].items())
+                 if "ms_by_splits" in row else ""))
     return rows
+
+
+def phase_qnn_route_sweep(torch, np, dev, flush):
+    """Kernel 10 on both routes (bit-exact) at ROUTE_SWEEP_M rows, gate/up
+    and down: device ms per launch, L2 flushed. QNN_STREAM_MAX_M
+    (kernels/qnn_matmul.py) is set from these times: the largest M where
+    the stream route is the faster at both projections."""
+    from repro_torch.kernels import qnn_matmul as qnn
+
+    rng = np.random.default_rng(SEED + 13)
+    sweep = []
+    for k, n in ((960, 2560), (2560, 960)):
+        for m in ROUTE_SWEEP_M:
+            x, w, ws = (torch.from_numpy(a).to(dev) for a in _qnn_operands(np, rng, m, k, n))
+            want = qnn.qnn_matmul_plain(x, w, ws, ACT_SCALE)
+            entry = {"M": m, "K": k, "N": n}
+            for route in ("stream", "tile"):
+                if not torch.equal(qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE, route=route),
+                                   want):
+                    fail(f"qnn_matmul route sweep M={m} K={k} N={n} {route}: not bit-exact")
+                entry[f"{route}_ms"] = time_ms(
+                    torch, lambda: qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE, route=route),
+                    flush=flush)
+            sweep.append(entry)
+            print(f"[qnn8-kernels] route sweep M={m} K={k} N={n} (ms; streams up to M = "
+                  f"{qnn.QNN_STREAM_MAX_M}): stream {entry['stream_ms']:.5f}, tile "
+                  f"{entry['tile_ms']:.5f}")
+    return sweep
 
 
 # ---------------------------------------------------------------------------
@@ -965,12 +1136,15 @@ def _check_serve_launches(arch, route, counts, summ):
              f"({expect[route]}, {expect['paged_attn']}) and 0 elsewhere")
 
 
-def phase_profile(torch, np, arch, train, dev, tag="profile", label=None, **serve_kw):
+def phase_profile(torch, np, arch, train, dev, tag="profile", label=None, groups=None,
+                  **serve_kw):
     """Where the time of a drain goes: one more fp-KV drain under
     torch.profiler (``serve_kw`` picks the engine and the speculative draft;
     default the paged engine). Device busy time is the union of the kernel,
     memcpy and memset intervals inside the drain's window; the idle share is
-    the rest. The trace stays under build/profile/ (gitignored)."""
+    the rest; ``groups`` names kernels whose device ms and launches in the
+    window are summed (``_device_share``). The trace stays under
+    build/profile/ (gitignored)."""
     from torch.profiler import ProfilerActivity, profile
 
     label = label or f"{arch.compute_mode}_serve_drain"
@@ -978,7 +1152,7 @@ def phase_profile(torch, np, arch, train, dev, tag="profile", label=None, **serv
         _, _, wall, summ = _serve(np, train, arch, False, dev, label=label, **serve_kw)
     ticks = summ["decode_steps"] + summ["prefill_chunks"]
     result = {"wall_s": wall, "ticks": ticks, "ms_per_tick": wall / ticks * 1e3}
-    share = _device_share(prof, label)
+    share = _device_share(prof, label, groups)
     if share is None:
         print(f"[{tag}] device busy share: not measured (the trace holds no drain window "
               "or no device events)")
@@ -989,6 +1163,8 @@ def phase_profile(torch, np, arch, train, dev, tag="profile", label=None, **serv
           f"{result['device_busy_ms']:.2f} ms, idle share {result['idle_share']:.4f}")
     for row in result["top_kernels"]:
         print(f"[{tag}]   {row['ms']:9.3f} ms {row['count']:6d}x {row['name']}")
+    for name, g in result["groups"].items():
+        print(f"[{tag}] {name}: {g['ms']:.3f} device ms in {g['count']} kernel launches")
     return result
 
 
@@ -1014,7 +1190,8 @@ def phase_bnn_serve(torch, np, dev):
     print(f"[bnn-serve] unpacked int8 signs, fp KV: tokens equal to the packed drain's; wall "
           f"{wall:.3f} s; launches {counts}")
     path["unpacked"] = {"launches": counts, "wall_s": wall, "summary": summ}
-    path["profile"] = phase_profile(torch, np, arch, train, dev, tag="bnn-profile")
+    path["profile"] = phase_profile(torch, np, arch, train, dev, tag="bnn-profile",
+                                    groups=KERNEL7_GROUP)
     serve_params = tree_to_serve(train, arch.linear_spec())
     del train
     path["parity"] = phase_parity(torch, np, arch, serve_params, dev,
@@ -1034,7 +1211,8 @@ def phase_qnn8_serve(torch, np, dev):
 
     arch = get_config("smollm-360m", compute_mode="qnn8", remat=False, paged_attn_route="fused")
     train, path = phase_path(torch, np, arch, dev, "qnn8", tag="qnn8-serve")
-    path["profile"] = phase_profile(torch, np, arch, train, dev, tag="qnn8-profile")
+    path["profile"] = phase_profile(torch, np, arch, train, dev, tag="qnn8-profile",
+                                    groups=KERNEL10_GROUP)
     serve_params = tree_to_serve(train, arch.linear_spec())
     del train
     path["parity"] = phase_parity(torch, np, arch, serve_params, dev, _code_hooks(torch),
@@ -1120,7 +1298,7 @@ def phase_spec(torch, np, dev):
                   + f"; launches {counts}")
         result[f"{engine}_spec"]["profile"] = phase_profile(
             torch, np, arch, train, dev, tag="spec-profile", label=f"{engine}_spec_drain",
-            engine=engine, spec_draft="qnn8", spec_k=SPEC_K)
+            groups=KERNEL10_GROUP, engine=engine, spec_draft="qnn8", spec_k=SPEC_K)
         result[f"{engine}_spec"]["ties"] = _spec_ties(
             torch, np, arch, train, dev, tokens[f"{engine}_target"], tokens[f"{engine}_spec"],
             f"{engine} speculative vs target-only")
@@ -1717,10 +1895,11 @@ def main() -> int:
           f"{sorted(paths)}")
     # the -Xptxas -v lines (registers, spills) of the redesigned kernels: the
     # product template (kernels 6 at large M, 8, 9) and its sign pass, the
-    # streaming template (kernel 1, kernel 6 at small M), and kernels 2 and 5
+    # streaming template (kernel 1, kernel 6 at small M, kernel 7), kernels 2
+    # and 5, and kernel 10's stream route
     redesigned = ("bnn_bwd", "bnn_sign", "stream_kernel", "cac_train_fwd_kernel",
-                  "cac_train_bwd_fused_kernel")
-    for source in ("cac_matmul", "bnn_matmul", "cac_train"):
+                  "cac_train_bwd_fused_kernel", "qnn_stream_kernel")
+    for source in ("cac_matmul", "bnn_matmul", "cac_train", "qnn_matmul"):
         show = False
         for line in logs.get(source, "").splitlines():
             if "Compiling entry function" in line:
@@ -1739,6 +1918,7 @@ def main() -> int:
               f"{ops}")
 
     dev = torch.device("cuda")
+    device_ops = phase_device_ops(torch, np, dev)
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
     cac_rows, timing_floor = phase_cac(torch, np, dev, flush)
     attn_rows = phase_paged(torch, np, dev, flush)
@@ -1746,6 +1926,7 @@ def main() -> int:
     bnn_rows = phase_bnn_kernels(torch, np, dev, flush)
     route_sweep = phase_route_sweep(torch, np, dev, flush)
     qnn_rows = phase_qnn_kernels(torch, np, dev, flush)
+    qnn_route_sweep = phase_qnn_route_sweep(torch, np, dev, flush)
     del flush
     from repro_torch.configs import get_config
     from repro_torch.core.convert import tree_to_serve
@@ -1837,6 +2018,7 @@ def main() -> int:
             "library_ms": main_row[key]["library_ms"], "shape": shape,
             "shapes": [{k: v for k, v in r.items() if k in ("M", "K", "N", key)}
                        for r in bnn_rows if key in r]})
+    kernels[-3]["device_ops_per_call"] = device_ops["bnn_packed_matmul"]
     kernels[-4]["unpacked_serve_launches_per_drain"] = bnn_path["unpacked"]["launches"]["bnn"]
     kernels[-4]["shapes"] += [{k: v for k, v in r.items() if k in ("M", "K", "N", "fwd_int8")}
                               for r in bnn_rows if "fwd_int8" in r]
@@ -1853,6 +2035,8 @@ def main() -> int:
                  "torch._int_mm " + main_qnn["library_shape"],
         "spec_launches_per_drain": {k: spec[k]["launches"]["qnn8"]
                                     for k in ("paged_spec", "continuous_spec")},
+        "device_ops_per_call": device_ops["qnn_matmul stream"],
+        "tile_route_device_ops_per_call": device_ops["qnn_matmul tile"],
         "shapes": [r for r in qnn_rows if "ms" in r]})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
@@ -1860,7 +2044,8 @@ def main() -> int:
                    "path": path, "training": training,
                    "train_kernels": train_rows, "bnn_kernels": bnn_rows,
                    "bnn_route_sweep": route_sweep, "bnn_path": bnn_path,
-                   "bnn_training": bnn_training, "qnn_kernels": qnn_rows, "qnn_path": qnn_path,
+                   "bnn_training": bnn_training, "qnn_kernels": qnn_rows,
+                   "qnn_route_sweep": qnn_route_sweep, "qnn_path": qnn_path,
                    "spec": spec}, fh, indent=1, sort_keys=True)
     print(smi)
     print(json.dumps({"kernels": kernels}, sort_keys=True))

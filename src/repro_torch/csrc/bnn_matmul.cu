@@ -33,20 +33,16 @@
 //     bf16 rate); the popcount form could not reach it (M K N / 32 __popc at
 //     16 a clock an SM is 10.6 us there).
 //
-// Kernel 7 (packed planes; not redesigned): one block computes a BM x 64
-// tile of y (BM = 64, or 16 when M <= 16 as in decode) by XNOR + popcount
-// over 32-row words, as the paper's BNN PE does (src/repro/core/bnn.py): a
-// word pair contributes 32 - 2 * popc(xbits ^ wbits). Per stage of 4 words
-// (128 rows) a warp forms x words with __ballot_sync(x >= 0) and a thread
-// the w word of one column from the 4 bytes of wp that hold those rows (N
-// bytes apart). Rows past the end of the block's K range give 0 bits on
-// both sides, agreements that add nothing to the mismatch count, so the
-// result over a range of length L is L - 2 * mismatches. At the decode
-// shapes the (M, N) tiles are too few to fill the card, so K is split over
-// gridDim.z and the partial sums meet through atomicAdd into a zeroed
-// output (exact integers in float32, so deterministic in any order); with
-// one split a block stores its tile directly. Its bound at decode is the
-// 1-bit weight read.
+// Kernel 7 (packed planes): the streaming template's op SIGN_PACKED at
+// every M, by the caller's plan (kernels/cac_matmul.stream_plan): each
+// 16-byte load of the planes holds 8 K rows of 16 columns, x is staged as
+// its positive bit [x >= 0] in bit 7 of each byte lane, and a term is the
+// plane bit shifted to bit 7, one LOP3 (the two bits differ exactly where
+// the term is -1) and the count. Every 8-row group of a split is one item,
+// so a decode split (at most 40 groups) is one chunk; the splits meet in a
+// cluster in rank order. One launch, no memset, no atomics, bit for bit
+// repeatable. Bound by the latency of one pass over the 1-bit weights
+// (0.09 us of bytes at the gate/up projection).
 //
 // Backward (kernels 8 and 9: one product template, instantiated for dx and
 // dw, two tile widths and two load routes; kernel 6's tensor-core route is
@@ -137,7 +133,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
 #include <cstring>
 
 #include "stream_matmul.cuh"
@@ -146,111 +141,7 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int FWD_THREADS = 256;
-constexpr int FWD_BN = 64;         // output columns per kernel-7 block
-constexpr int SW = 4;              // 32-row words per kernel-7 stage
-constexpr int STAGE_K = 32 * SW;   // K rows per kernel-7 stage
-constexpr int NUM_SMS = 132;
-constexpr int TARGET_BLOCKS = 2 * NUM_SMS;
-
 int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// The sign word of rows 32q..32q+31 of column n from the packed planes: bit
-// j set where row 32q + j has sign +1. Rows at or past k_end (a multiple of
-// 8) give 0, whole bytes at a time. Every load reads a valid address (the
-// byte row is clamped) and the bound is applied to the bits, so no load
-// waits behind a branch.
-__device__ __forceinline__ uint32_t packed_word(const uint8_t* __restrict__ wp, int q, int n,
-                                                int N, int K, int k_end) {
-  uint32_t word = 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int r = 4 * q + b;  // byte row r holds K rows 8r..8r+7
-    const uint32_t byte = wp[(size_t)min(r, K / 8 - 1) * N + n];
-    word |= (8 * r < k_end ? byte : 0u) << (8 * b);
-  }
-  return word;
-}
-
-// kernel 7
-template <int BM>
-__global__ void __launch_bounds__(FWD_THREADS)
-bnn_packed_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
-                  float* __restrict__ y, int M, int N, int K, int k_per_split) {
-  constexpr int RM = BM / 16;  // output rows per thread: ty + 16 i
-  constexpr int WARPS = FWD_THREADS / 32;
-  constexpr int X_PER_WARP = BM * SW / WARPS;  // x words each warp forms per stage
-  static_assert(BM % 16 == 0 && BM * SW % WARPS == 0, "tile shape");
-  __shared__ uint32_t xb[BM][SW];
-  __shared__ uint32_t wb[SW][FWD_BN];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int ty = tid / 16, tx = tid % 16;  // columns tx + 16 j
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * FWD_BN;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
-  int mism[RM][4];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) mism[i][j] = 0;
-
-  for (int kc = k_begin; kc < k_end; kc += STAGE_K) {
-    __syncthreads();
-    // x: one ballot per (row, word), lane j reading x[m, 32q + j]. All of
-    // a warp's loads (at clamped, valid addresses) go out before its
-    // first ballot, so their latencies overlap; every lane runs every
-    // ballot, as __ballot_sync needs.
-    bool pos[X_PER_WARP];
-#pragma unroll
-    for (int i = 0; i < X_PER_WARP; ++i) {
-      const int e = warp + WARPS * i, r = e / SW, s = e % SW;
-      const int m = m0 + r, k = kc + 32 * s + lane;
-      const float v = x[(size_t)min(m, M - 1) * K + min(k, K - 1)];
-      pos[i] = m < M && k < k_end && v >= 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < X_PER_WARP; ++i) {
-      const int e = warp + WARPS * i;
-      const uint32_t word = __ballot_sync(0xffffffffu, pos[i]);
-      if (lane == 0) xb[e / SW][e % SW] = word;
-    }
-    // w: one thread per (word, column), neighbouring threads on n
-    for (int e = tid; e < SW * FWD_BN; e += FWD_THREADS) {
-      const int s = e / FWD_BN, c = e % FWD_BN;
-      const int n = n0 + c;
-      wb[s][c] = n < N ? packed_word(wp, kc / 32 + s, n, N, K, k_end) : 0u;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int s = 0; s < SW; ++s) {
-      uint32_t xv[RM], wv[4];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) xv[i] = xb[ty + 16 * i][s];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = wb[s][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mism[i][j] += __popc(xv[i] ^ wv[j]);
-    }
-  }
-  const int len = k_end - k_begin;
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int m = m0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (m < M && n < N) {
-        const float v = (float)(len - 2 * mism[i][j]);
-        if (gridDim.z == 1)
-          y[(size_t)m * N + n] = v;
-        else
-          atomicAdd(&y[(size_t)m * N + n], v);
-      }
-    }
-  }
-}
 
 // ---- backward: bf16 wgmma over three planes of g ----
 
@@ -952,34 +843,25 @@ bool plan_ok(int T, int bn, int splits, int t_per_split) {
 
 }  // namespace
 
-// Kernel 7. x float32 (M, K), wp uint8 bitplanes (K/8, N), K % 8 == 0 -> y
-// float32 (M, N), exact integer sums. Launches on `stream` (after a memset
-// of y when K is split), does not synchronise, returns cudaGetLastError()
-// (or the memset's error).
+// Kernel 7 (stream_matmul.cuh, op SIGN_PACKED). x float32 (M, K), wp uint8
+// bitplanes (K/8, N), K % 8 == 0 -> y float32 (M, N), exact integer sums, by
+// the caller's plan (repro_torch.kernels.cac_matmul.stream_plan): `mt` rows
+// a tile, `splits` blocks a cluster, `groups_per_split` 8-row groups each.
+// One launch; writes every element of y; does not synchronise; returns the
+// launch's error or cudaErrorInvalidValue.
 extern "C" int bnn_packed_launch(const void* x, const void* wp, void* y, int M, int N, int K,
-                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // float32 holds every count exactly only while |y| <= K < 2^24
-  if (M <= 0 || N <= 0 || K <= 0 || K >= (1 << 24) || K % 8) return (int)cudaErrorInvalidValue;
-  const bool small = M <= 16;
-  const int gn = cdiv(N, FWD_BN), gm = cdiv(M, small ? 16 : 64);
-  // split K (in whole stages) until the blocks reach TARGET_BLOCKS
-  int parts = std::min(std::max(1, cdiv(TARGET_BLOCKS, gn * gm)), cdiv(K, STAGE_K));
-  const int k_per_split = cdiv(cdiv(K, parts), STAGE_K) * STAGE_K;
-  parts = cdiv(K, k_per_split);
-  if (parts > 1) {
-    cudaError_t err = cudaMemsetAsync(y, 0, (size_t)M * N * sizeof(float), st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid(gn, gm, parts);
-  const float* xf = static_cast<const float*>(x);
-  const uint8_t* w8 = static_cast<const uint8_t*>(wp);
-  float* yf = static_cast<float*>(y);
-  if (small)
-    bnn_packed_kernel<16><<<grid, FWD_THREADS, 0, st>>>(xf, w8, yf, M, N, K, k_per_split);
-  else
-    bnn_packed_kernel<64><<<grid, FWD_THREADS, 0, st>>>(xf, w8, yf, M, N, K, k_per_split);
-  return (int)cudaGetLastError();
+                                 int mt, int splits, int groups_per_split, void* stream) {
+  if (K % 8) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = stream::launch<stream::SIGN_PACKED>(
+      x, nullptr, static_cast<const uint8_t*>(wp), static_cast<float*>(y), M, N, K, mt, splits,
+      groups_per_split, static_cast<cudaStream_t>(stream));
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// Resident blocks of kernel 7 with `mt`-row tiles in clusters of `splits`;
+// -1 if the card cannot say.
+extern "C" int packed_max_blocks(int mt, int splits) {
+  return stream::max_blocks<stream::SIGN_PACKED>(mt, splits);
 }
 
 // Kernel 6, small-M route (stream_matmul.cuh). x float32 (M, K); w float32

@@ -1,25 +1,30 @@
-// One streaming template for the small-M products over an int8-wide (K, N)
-// weight matrix that is read once: the served CAC (kernel 1, every M) and
-// the sign product at decode and prefill shapes (kernel 6, M <= the route
-// threshold). Included by cac_matmul.cu and bnn_matmul.cu; each
-// instantiates the operations it needs.
+// One streaming template for the small-M products over a (K, N) weight
+// matrix that is read once: the served CAC (kernel 1, every M), the sign
+// product at decode and prefill shapes (kernel 6, M <= the route threshold)
+// and its packed serve form (kernel 7, every M). Included by cac_matmul.cu,
+// bnn_matmul.cu and qnn_matmul.cu (kernel 10's sibling kernel takes only the
+// cluster helpers, `config` and `cluster_max_blocks`); each instantiates the
+// operations it needs.
 //
-//   CAC       y[m, n] = sum_k (x[m, k] >= tau[k, n] ? s[k, n] : -s[k, n])
-//             x int8 (M, K), tau int8 (K, N), s uint8 planes (K/8, N) (bit j
-//             of byte r is row 8r + j, 1 -> +1), K % 8 == 0
-//   SIGN_I8   y[m, n] = sum_k sign(x[m, k]) sign(w[k, n]), x float32 (M, K),
-//   SIGN_F32  w int8 or float32 (K, N); sign(v) = v >= 0 ? +1 : -1 (+-0 give
-//             +1, NaN -1), never read from the float's sign bit
+//   CAC          y[m, n] = sum_k (x[m, k] >= tau[k, n] ? s[k, n] : -s[k, n])
+//                x int8 (M, K), tau int8 (K, N), s uint8 planes (K/8, N) (bit
+//                j of byte r is row 8r + j, 1 -> +1), K % 8 == 0
+//   SIGN_I8      y[m, n] = sum_k sign(x[m, k]) sign(w[k, n]), x float32 (M, K),
+//   SIGN_F32     w int8 or float32 (K, N); sign(v) = v >= 0 ? +1 : -1 (+-0 give
+//                +1, NaN -1), never read from the float's sign bit
+//   SIGN_PACKED  y[m, n] = sum_k sign(x[m, k]) (s[k, n] ? +1 : -1), x float32
+//                (M, K), s uint8 planes (K/8, N) as for CAC, K % 8 == 0
 //
 // What bounds it on the H100: at M = 4 the weight bytes (K N for tau or w,
 // K N / 8 for s) are about 2.5 MB at the path's largest projection, 0.75 us
-// at 3.35 TB/s; they are 21 KB an SM, fewer than one SM can keep in flight,
-// so the kernel is bound by the latency of one pass over them, not by the
-// memory rate. At M = 32 the compares are the larger cost (M K N / 4 byte
-// lane words, four or five integer instructions each, on the CUDA cores).
+// at 3.35 TB/s (0.09 us for kernel 7's planes alone); they are 21 KB an SM
+// or less, fewer than one SM can keep in flight, so the kernel is bound by
+// the latency of one pass over them, not by the memory rate. At M = 32 the
+// compares are the larger cost (M K N / 4 byte lane words, two to five
+// integer instructions each, on the CUDA cores).
 //
-// Design. Both functions count mismatches in byte lanes: one 32-bit word
-// holds four columns, and y = L - 2 * mismatches over the L rows counted.
+// Design. Every op counts mismatches in byte lanes: one 32-bit word holds
+// four columns, and y = L - 2 * mismatches over the L rows counted.
 //   CAC: a term is +1 exactly when the compare bit [x >= tau] equals the s
 //     bit. With xw = x's byte in all four lanes, t = (xw | 0x80808080) -
 //     (tau & 0x7F7F7F7F) compares the low seven bits without a borrow
@@ -30,7 +35,11 @@
 //     ((f ^ s) & 0x80808080) >> 7 adds one to a lane where they differ.
 //   SIGN: the mismatch bit is w's negative bit XOR x's, both formed as
 //     !(v >= 0) into bit 7 of a lane (int8: the sign bit is exactly v < 0).
-// The two logic steps run on the ALU pipe; the subtraction and the
+//   SIGN_PACKED: x is staged as [x >= 0] in bit 7 of each lane (its positive
+//     bit) and the plane bit of the row shifted to bit 7, as CAC's s; they
+//     differ exactly where the term is -1, so a term is a shift, one LOP3
+//     and the count.
+// The logic steps run on the ALU pipe; the subtraction and the
 // shift-and-add of the count are written as multiply-adds (mad.lo, mad.hi)
 // so that they run on the multiply-add pipe beside it.
 // Loads: the weight side in 16-byte vector loads (16 columns of one K row;
@@ -41,15 +50,20 @@
 //
 // A block of 256 threads owns BN = 128 columns (8 column threads of 16) and
 // MT rows: 4 at decode, else 8 (a larger M takes ceil(M / 8) row tiles, each
-// reading the weights again, from L2; the serve path's M is at most 32). It
-// walks its K range in chunks of 48 (MT = 4) or 32 groups: 32 k-lanes, each
-// taking half-groups of 4 rows (3 or 2 of them), all of whose loads go out
-// before the first compare; halving the groups puts every warp of a block
-// to work at the decode shapes and halves a thread's serial compares. A
-// thread counts at most 12 rows a chunk, so its byte lanes stay below 255;
-// the warp's four k-lanes are summed by shuffles (at most 48 a lane), the
-// eight warps through shared memory into 16-bit lanes and then into int32
-// sums that carry across chunks. Two blocks fit an SM.
+// reading the weights again, from L2; the serve path's M is at most 32);
+// SIGN_PACKED takes 4 at every M, which ran faster than 8 at every serve
+// shape on the H100 (its few weight bytes are cheap to read again). It
+// walks its K range in chunks: 32 k-lanes, each taking a few items, all of
+// whose loads go out before the first compare. An item is a half-group of
+// 4 rows for CAC and SIGN (3 a chunk at MT = 4, else 2: chunks of 48 or 32
+// groups; halving the groups puts every warp of a block to work at the
+// decode shapes and halves a thread's serial compares) and a whole group of
+// 8 rows for SIGN_PACKED, whose one 16-byte plane load holds them (2 a
+// chunk: 64 groups, so that every decode split is one chunk). A thread
+// counts at most 16 rows a chunk, so its byte lanes stay below 255; the
+// warp's four k-lanes are summed by shuffles (at most 64 a lane), the eight
+// warps through shared memory into 16-bit lanes and then into int32 sums
+// that carry across chunks. Two blocks fit an SM.
 // Where the (M, N) tiles are too few to fill the card, K is split over a
 // thread block cluster (at most 8 blocks): every rank but 0 writes its
 // counts into a slot of rank 0's shared memory and leaves, and rank 0 adds
@@ -67,7 +81,7 @@ namespace stream {
 
 namespace cg = cooperative_groups;
 
-enum Op { CAC = 0, SIGN_F32 = 1, SIGN_I8 = 2 };
+enum Op { CAC = 0, SIGN_F32 = 1, SIGN_I8 = 2, SIGN_PACKED = 3 };
 
 constexpr int THREADS = 256;
 constexpr int CT = 8;               // column threads, 16 columns each
@@ -78,23 +92,29 @@ constexpr uint32_t HI = 0x80808080u;
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// A tile of MT rows (4 at decode, else 8). A k-lane takes HPT half-groups
-// (4 K rows of one 8-row group) per chunk: 3 at decode, 2 at MT = 8, which
-// keeps two blocks an SM within 128 registers; a chunk is 48 or 32 groups
-// (the path's largest decode split, 40 groups, is one chunk).
-template <int MT>
+// A tile of MT rows (4 at decode, else 8; SIGN_PACKED 4 at every M). A
+// k-lane takes IPT items of RPI K rows per chunk: half-groups (4 rows of one
+// 8-row group), 3 at MT = 4 and 2 at MT = 8, which keeps two blocks an SM
+// within 128 registers (a chunk is 48 or 32 groups); for SIGN_PACKED whole
+// groups, 2 (64 groups). The path's largest decode split, 40 groups, is one
+// chunk.
+template <int OP, int MT>
 struct Tile {
   static_assert(MT == 4 || MT == 8, "row tile");
-  static constexpr int HPT = MT == 4 ? 3 : 2;
-  static constexpr int CHUNK = 4 * KL * HPT;  // K rows per chunk
-  static constexpr int Q = MT * 32;           // result words (4 columns each) a block
+  static constexpr bool PACKED = OP == SIGN_PACKED;
+  static_assert(!PACKED || MT == 4, "SIGN_PACKED takes 4-row tiles");
+  static constexpr int RPI = PACKED ? 8 : 4;  // K rows an item
+  static constexpr int IPT = PACKED ? 2 : (MT == 4 ? 3 : 2);
+  static constexpr int CHUNK = RPI * KL * IPT;  // K rows per chunk
+  static constexpr int Q = MT * 32;             // result words (4 columns each) a block
+  static_assert(4 * RPI * IPT <= 255, "a warp's byte-lane counts stay below 256");
 };
 
-template <int MT>
+template <int OP, int MT>
 struct Smem {
-  uint32_t xs[MT][Tile<MT>::CHUNK];       // the chunk's x words
-  uint32_t red[THREADS / 32][MT][32];     // each warp's byte-lane counts
-  int4 slot[MAX_SPLITS - 1][Tile<MT>::Q];  // the leader's: ranks 1.. counts
+  uint32_t xs[MT][Tile<OP, MT>::CHUNK];       // the chunk's x words
+  uint32_t red[THREADS / 32][MT][32];         // each warp's byte-lane counts
+  int4 slot[MAX_SPLITS - 1][Tile<OP, MT>::Q];  // the leader's: ranks 1.. counts
 };
 
 // acc + (m >> 7) for m whose set bits are all bit 7 of a byte lane, as one
@@ -192,7 +212,8 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
 }
 
 // The kernel. x (M, K): int8 for CAC, float32 otherwise; w (K, N): tau for
-// CAC; s (K/8, N) for CAC only; y float32 (M, N). Grid (N / BN, M / MT,
+// CAC, unused for SIGN_PACKED; s (K/8, N) for CAC and SIGN_PACKED; y float32
+// (M, N). Grid (N / BN, M / MT,
 // splits), cluster (1, 1, splits); split z takes the 8-row groups [z per,
 // (z + 1) per) of the ceil(K / 8).
 template <int OP, bool VEC, int MT>
@@ -200,10 +221,11 @@ __global__ void __launch_bounds__(THREADS, 2)
 stream_kernel(const void* __restrict__ x, const void* __restrict__ w,
               const uint8_t* __restrict__ s, float* __restrict__ y, int M, int N, int K,
               int groups_per_split) {
-  using T = Tile<MT>;
-  constexpr int HPT = T::HPT, CHUNK = T::CHUNK, Q = T::Q;
+  using T = Tile<OP, MT>;
+  constexpr int IPT = T::IPT, RPI = T::RPI, CHUNK = T::CHUNK, Q = T::Q;
+  constexpr bool PLANES = OP == CAC || OP == SIGN_PACKED;  // reads s
   constexpr int QPT = (Q + THREADS - 1) / THREADS;  // result words per thread
-  __shared__ __align__(16) Smem<MT> sm;
+  __shared__ __align__(16) Smem<OP, MT> sm;
   cg::cluster_group cluster = cg::this_cluster();
   const int split = (int)cluster.block_rank(), nsplit = (int)cluster.num_blocks();
   if (nsplit > 1) cluster_arrive_relaxed();  // this block has started (waited on before DSMEM)
@@ -223,21 +245,23 @@ stream_kernel(const void* __restrict__ x, const void* __restrict__ w,
   for (int cg0 = g_begin; cg0 < g_end; cg0 += CHUNK / 8) {
     const int kc = 8 * cg0;
     const int rows = min(CHUNK, 8 * g_end - kc);  // may pass K by up to 7 rows
-    // this k-lane's half-groups of the chunk, h = kl + KL i: rows 4 h ..
-    // 4 h + 3 of the chunk (group cg0 + h / 2, its rows 4 (h % 2) ..). Every
-    // load goes out first, before the x rows are staged, and all are in
-    // flight together.
-    uint4 wv[HPT][4];
-    uint4 sv[HPT];
-    bool live[HPT];
+    // this k-lane's items of the chunk, h = kl + KL i: rows RPI h .. RPI h
+    // + RPI - 1 of the chunk (group cg0 + h / 2, its rows 4 (h % 2) .., for a
+    // half-group; group cg0 + h for a whole one). Every load goes out first,
+    // before the x rows are staged, and all are in flight together.
+    uint4 wv[T::PACKED ? 1 : IPT][4];  // (SIGN_PACKED reads the planes only)
+    uint4 sv[IPT];
+    bool live[IPT];
 #pragma unroll
-    for (int i = 0; i < HPT; ++i) {
-      const int h = kl + KL * i, g = cg0 + h / 2, k0 = kc + 4 * h;
+    for (int i = 0; i < IPT; ++i) {
+      const int h = kl + KL * i, g = cg0 + h * RPI / 8, k0 = kc + RPI * h;
       live[i] = g < g_end && n < N;
+      if constexpr (OP != SIGN_PACKED) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wv[i][j] = weight_row<OP, VEC>(w, k0 + j, n, N, live[i] && k0 + j < K);
-      if constexpr (OP == CAC) {
+        for (int j = 0; j < 4; ++j)
+          wv[i][j] = weight_row<OP, VEC>(w, k0 + j, n, N, live[i] && k0 + j < K);
+      }
+      if constexpr (PLANES) {
         sv[i] = make_uint4(0u, 0u, 0u, 0u);
         if (VEC && live[i]) {
           sv[i] = __ldg(reinterpret_cast<const uint4*>(s + (size_t)g * N + n));
@@ -262,7 +286,9 @@ stream_kernel(const void* __restrict__ x, const void* __restrict__ w,
       if (kk < rows && m < M && k < K) {
         if constexpr (OP == CAC)
           xv[i] = (uint32_t)static_cast<const uint8_t*>(x)[(size_t)m * K + k] * 0x01010101u;
-        else
+        else if constexpr (OP == SIGN_PACKED)  // the positive bit
+          xv[i] = static_cast<const float*>(x)[(size_t)m * K + k] >= 0.f ? HI : 0u;
+        else  // the negative bit
           xv[i] = static_cast<const float*>(x)[(size_t)m * K + k] >= 0.f ? 0u : HI;
       }
     }
@@ -274,42 +300,60 @@ stream_kernel(const void* __restrict__ x, const void* __restrict__ w,
     }
     __syncthreads();
 
-    uint32_t cnt[MT][4];  // byte lanes: mismatches of 4 columns, at most 4 HPT each
+    uint32_t cnt[MT][4];  // byte lanes: mismatches of 4 columns, at most RPI IPT each
 #pragma unroll
     for (int r = 0; r < MT; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c) cnt[r][c] = 0u;
 #pragma unroll
-    for (int i = 0; i < HPT; ++i) {
+    for (int i = 0; i < IPT; ++i) {
       if (!live[i]) continue;
-      const int h = kl + KL * i, half = 4 * (h % 2);  // rows 4 h .. of the chunk
+      const int h = kl + KL * i;
+      if constexpr (OP == SIGN_PACKED) {  // rows RPI h .. of the chunk
+        const int base = RPI == 8 ? 0 : 4 * (h % 2);  // the item's first row in its group
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t xw[MT];
+        for (int j = 0; j < RPI; ++j) {
+          uint32_t xw[MT];
 #pragma unroll
-        for (int r = 0; r < MT; ++r) xw[r] = sm.xs[r][4 * h + j];
+          for (int r = 0; r < MT; ++r) xw[r] = sm.xs[r][RPI * h + j];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const uint32_t tw = word(wv[i][j], c);
-          if constexpr (OP == CAC) {
-            const uint32_t tlo = tw & 0x7F7F7F7Fu;
-            // the s bit of row half + j of the group, moved to bit 7
-            const uint32_t sb = word(sv[i], c) << (7 - half - j);
+          for (int c = 0; c < 4; ++c) {
+            // the plane bit of row base + j of the group, moved to bit 7
+            const uint32_t sb = word(sv[i], c) << (7 - base - j);
 #pragma unroll
-            for (int r = 0; r < MT; ++r) {
-              const uint32_t t = sub_mad(xw[r] | HI, tlo);
-              cnt[r][c] = add_shr7(cnt[r][c], differ_bits(compare_bits(xw[r], tw, t), sb));
+            for (int r = 0; r < MT; ++r) cnt[r][c] = add_shr7(cnt[r][c], differ_bits(sb, xw[r]));
+          }
+        }
+      } else {
+        const int half = 4 * (h % 2);  // rows 4 h .. of the chunk
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t xw[MT];
+#pragma unroll
+          for (int r = 0; r < MT; ++r) xw[r] = sm.xs[r][4 * h + j];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const uint32_t tw = word(wv[i][j], c);
+            if constexpr (OP == CAC) {
+              const uint32_t tlo = tw & 0x7F7F7F7Fu;
+              // the s bit of row half + j of the group, moved to bit 7
+              const uint32_t sb = word(sv[i], c) << (7 - half - j);
+#pragma unroll
+              for (int r = 0; r < MT; ++r) {
+                const uint32_t t = sub_mad(xw[r] | HI, tlo);
+                cnt[r][c] = add_shr7(cnt[r][c], differ_bits(compare_bits(xw[r], tw, t), sb));
+              }
+            } else {
+#pragma unroll
+              for (int r = 0; r < MT; ++r) cnt[r][c] = add_shr7(cnt[r][c], differ_bits(tw, xw[r]));
             }
-          } else {
-#pragma unroll
-            for (int r = 0; r < MT; ++r) cnt[r][c] = add_shr7(cnt[r][c], differ_bits(tw, xw[r]));
           }
         }
       }
     }
 
     // the warp's four k-lanes (lanes ct, ct + 8, ct + 16, ct + 24): at most
-    // 4 * 4 HPT = 48 a byte lane
+    // 4 RPI IPT <= 64 a byte lane
 #pragma unroll
     for (int r = 0; r < MT; ++r)
 #pragma unroll
@@ -320,7 +364,7 @@ stream_kernel(const void* __restrict__ x, const void* __restrict__ w,
         if (lane < CT) sm.red[warp][r][4 * ct + c] = v;
       }
     __syncthreads();
-    // the eight warps, in 16-bit lanes (at most 384), then into int32
+    // the eight warps, in 16-bit lanes (at most 512), then into int32
 #pragma unroll
     for (int i = 0; i < QPT; ++i) {
       const int q = tid + THREADS * i;
@@ -399,31 +443,40 @@ inline void config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1], dim3
   cfg.numAttrs = 1;
 }
 
-// How many blocks of op OP with `mt`-row tiles the card keeps resident in
-// clusters of `splits`: its cluster occupancy times splits; -1 if it cannot
-// say or the arguments are out of range.
-template <int OP>
-int max_blocks(int mt, int splits) {
-  if ((mt != 4 && mt != 8) || splits < 1 || splits > MAX_SPLITS) return -1;
+// How many blocks of `kernel` (THREADS threads, static shared memory only)
+// the card keeps resident in clusters of `splits` along z: its cluster
+// occupancy times splits; -1 if it cannot say or splits is out of range.
+template <typename Kernel>
+int cluster_max_blocks(Kernel kernel, int splits) {
+  if (splits < 1 || splits > MAX_SPLITS) return -1;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   config(cfg, attr, dim3(1, 1, splits), splits);
   int clusters = 0;
-  const cudaError_t err =
-      mt == 4 ? cudaOccupancyMaxActiveClusters(&clusters, stream_kernel<OP, true, 4>, &cfg)
-              : cudaOccupancyMaxActiveClusters(&clusters, stream_kernel<OP, true, 8>, &cfg);
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   return err == cudaSuccess ? clusters * splits : -1;
 }
 
-// Launch on `st` with the caller's plan: `mt` rows a tile (4 or 8), `splits`
-// blocks a cluster, each taking `groups_per_split` 8-row groups. Returns
-// cudaErrorInvalidValue for a plan or shape it does not take, else the
-// launch's error.
+// The same for op OP with `mt`-row tiles (4, or 8 but for SIGN_PACKED;
+// else -1).
+template <int OP>
+int max_blocks(int mt, int splits) {
+  if (mt == 4) return cluster_max_blocks(stream_kernel<OP, true, 4>, splits);
+  if constexpr (OP != SIGN_PACKED)
+    if (mt == 8) return cluster_max_blocks(stream_kernel<OP, true, 8>, splits);
+  return -1;
+}
+
+// Launch on `st` with the caller's plan: `mt` rows a tile (4 or 8; 4 for
+// SIGN_PACKED), `splits` blocks a cluster, each taking `groups_per_split`
+// 8-row groups. Returns cudaErrorInvalidValue for a plan or shape it does
+// not take, else the launch's error.
 template <int OP>
 cudaError_t launch(const void* x, const void* w, const uint8_t* s, float* y, int M, int N, int K,
                    int mt, int splits, int groups_per_split, cudaStream_t st) {
   const int groups = cdiv(K, 8);
-  if (M <= 0 || N <= 0 || K <= 0 || K >= (1 << 24) || (mt != 4 && mt != 8) || splits < 1 ||
+  if (M <= 0 || N <= 0 || K <= 0 || K >= (1 << 24) || (mt != 4 && mt != 8) ||
+      (OP == SIGN_PACKED && mt != 4) || splits < 1 ||
       splits > MAX_SPLITS || groups_per_split < 1 ||
       (long long)splits * groups_per_split < groups ||
       (long long)(splits - 1) * groups_per_split >= groups)
@@ -438,13 +491,16 @@ cudaError_t launch(const void* x, const void* w, const uint8_t* s, float* y, int
 #define STREAM_LAUNCH(VEC, MT)                                                          \
   return cudaLaunchKernelEx(&cfg, stream_kernel<OP, VEC, MT>, x, w, s, y, M, N, K, \
                             groups_per_split)
-  if (vec) {
-    if (mt == 4) STREAM_LAUNCH(true, 4);
-    STREAM_LAUNCH(true, 8);
+  if (mt == 4) {
+    if (vec) STREAM_LAUNCH(true, 4);
+    STREAM_LAUNCH(false, 4);
   }
-  if (mt == 4) STREAM_LAUNCH(false, 4);
-  STREAM_LAUNCH(false, 8);
+  if constexpr (OP != SIGN_PACKED) {
+    if (vec) STREAM_LAUNCH(true, 8);
+    STREAM_LAUNCH(false, 8);
+  }
 #undef STREAM_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace stream

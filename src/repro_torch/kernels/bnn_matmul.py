@@ -18,8 +18,10 @@ chunks; 16 for float32) the
 streaming template of ``csrc/stream_matmul.cuh``, shared with the served
 CAC (byte-lane sign mismatch counts, ``cac_matmul.stream_plan``); above it
 the bf16 tensor cores, a sign pass writing sign(w)^T once and the backward
-pair's product template with one plane. Kernel 7 keeps the XNOR-popcount
-form over 32-row words.
+pair's product template with one plane. Kernel 7 runs on the streaming
+template at every M (op SIGN_PACKED: one 16-byte plane load holds 8 K
+rows of 16 columns), by ``cac_matmul.stream_plan`` under its own occupancy
+with ``PACKED_MT``-row tiles.
 
 The backward pair runs on the bf16 tensor cores (``wgmma``), g split into
 three bf16 planes whose sum is g exactly, so every product is exact; the
@@ -54,6 +56,7 @@ __all__ = [
     "bnn_matmul_plain",
     "bnn_packed_matmul_kernel_call",
     "bnn_packed_matmul_plain",
+    "PACKED_MT",
     "bwd_plan",
     "card_max_blocks",
     "fwd_plan",
@@ -83,6 +86,10 @@ FWD_MODE = 2
 # 0.01956 and 0.02106 / 0.02066, M = 32 0.02574 / 0.01973 and 0.02259 /
 # 0.02064.
 FWD_STREAM_MAX_M = {torch.int8: 32, torch.float32: 16}
+# Kernel 7's row tile at every M: on the H100, 4-row tiles (more blocks, each
+# reading the 1-bit planes again from L2, one chunk a split) ran faster
+# than 8-row ones at every serve shape, M = 4 to 32 (PERF.md has the runs).
+PACKED_MT = 4
 
 
 def _check_fwd(x: torch.Tensor, w: torch.Tensor, packed: bool) -> None:
@@ -278,13 +285,16 @@ def bnn_matmul_kernel_call(x: torch.Tensor, w: torch.Tensor, route=None) -> torc
 
 def bnn_packed_matmul_kernel_call(x: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
     """Launch kernel 7: x float32 (M, K), wp uint8 bitplanes (K/8, N) ->
-    (M, N) float32 sign(x) @ unpack(wp), exact integers. Adds one to
+    (M, N) float32 sign(x) @ unpack(wp), exact integers, on the streaming
+    template (``cac_matmul.stream_plan`` with ``PACKED_MT``). Adds one to
     ``bnn_packed_matmul_kernel_call.launches`` per launch."""
     _check_fwd(x, wp, packed=True)
 
     def launch(x, wp, y, m, k, n, stream):
-        return _lib("bnn_packed_launch", 3, 3)(x.data_ptr(), wp.data_ptr(), y.data_ptr(), m, n,
-                                               k, stream)
+        plan = card_stream_plan(x.device.index, m, k, n, "bnn_matmul", "packed_max_blocks",
+                                PACKED_MT)
+        return _lib("bnn_packed_launch", 3, 6)(x.data_ptr(), wp.data_ptr(), y.data_ptr(), m, n,
+                                               k, *plan, stream)
 
     return _fwd_call(bnn_packed_matmul_kernel_call, x, wp, launch)
 

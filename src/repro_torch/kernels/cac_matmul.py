@@ -105,10 +105,11 @@ def cac_matmul_plain(x_int: torch.Tensor, tau: torch.Tensor, s_packed: torch.Ten
                                          device=x_int.device)
 
 
-def stream_plan(m: int, k: int, n: int, max_blocks=None) -> tuple:
+def stream_plan(m: int, k: int, n: int, max_blocks=None, mt=None) -> tuple:
     """(mt, splits, groups_per_split) for the streaming template at x (m,
     k), weights (k, n): row tiles of ``mt`` (4 when m <= 4, the decode
-    tick; else 8, and ceil(m / 8) tiles), and the ceil(k / 8) row groups
+    tick; else 8, and ceil(m / 8) tiles; a kernel that takes one row tile
+    at every M passes it), and the ceil(k / 8) row groups
     cut into ``splits`` ranges of ``groups_per_split``, split s taking [s g,
     (s + 1) g), none empty. ``max_blocks(mt, splits)`` is how many blocks
     the card keeps resident in clusters of ``splits`` (two an SM when
@@ -116,7 +117,7 @@ def stream_plan(m: int, k: int, n: int, max_blocks=None) -> tuple:
     most SMs share the loads and the compares), one split where even that
     does not fit. chip_smoke.py times every split count at the serve path's
     shapes beside it (PERF.md)."""
-    mt = STREAM_MT[0] if m <= STREAM_MT[0] else STREAM_MT[1]
+    mt = mt or (STREAM_MT[0] if m <= STREAM_MT[0] else STREAM_MT[1])
     groups = -(-k // STREAM_GROUP)
     tiles = -(-m // mt) * -(-n // STREAM_BN)
     best = (1, groups)
@@ -130,12 +131,15 @@ def stream_plan(m: int, k: int, n: int, max_blocks=None) -> tuple:
     return (mt,) + best
 
 
-def card_stream_max_blocks(index: int, mt: int, splits: int, source: str = "cac_matmul") -> int:
-    """Blocks of the streaming kernel of ``csrc/<source>.cu`` (kernel 1, or
-    kernel 6's small-M route in ``bnn_matmul``) with ``mt``-row tiles that
-    card ``index`` keeps resident in clusters of ``splits`` (the launcher's
-    ``stream_max_blocks``); 0 where none fits."""
-    fn = build.load(source).stream_max_blocks
+def card_stream_max_blocks(index: int, mt: int, splits: int, source: str = "cac_matmul",
+                           symbol: str = "stream_max_blocks") -> int:
+    """Blocks of a streaming kernel of ``csrc/<source>.cu`` with ``mt``-row
+    tiles that card ``index`` keeps resident in clusters of ``splits``, as
+    its occupancy query ``symbol`` reports (kernel 1's ``stream_max_blocks``;
+    in ``bnn_matmul`` kernel 6's small-M route, or kernel 7's
+    ``packed_max_blocks``; in ``qnn_matmul`` kernel 10's stream route); 0
+    where none fits."""
+    fn = getattr(build.load(source), symbol)
     if fn.argtypes is None:
         fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
     with torch.cuda.device(index):
@@ -143,10 +147,13 @@ def card_stream_max_blocks(index: int, mt: int, splits: int, source: str = "cac_
 
 
 @functools.lru_cache(maxsize=None)
-def card_stream_plan(index: int, m: int, k: int, n: int, source: str = "cac_matmul") -> tuple:
-    """``stream_plan`` under card ``index``'s occupancy for ``source``'s
-    streaming kernel, once per card, shape and source."""
-    return stream_plan(m, k, n, lambda mt, s: card_stream_max_blocks(index, mt, s, source))
+def card_stream_plan(index: int, m: int, k: int, n: int, source: str = "cac_matmul",
+                     symbol: str = "stream_max_blocks", mt=None) -> tuple:
+    """``stream_plan`` (``mt`` as there) under card ``index``'s occupancy
+    for the streaming kernel that ``source``'s ``symbol`` reports on, once
+    per card, shape and kernel."""
+    return stream_plan(m, k, n,
+                       lambda t, s: card_stream_max_blocks(index, t, s, source, symbol), mt)
 
 
 def _lib():

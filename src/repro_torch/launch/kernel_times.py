@@ -1,0 +1,106 @@
+"""Time the serve path's streaming kernels on the card: kernel 7 (the
+packed sign product) and kernel 10 (the int8 matmul) at smollm-360m's four
+projections for M = 4 (decode), 16 (the draft's bucketed prefill) and 32
+(prefill chunks). Device ms per launch with a spin kernel ahead of the
+first event, as ``chip_smoke.py`` times kernels: ``ms`` with L2 flushed
+before every call (weights read from device memory, as a drain finds a
+model larger than L2), ``warm_ms`` without (the weights left in L2 by the
+previous call, as a drain finds a model that fits: 32 layers of packed
+bnn planes are 39 MB of the H100's 50 MB). Each result is first held
+bit-exact against the plain version.
+
+    PYTHONPATH=src python -m repro_torch.launch.kernel_times [--out FILE]
+
+It calls only the kernels' public wrappers and plain versions, so it also
+times another checkout's kernels: run this file by its path with that
+checkout's ``src/`` on PYTHONPATH, e.g. to time a parent commit beside this
+one in the same call. Prints the card's name and power limit, then one JSON
+line a kernel and shape; ``--out`` also writes them all as one JSON file.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch.core.backend import pack_signs
+from repro_torch.kernels.bnn_matmul import (bnn_packed_matmul_kernel_call,
+                                             bnn_packed_matmul_plain)
+from repro_torch.kernels.qnn_matmul import qnn_matmul_kernel_call, qnn_matmul_plain
+
+PATH_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
+ROWS = (4, 16, 32)
+SPIN_CYCLES = 4_000_000  # ~2 ms at the H100's clock: longer than any call's enqueue
+X_SCALE = 0.05
+
+
+def time_ms(fn, flush=None, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` from CUDA events around each call; with
+    ``flush`` (a buffer larger than L2) L2 is overwritten before each."""
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / iters
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None, help="also write the rows here as JSON")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device; the kernels run only on the card", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi)
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
+    rng = np.random.default_rng(args.seed)
+    tiny = torch.empty(1, device=dev)
+    rows = [{"kernel": "floor", "ms": time_ms(lambda: tiny.zero_(), flush),
+             "warm_ms": time_ms(lambda: tiny.zero_())}]
+    for m in ROWS:
+        for k, n in PATH_KN:
+            x = torch.from_numpy(rng.integers(-128, 128, size=(m, k)).astype(np.int8)).to(dev)
+            w = torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8)).to(dev)
+            ws = torch.from_numpy(rng.uniform(1e-3, 1e-2, size=(n,)).astype(np.float32)).to(dev)
+            xf = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
+            wp = pack_signs(torch.where(torch.from_numpy(rng.random((k, n))) < 0.5, 1,
+                                        -1).to(torch.int8)).to(dev)
+            cases = (("qnn_matmul", lambda: qnn_matmul_kernel_call(x, w, ws, X_SCALE),
+                      lambda: qnn_matmul_plain(x, w, ws, X_SCALE)),
+                     ("bnn_packed_matmul", lambda: bnn_packed_matmul_kernel_call(xf, wp),
+                      lambda: bnn_packed_matmul_plain(xf, wp)))
+            for name, kern, plain in cases:
+                if not torch.equal(kern(), plain()):
+                    print(f"kernel_times: {name} M={m} K={k} N={n} is not bit-exact",
+                          file=sys.stderr)
+                    return 1
+                rows.append({"kernel": name, "M": m, "K": k, "N": n, "ms": time_ms(kern, flush),
+                             "warm_ms": time_ms(kern)})
+    for row in rows:
+        print(json.dumps(row, sort_keys=True))
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump({"device": smi, "rows": rows}, fh, indent=1, sort_keys=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

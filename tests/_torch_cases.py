@@ -2,8 +2,8 @@
 card-only tests can import them on a machine without JAX)."""
 import numpy as np
 
-__all__ = ["BNN_KERNEL_SHAPES", "LANE_FLUSH_ROWS", "PAGED_CASES", "QNN_KERNEL_SHAPES",
-           "TRAIN_KERNEL_SHAPES", "bnn_case", "byte_lane_mismatches", "cac_case",
+__all__ = ["BNN_KERNEL_SHAPES", "H100_STREAM_BLOCKS", "LANE_FLUSH_ROWS", "PAGED_CASES",
+           "QNN_KERNEL_SHAPES", "TRAIN_KERNEL_SHAPES", "bnn_case", "byte_lane_mismatches", "cac_case",
            "cac_train_case", "cac_train_dyadic_case", "paged_case", "qnn_case", "to_words",
            "window_clear"]
 
@@ -12,6 +12,9 @@ HI = 0x80808080
 # chunk and a warp's four k-lanes are summed in byte lanes, so no lane holds
 # more than 64 rows' mismatches before it is widened (csrc/stream_matmul.cuh)
 LANE_FLUSH_ROWS = 64
+# resident blocks of a streaming kernel by cluster size 1..8 that the
+# occupancy query reported on an NVIDIA H100 80GB HBM3 (two blocks an SM)
+H100_STREAM_BLOCKS = (264, 264, 237, 248, 235, 234, 224, 240)
 
 # the training path's (K, N) projections at M = batch 4 x seq 128, and two
 # ragged shapes that cut every tile edge

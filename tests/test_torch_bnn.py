@@ -23,13 +23,15 @@ Pallas kernels as its own tests run them (interpret mode). Tolerances:
 - engine tokens token for token.
 """
 import contextlib
+import importlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_cases import LANE_FLUSH_ROWS, bnn_case, byte_lane_mismatches, to_words
+from _torch_cases import (H100_STREAM_BLOCKS, LANE_FLUSH_ROWS, bnn_case, byte_lane_mismatches,
+                          to_words)
 from test_torch_lm import _hold, port_cfg
 
 import repro.core.backend as jax_backend
@@ -153,6 +155,48 @@ def test_sign_byte_lane_model_bit_exact_against_reference(m, k, n):
         want)
 
 
+def packed_byte_lane_model(x, wp, flush_rows=LANE_FLUSH_ROWS):
+    """Kernel 7's arithmetic in plain PyTorch, word for word: x float32 (M,
+    K), wp uint8 planes (K/8, N) -> (M, N) float32. x's positive bit [x >=
+    0] (so +0 and -0 give +1 and NaN -1) is staged in bit 7 of every byte
+    lane; row 8 r + j's plane bits are byte r's words shifted left by 7 - j,
+    which moves bit j of each lane to its bit 7; the two differ exactly where
+    the term is -1, and the mismatch bits are counted in byte lanes
+    (``byte_lane_mismatches``), y = K - 2 * mismatches."""
+    k = x.shape[1]
+    xp = torch.where(x >= 0, 0x80808080, 0).to(torch.int64)[:, :, None]  # (M, K, 1)
+    planes = to_words(wp).repeat_interleave(8, dim=0)  # (K, W): row k holds byte k // 8
+    shift = (7 - torch.arange(k) % 8)[:, None]
+    sb = (planes << shift) & 0xFFFFFFFF  # the plane bit of row k in bit 7 of each lane
+    mis = byte_lane_mismatches(xp ^ sb[None], wp.shape[1], flush_rows)
+    return (k - 2 * mis).to(torch.float32)
+
+
+# the reference's kernel module (``repro.kernels`` re-exports a function of
+# the same name)
+jbnn_kernels = importlib.import_module("repro.kernels.bnn_matmul")
+# shapes at which the reference's packed kernel runs without padding (K a
+# multiple of its 512-row block or below it, N of its 256 columns or below)
+PACKED_SHAPES = [(4, 512, 256), (32, 1024, 64), (5, 64, 24), (9, 256, 33), (2, 8, 3)]
+
+
+@pytest.mark.parametrize("m,k,n", PACKED_SHAPES)
+def test_packed_byte_lane_model_bit_exact_against_reference(m, k, n):
+    """Kernel 7's sign-mismatch count on the planes, modelled in plain
+    PyTorch, equals the reference's Pallas kernel 7 (interpret mode, called
+    where it needs no pad correction) and the plain version bit for bit,
+    with exact +0.0, -0.0 and NaN in x; K past 255 rows."""
+    x, w, _ = bnn_case(np.random.default_rng(m + 13 * k + n), m, k, n, nan=True)
+    x[0, 0], x[-1, -1] = -0.0, 0.0
+    wp = pack_signs(sign(_t(w)).to(torch.int8))
+    got = packed_byte_lane_model(_t(x), wp)
+    want = np.asarray(jbnn_kernels.bnn_packed_matmul_kernel_call(
+        jnp.asarray(x), jnp.asarray(wp.numpy()), interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), tk.bnn_packed_matmul_plain(_t(x), wp).numpy())
+    np.testing.assert_array_equal(got.numpy(), sign_byte_lane_model(_t(x), _t(w)).numpy())
+
+
 # the serve path's and the training path's (K, N)
 PATH_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
 
@@ -175,6 +219,24 @@ def test_fwd_route_by_rows(m, w_dtype):
     assert tk.FWD_STREAM_MAX_M[torch.float32] < 512  # the training M takes the tensor cores
     with pytest.raises(ValueError):
         tk.fwd_plan(m, 960, 960, w_dtype, route="nope")
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, 16, 17, 32, 33, 129])
+def test_packed_plan_takes_four_row_tiles(m):
+    """Kernel 7's plan (``stream_plan`` with ``PACKED_MT``), with the CPU
+    default and the H100's occupancy: 4-row tiles at every M, and 1-8
+    splits of whole 8-row groups that cover K exactly once, none empty; at
+    the serve path's shapes every block resident in one wave."""
+    assert tk.PACKED_MT == 4
+    for k, n in PATH_KN + [(8, 3), (968, 65)]:
+        groups = k // 8
+        for max_blocks in (None, lambda mt, s: H100_STREAM_BLOCKS[s - 1]):
+            mt, splits, per = cac_matmul.stream_plan(m, k, n, max_blocks, tk.PACKED_MT)
+            assert mt == 4 and 1 <= splits <= cac_matmul.STREAM_MAX_SPLITS
+            assert (splits - 1) * per < groups <= splits * per
+            if max_blocks is not None and m <= 32 and (k, n) in PATH_KN:
+                tiles = -(-m // 4) * -(-n // cac_matmul.STREAM_BN)
+                assert tiles * splits <= H100_STREAM_BLOCKS[splits - 1]
 
 
 @pytest.mark.parametrize("k,n", PATH_KN + [(100, 130), (968, 65)])

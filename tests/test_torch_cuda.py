@@ -23,9 +23,11 @@ one row past it; the
 SignSTE backward pair (8 and 9) within atol/rtol 1e-4 everywhere (their
 masks read the operand itself, so no element sits on an ambiguous edge; the
 sums are reordered) and bit-for-bit repeatable. The int8 matmul (kernel 10)
-is bit-exact: an exact int32 sum and the same two float32 roundings as its
-plain version, also where the sums pass 2^24 and where K split over blocks
-meets through integer atomics."""
+is bit-exact on both of its routes: an exact int32 sum and the same two
+float32 roundings as its plain version, also where the sums pass 2^24,
+where the stream route's K splits meet in a cluster and where the tile
+route's meet through integer atomics. Kernels 7 and 10 on the streaming
+layout are one device operation a call (a torch.profiler trace)."""
 import numpy as np
 import pytest
 import torch
@@ -199,19 +201,77 @@ def test_bnn_kernels_on_card(cuda, m, k, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", QNN_KERNEL_SHAPES + [(512, 960, 2560), (1, 4, 1)])
 def test_qnn_kernel_bit_exact_on_card(cuda, m, k, n):
+    """Kernel 10 on its planned route and on both forced routes (stream,
+    tile), with aligned operands and with operands at an odd address (the
+    byte loads): bit-exact against the plain version, one counted launch a
+    call, and a second launch repeats bit for bit."""
     rng = np.random.default_rng(m + 7 * k + n)
     x, w, ws = qnn_case(rng, m, k, n)
     x[0], w[:, 0] = -128, -127  # one sum at K * 128 * 127
     x, w, ws = (torch.from_numpy(a).to(cuda) for a in (x, w, ws))
-    before = qnn.qnn_matmul_kernel_call.launches
-    got = qnn.qnn_matmul_kernel_call(x, w, ws, 0.05)
     # operands at an address that is not 4-byte aligned take the byte loads
     xo = torch.empty(m * k + 1, dtype=torch.int8, device=cuda)[1:].view(m, k).copy_(x)
     wo = torch.empty(k * n + 1, dtype=torch.int8, device=cuda)[1:].view(k, n).copy_(w)
-    odd = qnn.qnn_matmul_kernel_call(xo, wo, ws, 0.05)
-    torch.cuda.synchronize()
-    assert qnn.qnn_matmul_kernel_call.launches == before + 2
     want = qnn.qnn_matmul_plain(x, w, ws, 0.05)
-    assert torch.equal(got, want)
-    assert torch.equal(odd, want)
+    before = qnn.qnn_matmul_kernel_call.launches
+    for route in (None, "stream", "tile"):
+        got = qnn.qnn_matmul_kernel_call(x, w, ws, 0.05, route=route)
+        assert torch.equal(got, want), route
+        assert torch.equal(qnn.qnn_matmul_kernel_call(x, w, ws, 0.05, route=route), got), route
+        assert torch.equal(qnn.qnn_matmul_kernel_call(xo, wo, ws, 0.05, route=route), want), route
+    torch.cuda.synchronize()
+    assert qnn.qnn_matmul_kernel_call.launches == before + 9
     assert torch.equal(want.cpu(), qnn.qnn_matmul_plain(x.cpu(), w.cpu(), ws.cpu(), 0.05))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4, 960, 960), (4, 960, 320), (4, 960, 2560), (4, 2560, 960),
+                                   (32, 960, 2560), (32, 2560, 960), (129, 968, 65)])
+def test_bnn_packed_equals_kernel6_on_card(cuda, m, k, n):
+    """Kernel 7 (the streaming template's packed op) at decode, at a prefill
+    chunk and at a ragged shape: equal to kernel 6 on the same signs and to
+    its plain version, and a second launch repeats bit for bit."""
+    rng = np.random.default_rng(m + 11 * k + n)
+    x, w, _ = (torch.from_numpy(a).to(cuda) for a in bnn_case(rng, m, k, n, nan=True))
+    wb = sign(w).to(torch.int8)
+    wp = pack_signs(wb)
+    got = bnn.bnn_packed_matmul_kernel_call(x, wp)
+    assert torch.equal(got, bnn.bnn_matmul_kernel_call(x, wb))
+    assert torch.equal(got, bnn.bnn_packed_matmul_plain(x, wp))
+    assert torch.equal(bnn.bnn_packed_matmul_kernel_call(x, wp), got)
+
+
+def device_ops(fn, trace_path):
+    """The device operations (kernels, memsets, copies) of one call of
+    ``fn``, by name, from a torch.profiler trace; ``fn`` runs once before,
+    so that its kernel is built and its plan made outside the trace."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace_path))
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    return [e["name"] for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 16, 32])
+def test_stream_kernels_one_device_op_on_card(cuda, tmp_path, m):
+    """A call of kernel 10 (its planned route at the serve path's M) and of
+    kernel 7 is one device operation: one kernel, no memset, no copy."""
+    rng = np.random.default_rng(m)
+    x, w, ws = (torch.from_numpy(a).to(cuda) for a in qnn_case(rng, m, 960, 2560))
+    assert qnn.qnn_plan(m, 960, 2560)[0] == "stream"
+    ops = device_ops(lambda: qnn.qnn_matmul_kernel_call(x, w, ws, 0.05), tmp_path / "qnn.json")
+    assert len(ops) == 1 and "qnn_stream_kernel" in ops[0], ops
+    xf, wf, _ = (torch.from_numpy(a).to(cuda) for a in bnn_case(rng, m, 2560, 960))
+    wp = pack_signs(sign(wf).to(torch.int8))
+    ops = device_ops(lambda: bnn.bnn_packed_matmul_kernel_call(xf, wp), tmp_path / "bnn.json")
+    assert len(ops) == 1 and "stream_kernel<3," in ops[0], ops  # op SIGN_PACKED

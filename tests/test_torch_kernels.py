@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_cases import (LANE_FLUSH_ROWS, PAGED_CASES, byte_lane_mismatches, cac_case,
-                          paged_case, to_words)
+from _torch_cases import (H100_STREAM_BLOCKS, LANE_FLUSH_ROWS, PAGED_CASES,
+                          byte_lane_mismatches, cac_case, paged_case, to_words)
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -124,10 +124,6 @@ def test_cac_byte_lane_counts_need_their_flush(flush_rows, exact):
     assert torch.equal(got, cac_matmul_plain(x, tau, sp)) == exact
 
 
-# resident blocks of the streaming template by cluster size 1..8 that
-# stream_max_blocks reported on an NVIDIA H100 80GB HBM3 (two blocks an
-# SM, both row tiles)
-H100_STREAM_BLOCKS = (264, 264, 237, 248, 235, 234, 224, 240)
 SERVE_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
 
 

@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_cases import QNN_KERNEL_SHAPES, qnn_case
+from _torch_cases import H100_STREAM_BLOCKS, QNN_KERNEL_SHAPES, qnn_case
 from test_torch_lm import ATOL, held_codes, port_cfg
 
 from repro.configs import get_smoke as jax_get_smoke
@@ -166,6 +166,139 @@ def test_qnn_wrappers_take_plain_on_cpu_and_check_inputs():
         tk.qnn_matmul_plain(x.float(), w, ws, 0.05)
     with pytest.raises(ValueError, match="shape"):
         tk.qnn_matmul_plain(x, w[:-1], ws, 0.05)
+
+
+# ---------------------------------------------------------------------------
+# kernel 10's stream route: a plain model of its arithmetic, and its plan
+# ---------------------------------------------------------------------------
+
+
+def byte_perm(a, b, sel):
+    """CUDA's ``__byte_perm(a, b, sel)`` on int64 tensors of 32-bit words:
+    byte i of the result is byte ``(sel >> 4 i) & 7`` of the eight bytes
+    {b:a} (a's four low, b's four high)."""
+    out = torch.zeros_like(a)
+    for i in range(4):
+        src = (sel >> (4 * i)) & 7
+        byte = ((a if src < 4 else b) >> (8 * (src % 4))) & 0xFF
+        out |= byte << (8 * i)
+    return out
+
+
+def transpose4(r0, r1, r2, r3):
+    """The kernel's 4 x 4 byte transpose: row words (byte b = column b) ->
+    column words (byte j = row j), in its eight ``__byte_perm``."""
+    t0, t1 = byte_perm(r0, r1, 0x5140), byte_perm(r2, r3, 0x5140)
+    t2, t3 = byte_perm(r0, r1, 0x7362), byte_perm(r2, r3, 0x7362)
+    return (byte_perm(t0, t1, 0x5410), byte_perm(t0, t1, 0x7632),
+            byte_perm(t2, t3, 0x5410), byte_perm(t2, t3, 0x7632))
+
+
+def dp4a(a, b):
+    """``__dp4a(a, b, 0)``: the four signed byte products of two words,
+    summed (int64 tensors of 32-bit words, broadcast)."""
+    def byte(v, i):
+        u = (v >> (8 * i)) & 0xFF
+        return u - ((u & 0x80) << 1)  # as int8
+    return sum(byte(a, i) * byte(b, i) for i in range(4))
+
+
+def qnn_stream_model(x, w, ws, x_scale, plan):
+    """Kernel 10's stream route in plain PyTorch, word for word: x int8 (M,
+    K), w int8 (K, N), ws float32 (N,), plan (mt, splits, groups_per_split)
+    -> (M, N) float32. K is cut into quads of 4 rows (bytes past K are 0 on
+    both sides); w's rows are read as 4-byte words of 4 columns and each 4 x
+    4 block transposed into column words; ``__dp4a`` against x's k-words
+    adds each quad's four products into an int32; split z sums the quads
+    [2 z per, 2 (z + 1) per), and the splits' sums are added in rank order;
+    then the two float32 roundings of the epilogue."""
+    _, splits, per = plan
+    m, k = x.shape
+    n = w.shape[1]
+    quads = -(-k // 4)
+    xb = torch.nn.functional.pad(x.to(torch.int64) & 0xFF, (0, 4 * quads - k))
+    wb = torch.nn.functional.pad(w.to(torch.int64) & 0xFF, (0, -n % 4, 0, 4 * quads - k))
+    xw = sum(xb[:, i::4] << (8 * i) for i in range(4))  # (M, quads): byte j = row 4 q + j
+    rows = sum(wb[:, i::4] << (8 * i) for i in range(4))  # (4 quads, N / 4): byte b = column
+    cols = torch.stack(transpose4(*(rows[j::4] for j in range(4))), dim=-1)  # (quads, N/4, 4)
+    cols = cols.reshape(quads, -1)[:, :n]  # (quads, N): byte j = row 4 q + j
+    terms = dp4a(xw[:, :, None], cols[None])  # (M, quads, N)
+    acc = torch.zeros((m, n), dtype=torch.int64)
+    for z in range(splits):  # rank order
+        acc += terms[:, 2 * z * per:2 * (z + 1) * per].sum(dim=1)
+    assert int(acc.abs().max()) < 2**31  # the kernel's int32 is exact
+    scale = ws.reshape(-1) * torch.tensor(x_scale, dtype=torch.float32)
+    return acc.to(torch.int32).to(torch.float32) * scale
+
+
+@pytest.mark.parametrize("m,k,n", QNN_KERNEL_SHAPES)
+def test_qnn_stream_model_bit_exact(m, k, n):
+    """The stream route's arithmetic, modelled in plain PyTorch, equals the
+    plain version bit for bit on its own plan, on one split and on the most
+    splits, extreme codes included (one sum at K * 128 * 127, past 2^24 at K
+    = 2560), and the reference's Pallas kernel (interpret mode) where that
+    kernel is exact (K * 128 * 127 < 2^24)."""
+    x, w, ws = qnn_case(np.random.default_rng(3 * m + k + n), m, k, n)
+    x[0], w[:, 0] = -128, -127
+    want = tk.qnn_matmul_plain(_t(x), _t(w), _t(ws), 0.05)
+    groups = -(-k // 8)
+    per8 = -(-groups // 8)
+    for plan in (tk.qnn_plan(m, k, n, route="stream")[1:], (8, 1, groups),
+                 (8, -(-groups // per8), per8)):
+        got = qnn_stream_model(_t(x), _t(w), _t(ws), 0.05, plan)
+        assert torch.equal(got, want), plan
+    if k * 128 * 127 < 2**24:
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jops.qnn_matmul(jnp.asarray(x), jnp.asarray(w),
+                                                    jnp.asarray(ws), 0.05, interpret=True)))
+
+
+def test_qnn_transpose_and_dp4a_model():
+    """The model's pieces: the 4 x 4 byte transpose puts row j of column b in
+    byte j of column word b, and ``dp4a`` adds four signed products."""
+    rows = [torch.tensor([sum((16 * j + b) << (8 * b) for b in range(4))]) for j in range(4)]
+    cols = transpose4(*rows)
+    for b in range(4):
+        assert int(cols[b]) == sum((16 * j + b) << (8 * j) for j in range(4))
+    a = torch.tensor([0x80_7F_FF_01])  # bytes 1, -1, 127, -128
+    assert int(dp4a(a, a)) == 1 + 1 + 127 * 127 + 128 * 128
+    assert int(dp4a(a, torch.tensor([0x7F_80_01_FF]))) == -1 - 1 - 127 * 128 - 128 * 127
+
+
+@pytest.mark.parametrize("k,n", [(960, 960), (960, 320), (960, 2560), (2560, 960), (100, 130),
+                                 (968, 65), (99, 33), (4, 1)])
+def test_qnn_plan_routes_and_covers_k_once(k, n):
+    """Kernel 10's route: the stream route at and below QNN_STREAM_MAX_M
+    rows, the tile route above; a forced route is taken as asked. On the
+    stream route, with the CPU default and the H100's occupancy, the plan
+    has 4-row tiles at decode and 8-row ones otherwise, and its splits'
+    quads [2 z per, 2 (z + 1) per) cover the ceil(K / 4) quads exactly once,
+    none empty."""
+    quads = -(-k // 4)
+    for m in range(1, tk.QNN_STREAM_MAX_M + 3):
+        stream = m <= tk.QNN_STREAM_MAX_M
+        assert tk.qnn_plan(m, k, n)[0] == ("stream" if stream else "tile")
+        assert tk.qnn_plan(m, k, n, route="tile") == ("tile",)
+        for max_blocks in (None, lambda mt, s: H100_STREAM_BLOCKS[s - 1]):
+            route, mt, splits, per = tk.qnn_plan(m, k, n, max_blocks, route="stream")
+            assert route == "stream" and mt == (4 if m <= 4 else 8)
+            covered = [q for z in range(splits)
+                       for q in range(2 * z * per, min(quads, 2 * (z + 1) * per))]
+            assert covered == list(range(quads))
+            assert 2 * (splits - 1) * per < quads  # the last split is not empty
+    assert tk.QNN_STREAM_MAX_M >= 32  # every serve path's M streams
+    with pytest.raises(ValueError):
+        tk.qnn_plan(4, k, n, route="nope")
+
+
+def test_kernel_times_refuses_without_a_card():
+    """``python -m repro_torch.launch.kernel_times`` times the card only: on
+    a machine without CUDA it prints no row and exits non-zero."""
+    from repro_torch.launch import kernel_times
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the card run is chip_smoke's and run C's")
+    assert kernel_times.main([]) == 1
 
 
 def _jspec(**kw):
