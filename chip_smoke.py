@@ -8,15 +8,19 @@ Phases (each prints its own line; any failure exits non-zero):
 2. build   — compile every kernel in src/repro_torch/csrc/ with nvcc, in
              parallel, and print the build time.
    device-ops — one call each of kernel 10 (stream route), kernel 7 and
-             kernel 10's tile route at decode gate/up under torch.profiler:
-             the first two must be one device operation each (no memset).
+             kernel 10's tile route at decode gate/up, and of kernel 11 at
+             decode and at a prefill chunk, under torch.profiler: all but
+             the tile route must be one device operation each (no memset).
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
              at the shapes of the path that runs it: CAC bit-exact and
              repeatable (M = 4 and 32 at the four projections, timed, and
              ragged shapes around the streaming template's edges, one with
              every term a mismatch); paged
-             attention within 2e-5 (fp32 and int8 pools, decode, chunk and
-             the speculative verify's B = 4 x C = 4 window);
+             attention within 2e-5 and repeatable, with its plan (fp32 and
+             int8 pools: decode, chunk, the speculative verify's B = 4 x C =
+             4 window, a drain-like decode at positions 3-35 and a long
+             decode at T = 64, positions near 1023), then a sweep of its
+             query tile (chunk, verify) and cluster size (long decode);
              the training CAC forward bit-exact and its STE backward (fused,
              and the split dx + dw pair) within atol = rtol = 1e-4 off the
              |pre| = 1 window edge, at M = 512 and two ragged shapes, the
@@ -35,7 +39,8 @@ Phases (each prints its own line; any failure exits non-zero):
              for determinism, with fp and with int8 KV. The launch counters
              are zeroed just before the first fp run and read just after it.
    profile — one more fp-KV drain under torch.profiler: device busy time,
-             idle share and the kernels that take the most time.
+             idle share, the kernels that take the most time and kernel
+             11's device ms and launches (as in every profiled drain).
 5. parity  — the same weights cut to 2 layers at full width: the card's
              prefill and decode logits against a CPU run of the port (plain
              versions), with the activation codes held equal at half-way
@@ -183,9 +188,10 @@ ACT_SCALE = 0.05  # LinearSpec.act_scale, the serve path's x_scale
 SPEC_K = 4  # the reference's benchmarked speculative window (dense <- qnn8)
 SPEC_TIE = 1e-4  # top-2 logit gap below which target-only and spec may part
 # the profiled drains' device ms of kernel 7 (the streaming template's op 3,
-# SIGN_PACKED) and of kernel 10 (both routes), by kernel name
+# SIGN_PACKED), of kernel 10 (both routes) and of kernel 11, by kernel name
 KERNEL7_GROUP = {"bnn_packed_matmul": ("stream_kernel<3,",)}
 KERNEL10_GROUP = {"qnn_matmul": ("qnn_stream_kernel", "qnn_kernel<")}
+KERNEL11_GROUP = {"paged_attn": ("paged_attn_kernel",)}
 
 
 def fail(msg: str) -> None:
@@ -323,12 +329,14 @@ def _split_sweep(torch, x, tau, sp, flush):
     return out
 
 
-def _paged_case(torch, np, rng, dev, b, c, t, quantized, hq=15, hkv=5, d=64, bs=16):
-    """Shuffled pool; every row's last query sits inside a partial block."""
+def _paged_case(torch, np, rng, dev, b, c, t, quantized, hq=15, hkv=5, d=64, bs=16,
+                last_range=None):
+    """Shuffled pool; every row's last query sits inside a partial block,
+    drawn from [c, t * bs) or from ``last_range``."""
     n_phys = b * t + 3
     q = rng.normal(size=(b, c, hq, d)).astype(np.float32)
     tables = rng.permutation(n_phys)[: b * t].reshape(b, t).astype(np.int32)
-    last = rng.integers(c, t * bs, size=(b,))
+    last = rng.integers(*(last_range or (c, t * bs)), size=(b,))
     last = np.where(last % bs == bs - 1, last - 1, last)  # partial last block
     q_pos = (last[:, None] - (c - 1) + np.arange(c)[None]).astype(np.int32)
     if quantized:
@@ -368,56 +376,130 @@ def _sdpa_yardstick(torch, q, k, v, tables, q_pos, ks, vs):
     return out.transpose(1, 2)
 
 
+def _attn_bound(q, k, tables, q_pos, quantized):
+    """Kernel 11's least time: bytes are the live K/V window (blocks up to
+    each row's last query) plus q, out, tables and positions; operations
+    4 D per (query head, attended position), q.k and p.v multiply-adds, on
+    the CUDA cores. -> (bound_ms, "bytes" | "operations")."""
+    hq, d = q.shape[2], q.shape[3]
+    _, bs, hkv, _ = k.shape
+    qp = q_pos.cpu().numpy()
+    live_blocks = int(sum(int(r.max()) // bs + 1 for r in qp))
+    per_pos = hkv * d * k.element_size() + (hkv * 4 if quantized else 0)
+    nbytes = (2 * live_blocks * bs * per_pos + 2 * q.numel() * 4 + tables.numel() * 4
+              + q_pos.numel() * 4)
+    ops = 4.0 * d * hq * float((qp + 1).sum())
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / CUDA_CORE_OPS_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# kernel 11's cases: (name, B, C, T, last positions): decode, a prefill
+# chunk and the speculative verify at max_len / block = 8 table entries a
+# row, anywhere in it; a drain-like decode (the smoke drain's rows hold 3-35
+# positions: 1-3 live blocks); a long decode at T = 64 (max_len 1024), every
+# row near its end, where the K/V bytes and not the latency set the bound
+ATTN_CASES = [("decode", N_SLOTS, 1, MAX_LEN // BLOCK, None),
+              ("chunk", 1, CHUNK, MAX_LEN // BLOCK, None),
+              ("verify", N_SLOTS, SPEC_K, MAX_LEN // BLOCK, None),
+              ("drain", N_SLOTS, 1, MAX_LEN // BLOCK, (3, 36)),
+              ("long", N_SLOTS, 1, 1024 // BLOCK, (1000, 1023))]
+
+
 def phase_paged(torch, np, dev, flush):
+    """Kernel 11 against its plain version at ``ATTN_CASES``, fp32 and int8
+    pools, within ATTN_TOL, a second call equal bit for bit; its plan, its
+    time, the plain version's, the gather + SDPA yardstick's and the bound."""
+    from repro_torch.kernels import paged_attn as pa
     from repro_torch.kernels.paged_attn import paged_attn_kernel_call
     from repro_torch.kernels.ref import paged_attention_ref
 
     rng = np.random.default_rng(SEED + 1)
     rows = []
-    # decode (B = n_slots, C = 1), a prefill chunk (B = 1, C = chunk) and
-    # the speculative verify (B = n_slots, C = spec_k),
-    # T = max_len / block = 8 table entries per row
-    for name, b, c in (("decode", N_SLOTS, 1), ("chunk", 1, CHUNK),
-                       ("verify", N_SLOTS, SPEC_K)):
+    for name, b, c, t, last_range in ATTN_CASES:
         for quantized in (False, True):
-            q, k, v, tables, q_pos, ks, vs = _paged_case(torch, np, rng, dev, b, c,
-                                                         MAX_LEN // BLOCK, quantized)
+            q, k, v, tables, q_pos, ks, vs = _paged_case(torch, np, rng, dev, b, c, t,
+                                                         quantized, last_range=last_range)
             got = paged_attn_kernel_call(q, k, v, tables, q_pos, k_scale=ks, v_scale=vs)
+            again = paged_attn_kernel_call(q, k, v, tables, q_pos, k_scale=ks, v_scale=vs)
             torch.cuda.synchronize()
             want = paged_attention_ref(q, k, v, tables, q_pos, ks, vs)
             err = float((got - want).abs().max())
             if not err <= ATTN_TOL:
                 fail(f"paged_attn {name} int8={quantized}: max |kernel - plain| = {err}")
+            if not _bits_equal(torch, got, again):
+                fail(f"paged_attn {name} int8={quantized}: two calls differ")
             lib = _sdpa_yardstick(torch, q, k, v, tables, q_pos, ks, vs)
             lib_err = float((lib - want).abs().max())
-            row = {"case": name, "B": b, "C": c, "int8": quantized, "max_abs_err": err,
-                   "library_err": lib_err}
+            hq, d = q.shape[2], q.shape[3]
+            bs, hkv = k.shape[1], k.shape[2]
+            plan = pa.card_plan(b, c, hq, hkv, d, bs, t)
+            if plan is None or plan[:2] != pa.attn_plan(b, c, hq, hkv, d, bs, t):
+                fail(f"paged_attn {name}: the kernel's plan {plan} is not attn_plan's")
+            row = {"case": name, "B": b, "C": c, "T": t, "int8": quantized,
+                   "max_abs_err": err, "library_err": lib_err, "repeatable": True,
+                   "plan": {"q_tile": plan[0], "splits": plan[1], "smem_bytes": plan[2],
+                            "threads": plan[3]},
+                   "last_positions": [int(r.max()) for r in q_pos.cpu().numpy()]}
             row["ms"] = time_ms(torch, lambda: paged_attn_kernel_call(
                 q, k, v, tables, q_pos, k_scale=ks, v_scale=vs), flush=flush)
+            row["warm_ms"] = time_ms(torch, lambda: paged_attn_kernel_call(
+                q, k, v, tables, q_pos, k_scale=ks, v_scale=vs))
             row["plain_ms"] = time_ms(torch, lambda: paged_attention_ref(
                 q, k, v, tables, q_pos, ks, vs), flush=flush)
             row["library_ms"] = time_ms(torch, lambda: _sdpa_yardstick(
                 torch, q, k, v, tables, q_pos, ks, vs), flush=flush)
-            # bytes: the live K/V window (blocks up to each row's last query)
-            # plus q, out, tables and positions; ops: 4*D per (query head,
-            # attended position) — q.k and p.v multiply-adds
-            hq, d = q.shape[2], q.shape[3]
-            _, bs, hkv, _ = k.shape
-            qp = q_pos.cpu().numpy()
-            live_blocks = int(sum(int(r.max()) // bs + 1 for r in qp))
-            per_pos = hkv * d * k.element_size() + (hkv * 4 if quantized else 0)
-            nbytes = (2 * live_blocks * bs * per_pos + 2 * q.numel() * 4
-                      + tables.numel() * 4 + q_pos.numel() * 4)
-            ops = 4.0 * d * hq * float((qp + 1).sum())
-            t_bytes = nbytes / HBM_BYTES_S * 1e3
-            t_ops = ops / CUDA_CORE_OPS_S * 1e3
-            row["bound_ms"] = max(t_bytes, t_ops)
-            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            row["bound_ms"], row["bound_by"] = _attn_bound(q, k, tables, q_pos, quantized)
             rows.append(row)
-            print(f"[kernels] paged_attn {name} B={b} C={c} int8={quantized} "
-                  f"max_abs_err={err:.3e} ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+            print(f"[kernels] paged_attn {name} B={b} C={c} T={t} int8={quantized} plan "
+                  f"q_tile={plan[0]} splits={plan[1]} ({plan[3]} threads, {plan[2]} B smem) "
+                  f"max_abs_err={err:.3e} repeatable ms={row['ms']:.5f} "
+                  f"warm_ms={row['warm_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
                   f"library_ms={row['library_ms']:.5f} bound_ms={row['bound_ms']:.6f} "
                   f"({row['bound_by']})")
+    return rows
+
+
+def phase_attn_sweep(torch, np, dev, flush):
+    """Kernel 11 at every query tile (1, 2, 4, 8, 16 tokens) for the chunk
+    and the verify, and at clusters of 1, 2, 4, 8 and 16 (non-portable)
+    ranks for the decodes, fp32, L2 flushed, each call held within
+    ATTN_TOL: the times behind attn_plan's QTILE and SPLITS. Returns the
+    rows."""
+    from repro_torch.kernels import paged_attn as pa
+    from repro_torch.kernels.paged_attn import paged_attn_kernel_call
+    from repro_torch.kernels.ref import paged_attention_ref
+
+    rng = np.random.default_rng(SEED + 19)
+    rows = []
+    for name, b, c, t, last_range in ATTN_CASES:
+        q, k, v, tables, q_pos, _, _ = _paged_case(torch, np, rng, dev, b, c, t, False,
+                                                   last_range=last_range)
+        want = paged_attention_ref(q, k, v, tables, q_pos)
+        hq, d = q.shape[2], q.shape[3]
+        bs, hkv = k.shape[1], k.shape[2]
+        chosen = pa.attn_plan(b, c, hq, hkv, d, bs, t)
+        plans = ([(qt, chosen[1]) for qt in (1, 2, 4, 8, 16) if qt <= c] if c > 1 else
+                 [(1, s) for s in (1, 2, 4, 8, 16) if s <= t])
+        line = []
+        for plan in plans:
+            try:
+                got = paged_attn_kernel_call(q, k, v, tables, q_pos, plan=plan)
+            except RuntimeError as e:  # a cluster the card cannot place
+                line.append(f"{plan}: refused ({e})")
+                rows.append({"case": name, "plan": list(plan), "refused": str(e)})
+                continue
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not err <= ATTN_TOL:
+                fail(f"paged_attn sweep {name} plan {plan}: max |kernel - plain| = {err}")
+            ms = time_ms(torch, lambda: paged_attn_kernel_call(q, k, v, tables, q_pos,
+                                                               plan=plan), flush=flush)
+            rows.append({"case": name, "plan": list(plan), "ms": ms, "max_abs_err": err,
+                         "planned": plan == chosen})
+            line.append(f"{plan}{'*' if plan == chosen else ''} {ms:.5f}")
+        print(f"[attn-sweep] {name} B={b} C={c} T={t} (q_tile, splits) ms, * = plan: "
+              + "; ".join(line))
     return rows
 
 
@@ -844,11 +926,12 @@ def _int_mm_yardstick(torch, x, w, ws):
 def phase_device_ops(torch, np, dev, tries=3):
     """The device operations (kernels, memsets, copies) of one call each of
     kernel 10 (stream route), kernel 7 and, for contrast, kernel 10's tile
-    route, at decode gate/up, from one torch.profiler trace (kept under
-    build/profile/, gitignored): each call is synchronised, so its
-    operations lie between the previous call's and the next one's. The
-    stream route and kernel 7 must be one kernel each, no memset; the tile
-    route splits K at decode and so shows its memset. A trace with no device
+    route, at decode gate/up, and of kernel 11 at decode and at a prefill
+    chunk, from one torch.profiler trace (kept under build/profile/,
+    gitignored): each call is synchronised, so its operations lie between
+    the previous call's and the next one's. The stream route, kernel 7 and
+    both kernel 11 calls must be one kernel each, no memset; the tile route
+    splits K at decode and so shows its memset. A trace with no device
     event at all is taken again, up to ``tries`` times. Returns {call: [op
     names]}."""
     from torch.profiler import ProfilerActivity, profile
@@ -857,16 +940,21 @@ def phase_device_ops(torch, np, dev, tries=3):
     from repro_torch.core.ste import sign
     from repro_torch.kernels import bnn_matmul as bnn
     from repro_torch.kernels import qnn_matmul as qnn
+    from repro_torch.kernels.paged_attn import paged_attn_kernel_call
 
     rng = np.random.default_rng(SEED + 17)
     x, w, ws = (torch.from_numpy(a).to(dev) for a in _qnn_operands(np, rng, N_SLOTS, 960, 2560))
     xf, wf, _ = (torch.from_numpy(a).to(dev)
                  for a in _bnn_operands(np, rng, N_SLOTS, 960, 2560))
     wp = pack_signs(sign(wf).to(torch.int8))
+    attn = {name: _paged_case(torch, np, rng, dev, b, c, MAX_LEN // BLOCK, False)[:5]
+            for name, b, c in (("decode", N_SLOTS, 1), ("chunk", 1, CHUNK))}
     calls = {"qnn_matmul stream": lambda: qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE),
              "bnn_packed_matmul": lambda: bnn.bnn_packed_matmul_kernel_call(xf, wp),
              "qnn_matmul tile": lambda: qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE,
-                                                                   route="tile")}
+                                                                   route="tile"),
+             "paged_attn decode": lambda: paged_attn_kernel_call(*attn["decode"]),
+             "paged_attn chunk": lambda: paged_attn_kernel_call(*attn["chunk"])}
     for fn in calls.values():  # built and planned outside the trace
         fn()
     torch.cuda.synchronize()
@@ -893,14 +981,18 @@ def phase_device_ops(torch, np, dev, tries=3):
     result, rest = {}, [name for _, name in ops]
     for key, marker in (("qnn_matmul stream", "qnn_stream_kernel"),
                         ("bnn_packed_matmul", "stream_kernel<3,"),
-                        ("qnn_matmul tile", "qnn_kernel<")):
+                        ("qnn_matmul tile", "qnn_kernel<"),
+                        ("paged_attn decode", "paged_attn_kernel"),
+                        ("paged_attn chunk", "paged_attn_kernel")):
         end = next((i for i, name in enumerate(rest) if marker in name), None)
         if end is None:
             fail(f"device ops: no {marker} kernel in the trace: {rest}")
         result[key], rest = rest[:end + 1], rest[end + 1:]
-    print("[device-ops] one call at decode gate/up: " + "; ".join(
-        f"{k} {len(v)} ({', '.join(n[:40] for n in v)})" for k, v in result.items()))
-    for key in ("qnn_matmul stream", "bnn_packed_matmul"):
+    print("[device-ops] one call (decode gate/up; attention at decode and a chunk): "
+          + "; ".join(f"{k} {len(v)} ({', '.join(n[:40] for n in v)})"
+                      for k, v in result.items()))
+    for key in ("qnn_matmul stream", "bnn_packed_matmul", "paged_attn decode",
+                "paged_attn chunk"):
         if len(result[key]) != 1:
             fail(f"{key}: one call ran {len(result[key])} device operations: {result[key]}")
     return result
@@ -1121,6 +1213,8 @@ def phase_path(torch, np, arch, dev, route, tag="path"):
             result["launches"] = counts
             result["summary"] = summ
             result["tokens"] = outs1
+        else:
+            result["tokens_int8_kv"] = outs1
         print(f"[{tag}] int8_kv={quantized} tokens req0={outs1[0]}")
     return train, result
 
@@ -1191,7 +1285,7 @@ def phase_bnn_serve(torch, np, dev):
           f"{wall:.3f} s; launches {counts}")
     path["unpacked"] = {"launches": counts, "wall_s": wall, "summary": summ}
     path["profile"] = phase_profile(torch, np, arch, train, dev, tag="bnn-profile",
-                                    groups=KERNEL7_GROUP)
+                                    groups={**KERNEL7_GROUP, **KERNEL11_GROUP})
     serve_params = tree_to_serve(train, arch.linear_spec())
     del train
     path["parity"] = phase_parity(torch, np, arch, serve_params, dev,
@@ -1212,7 +1306,7 @@ def phase_qnn8_serve(torch, np, dev):
     arch = get_config("smollm-360m", compute_mode="qnn8", remat=False, paged_attn_route="fused")
     train, path = phase_path(torch, np, arch, dev, "qnn8", tag="qnn8-serve")
     path["profile"] = phase_profile(torch, np, arch, train, dev, tag="qnn8-profile",
-                                    groups=KERNEL10_GROUP)
+                                    groups={**KERNEL10_GROUP, **KERNEL11_GROUP})
     serve_params = tree_to_serve(train, arch.linear_spec())
     del train
     path["parity"] = phase_parity(torch, np, arch, serve_params, dev, _code_hooks(torch),
@@ -1288,7 +1382,7 @@ def phase_spec(torch, np, dev):
                 fail(f"spec {engine}: the draft never ran")
             name = f"{engine}_{'spec' if spec else 'target'}"
             tokens[name] = outs
-            result[name] = {"launches": counts, "wall_s": wall, "summary": summ}
+            result[name] = {"launches": counts, "wall_s": wall, "summary": summ, "tokens": outs}
             print(f"[spec] {name}: wall {wall:.3f} s, {rounds} "
                   f"{'rounds' if spec else 'ticks'} ({wall / rounds * 1e3:.1f} ms each, "
                   f"admissions included), goodput {summ['goodput_tok_s']:.1f} tok/s, "
@@ -1298,7 +1392,8 @@ def phase_spec(torch, np, dev):
                   + f"; launches {counts}")
         result[f"{engine}_spec"]["profile"] = phase_profile(
             torch, np, arch, train, dev, tag="spec-profile", label=f"{engine}_spec_drain",
-            groups=KERNEL10_GROUP, engine=engine, spec_draft="qnn8", spec_k=SPEC_K)
+            groups={**KERNEL10_GROUP, **KERNEL11_GROUP}, engine=engine, spec_draft="qnn8",
+            spec_k=SPEC_K)
         result[f"{engine}_spec"]["ties"] = _spec_ties(
             torch, np, arch, train, dev, tokens[f"{engine}_target"], tokens[f"{engine}_spec"],
             f"{engine} speculative vs target-only")
@@ -1400,7 +1495,7 @@ def _code_hooks(torch):
 
     def follow(x, act_scale):
         codes = plain(x, act_scale)
-        card = queue.pop(0)
+        card = queue.pop(0).to(codes.device)
         if card.shape != codes.shape:
             fail(f"parity: the two sides quantized {tuple(card.shape)} vs {tuple(codes.shape)}")
         stats["codes"] += codes.numel()
@@ -1451,7 +1546,7 @@ def _bnn_sign_hooks(torch, route_name):
         return route(x, wb)
 
     def follow(x, wb):
-        card = queue.pop(0)
+        card = queue.pop(0).to(x.device)
         stats["signs"] += x.numel()
         diff = (x >= 0) != (card >= 0)
         if bool(diff.any()):
@@ -1896,10 +1991,10 @@ def main() -> int:
     # the -Xptxas -v lines (registers, spills) of the redesigned kernels: the
     # product template (kernels 6 at large M, 8, 9) and its sign pass, the
     # streaming template (kernel 1, kernel 6 at small M, kernel 7), kernels 2
-    # and 5, and kernel 10's stream route
+    # and 5, kernel 10's stream route and kernel 11
     redesigned = ("bnn_bwd", "bnn_sign", "stream_kernel", "cac_train_fwd_kernel",
-                  "cac_train_bwd_fused_kernel", "qnn_stream_kernel")
-    for source in ("cac_matmul", "bnn_matmul", "cac_train", "qnn_matmul"):
+                  "cac_train_bwd_fused_kernel", "qnn_stream_kernel", "paged_attn_kernel")
+    for source in ("cac_matmul", "bnn_matmul", "cac_train", "qnn_matmul", "paged_attn"):
         show = False
         for line in logs.get(source, "").splitlines():
             if "Compiling entry function" in line:
@@ -1922,6 +2017,7 @@ def main() -> int:
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
     cac_rows, timing_floor = phase_cac(torch, np, dev, flush)
     attn_rows = phase_paged(torch, np, dev, flush)
+    attn_sweep = phase_attn_sweep(torch, np, dev, flush)
     train_rows = phase_train_kernels(torch, np, dev, flush)
     bnn_rows = phase_bnn_kernels(torch, np, dev, flush)
     route_sweep = phase_route_sweep(torch, np, dev, flush)
@@ -1934,7 +2030,7 @@ def main() -> int:
     arch = get_config("smollm-360m", compute_mode="bika", pack_signs=True, remat=False,
                       paged_attn_route="fused")
     train, path = phase_path(torch, np, arch, dev, "cac_hw")
-    path["profile"] = phase_profile(torch, np, arch, train, dev)
+    path["profile"] = phase_profile(torch, np, arch, train, dev, groups=KERNEL11_GROUP)
     serve_params = tree_to_serve(train, arch.linear_spec())
     del train
     path["parity"] = phase_parity(torch, np, arch, serve_params, dev, _code_hooks(torch))
@@ -1967,7 +2063,16 @@ def main() -> int:
          "bound_ms": main_attn["bound_ms"], "bound_by": main_attn["bound_by"],
          "library_ms": main_attn["library_ms"],
          "shape": "decode B=4 C=1 Hq=15 Hkv=5 D=64 bs=16 T=8 fp32 pool",
-         "shapes": attn_rows},
+         "shapes": attn_rows,
+         "spec_launches_per_drain": {k: spec[k]["launches"]["paged_attn"]
+                                     for k in ("paged_spec", "continuous_spec")},
+         "device_ops_per_call": {k: device_ops[f"paged_attn {k}"] for k in ("decode", "chunk")},
+         "drain_device_ms": {name: prof.get("groups", {}).get("paged_attn")
+                             for name, prof in (
+                                 ("bika", path["profile"]),
+                                 ("bnn", bnn_path["profile"]),
+                                 ("qnn8", qnn_path["profile"]),
+                                 ("paged_spec", spec["paged_spec"]["profile"]))}},
     ]
     main_train = next(r for r in train_rows if (r["M"], r["K"], r["N"]) == (512, 960, 2560))
     per_step = training["steps"][0]["launches"]
@@ -2046,6 +2151,7 @@ def main() -> int:
                    "bnn_route_sweep": route_sweep, "bnn_path": bnn_path,
                    "bnn_training": bnn_training, "qnn_kernels": qnn_rows,
                    "qnn_route_sweep": qnn_route_sweep, "qnn_path": qnn_path,
+                   "attn_sweep": attn_sweep,
                    "spec": spec}, fh, indent=1, sort_keys=True)
     print(smi)
     print(json.dumps({"kernels": kernels}, sort_keys=True))

@@ -1,13 +1,17 @@
-"""Time the serve path's streaming kernels on the card: kernel 7 (the
-packed sign product) and kernel 10 (the int8 matmul) at smollm-360m's four
-projections for M = 4 (decode), 16 (the draft's bucketed prefill) and 32
-(prefill chunks). Device ms per launch with a spin kernel ahead of the
-first event, as ``chip_smoke.py`` times kernels: ``ms`` with L2 flushed
-before every call (weights read from device memory, as a drain finds a
-model larger than L2), ``warm_ms`` without (the weights left in L2 by the
-previous call, as a drain finds a model that fits: 32 layers of packed
-bnn planes are 39 MB of the H100's 50 MB). Each result is first held
-bit-exact against the plain version.
+"""Time the serve path's kernels on the card: kernel 7 (the packed sign
+product) and kernel 10 (the int8 matmul) at smollm-360m's four projections
+for M = 4 (decode), 16 (the draft's bucketed prefill) and 32 (prefill
+chunks), and kernel 11 (paged attention, smollm-360m's 15 / 5 heads of 64,
+blocks of 16) at decode, a drain-like decode (rows of 3-35 positions), the
+speculative verify (C = 4) and a prefill chunk (C = 32) at T = 8 table
+entries a row, and a long decode at T = 64, each with fp32 and int8 pools.
+Device ms per launch with a spin kernel ahead of the first event, as
+``chip_smoke.py`` times kernels: ``ms`` with L2 flushed before every call
+(weights and K/V read from device memory, as a drain finds a model larger
+than L2), ``warm_ms`` without (left in L2 by the previous call, as a drain
+finds a model that fits: 32 layers of packed bnn planes are 39 MB of the
+H100's 50 MB). Each result is first held against the plain version: kernels
+7 and 10 bit-exact, kernel 11 within 2e-5.
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_times [--out FILE]
 
@@ -30,12 +34,21 @@ import torch
 from repro_torch.core.backend import pack_signs
 from repro_torch.kernels.bnn_matmul import (bnn_packed_matmul_kernel_call,
                                              bnn_packed_matmul_plain)
+from repro_torch.kernels.paged_attn import paged_attn_kernel_call
 from repro_torch.kernels.qnn_matmul import qnn_matmul_kernel_call, qnn_matmul_plain
+from repro_torch.kernels.ref import paged_attention_ref
 
 PATH_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
 ROWS = (4, 16, 32)
 SPIN_CYCLES = 4_000_000  # ~2 ms at the H100's clock: longer than any call's enqueue
 X_SCALE = 0.05
+ATTN_TOL = 2e-5
+# kernel 11: (case, B, C, T, last positions drawn from [lo, hi)); heads,
+# head dim and block as smollm-360m serves them
+ATTN_CASES = [("decode", 4, 1, 8, (1, 128)), ("drain", 4, 1, 8, (3, 36)),
+              ("verify", 4, 4, 8, (4, 128)), ("chunk", 1, 32, 8, (32, 128)),
+              ("long", 4, 1, 64, (1000, 1023))]
+HQ, HKV, HEAD_DIM, BLOCK = 15, 5, 64, 16
 
 
 def time_ms(fn, flush=None, iters: int = 20, warmup: int = 3) -> float:
@@ -58,6 +71,51 @@ def time_ms(fn, flush=None, iters: int = 20, warmup: int = 3) -> float:
     return total / iters
 
 
+def attn_operands(rng, dev, b, c, t, last_range, quantized):
+    """A shuffled pool of b * t + 3 blocks, each row's table naming t of
+    them, the row's C queries ending at a position drawn from
+    ``last_range``; int8 pools with per-(block, position, head) scales."""
+    n_phys = b * t + 3
+    q = rng.normal(size=(b, c, HQ, HEAD_DIM)).astype(np.float32)
+    tables = rng.permutation(n_phys)[: b * t].reshape(b, t).astype(np.int32)
+    last = rng.integers(*last_range, size=(b,))
+    q_pos = (last[:, None] - (c - 1) + np.arange(c)[None]).astype(np.int32)
+    shape = (n_phys, BLOCK, HKV, HEAD_DIM)
+    if quantized:
+        k = rng.integers(-127, 128, size=shape).astype(np.int8)
+        v = rng.integers(-127, 128, size=shape).astype(np.int8)
+        ks = rng.uniform(1e-3, 2e-2, size=shape[:3] + (1,)).astype(np.float32)
+        vs = rng.uniform(1e-3, 2e-2, size=shape[:3] + (1,)).astype(np.float32)
+    else:
+        k = rng.normal(size=shape).astype(np.float32)
+        v = rng.normal(size=shape).astype(np.float32)
+        ks = vs = None
+    return [None if a is None else torch.from_numpy(a).to(dev)
+            for a in (q, k, v, tables, q_pos, ks, vs)]
+
+
+def attn_rows(rng, dev, flush):
+    """Kernel 11's rows, or None when a case is out of tolerance."""
+    rows = []
+    for case, b, c, t, last_range in ATTN_CASES:
+        for quantized in (False, True):
+            q, k, v, tables, q_pos, ks, vs = attn_operands(rng, dev, b, c, t, last_range,
+                                                           quantized)
+
+            def kern():
+                return paged_attn_kernel_call(q, k, v, tables, q_pos, k_scale=ks, v_scale=vs)
+
+            err = float((kern() - paged_attention_ref(q, k, v, tables, q_pos, ks, vs)).abs().max())
+            if not err <= ATTN_TOL:
+                print(f"kernel_times: paged_attn {case} int8={quantized}: max |kernel - "
+                      f"plain| = {err}", file=sys.stderr)
+                return None
+            rows.append({"kernel": "paged_attn", "case": case, "B": b, "C": c, "T": t,
+                         "int8": quantized, "max_abs_err": err, "ms": time_ms(kern, flush),
+                         "warm_ms": time_ms(kern)})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the rows here as JSON")
@@ -75,6 +133,10 @@ def main(argv=None) -> int:
     tiny = torch.empty(1, device=dev)
     rows = [{"kernel": "floor", "ms": time_ms(lambda: tiny.zero_(), flush),
              "warm_ms": time_ms(lambda: tiny.zero_())}]
+    attn = attn_rows(np.random.default_rng(args.seed + 11), dev, flush)
+    if attn is None:
+        return 1
+    rows += attn
     for m in ROWS:
         for k, n in PATH_KN:
             x = torch.from_numpy(rng.integers(-128, 128, size=(m, k)).astype(np.int8)).to(dev)

@@ -4,7 +4,7 @@ import numpy as np
 
 __all__ = ["BNN_KERNEL_SHAPES", "H100_STREAM_BLOCKS", "LANE_FLUSH_ROWS", "PAGED_CASES",
            "QNN_KERNEL_SHAPES", "TRAIN_KERNEL_SHAPES", "bnn_case", "byte_lane_mismatches", "cac_case",
-           "cac_train_case", "cac_train_dyadic_case", "paged_case", "qnn_case", "to_words",
+           "cac_train_case", "cac_train_dyadic_case", "paged_case", "paged_ids", "qnn_case", "to_words",
            "window_clear"]
 
 HI = 0x80808080
@@ -135,9 +135,14 @@ def window_clear(x, w, beta, eps=1e-4, rows=8):
     return dx_keep, dw_keep
 
 
-def paged_case(rng, b, c, hq, hkv, d, bs, t, quantized):
+def paged_case(rng, b, c, hq, hkv, d, bs, t, quantized, positions=None):
     """Shuffled physical pool, each row's table naming t distinct blocks,
-    query positions ending inside a partial last block."""
+    query positions ending inside a partial last block. ``positions``: None
+    draws them at random; "tail" ends every row's queries in the table's
+    last block (every rank of the kernel's cluster live, ranks walking
+    several blocks when t > 8); "head" starts every row's chunk at position 0
+    (its first bs queries see block 0 alone, so every other rank has nothing
+    unmasked for them); "zero" puts row 0's decode query at position 0."""
     n_phys = b * t + 3
     q = rng.normal(size=(b, c, hq, d)).astype(np.float32)
     tables = rng.permutation(n_phys)[: b * t].reshape(b, t).astype(np.int32)
@@ -146,6 +151,15 @@ def paged_case(rng, b, c, hq, hkv, d, bs, t, quantized):
     else:
         start = rng.integers(0, t * bs - c, size=(b,))
         q_pos = (start[:, None] + np.arange(c)[None]).astype(np.int32)
+    if positions == "tail":
+        last = rng.integers((t - 1) * bs, t * bs, size=(b,))
+        q_pos = (last[:, None] - (c - 1) + np.arange(c)[None]).astype(np.int32)
+    elif positions == "head":
+        q_pos = np.repeat(np.arange(c, dtype=np.int32)[None], b, axis=0)
+    elif positions == "zero":
+        q_pos[0] = 0
+    elif positions is not None:
+        raise ValueError(f"positions {positions!r}")
     if quantized:
         k = rng.integers(-127, 128, size=(n_phys, bs, hkv, d)).astype(np.int8)
         v = rng.integers(-127, 128, size=(n_phys, bs, hkv, d)).astype(np.int8)
@@ -158,14 +172,29 @@ def paged_case(rng, b, c, hq, hkv, d, bs, t, quantized):
     return q, k, v, tables, q_pos, ks, vs
 
 
+# (b, c, hq, hkv, d, bs, t, quantized, positions) for ``paged_case``; the
+# kernel splits each row's table over min(t, 8) ranks of a cluster
 PAGED_CASES = [
-    (2, 1, 6, 2, 16, 8, 4, False),  # GQA decode
-    (3, 1, 6, 3, 16, 8, 5, True),   # int8 decode
-    (2, 8, 6, 2, 16, 8, 4, False),  # GQA chunk (C=8)
-    (2, 8, 4, 4, 16, 8, 4, True),   # int8 chunk, MHA
-    (4, 4, 6, 2, 16, 8, 4, False),  # speculative verify window (B=4, C=4)
-    (4, 4, 6, 2, 16, 8, 4, True),   # int8 verify window
+    (2, 1, 6, 2, 16, 8, 4, False, None),  # GQA decode
+    (3, 1, 6, 3, 16, 8, 5, True, None),   # int8 decode
+    (2, 8, 6, 2, 16, 8, 4, False, None),  # GQA chunk (C=8)
+    (2, 8, 4, 4, 16, 8, 4, True, None),   # int8 chunk, MHA
+    (4, 4, 6, 2, 16, 8, 4, False, None),  # speculative verify window (B=4, C=4)
+    (4, 4, 6, 2, 16, 8, 4, True, None),   # int8 verify window
+    (2, 1, 6, 2, 16, 8, 11, False, "tail"),  # T = 11: ranks 0-2 walk two blocks
+    (3, 1, 6, 2, 16, 8, 20, True, "tail"),   # int8, T = 20: ranks 0-3 walk three
+    (2, 6, 6, 2, 16, 8, 20, False, "tail"),  # a chunk at T = 20
+    (1, 8, 6, 2, 16, 2, 8, False, "head"),   # chunk from 0, block 2: queries 0-1 see rank 0 only
+    (2, 8, 4, 4, 16, 4, 6, True, "head"),    # the same, int8, MHA, block 4
+    (3, 1, 6, 3, 16, 8, 5, False, "zero"),   # decode, row 0 at position 0
 ]
+
+
+def paged_ids(cases=PAGED_CASES):
+    """Test ids of PAGED_CASES: the eight shape fields joined by "-" (as
+    pytest names them), then the positions where they are not random."""
+    return ["-".join(str(f) for f in case[:8]) + (f"-{case[8]}" if case[8] else "")
+            for case in cases]
 
 
 def to_words(b):

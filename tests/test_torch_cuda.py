@@ -27,18 +27,25 @@ is bit-exact on both of its routes: an exact int32 sum and the same two
 float32 roundings as its plain version, also where the sums pass 2^24,
 where the stream route's K splits meet in a cluster and where the tile
 route's meet through integer atomics. Kernels 7 and 10 on the streaming
-layout are one device operation a call (a torch.profiler trace)."""
+layout are one device operation a call (a torch.profiler trace). Paged
+attention (kernel 11) is within 2e-5 of the gather oracle at every case,
+including tables split over clusters of 1 to 16 ranks whose ranks walk
+several blocks and chunks whose first queries see rank 0 alone, repeats
+bit for bit (its ranks meet in rank order), takes the plan that
+``attn_plan`` computes, and is one device operation a call at decode and
+at a prefill chunk."""
 import numpy as np
 import pytest
 import torch
 from _torch_cases import (BNN_KERNEL_SHAPES, PAGED_CASES, QNN_KERNEL_SHAPES,
                           TRAIN_KERNEL_SHAPES, bnn_case, cac_case, cac_train_case,
-                          cac_train_dyadic_case, paged_case, qnn_case, window_clear)
+                          cac_train_dyadic_case, paged_case, paged_ids, qnn_case, window_clear)
 
 from repro_torch.core.backend import pack_signs
 from repro_torch.core.ste import sign
 from repro_torch.kernels import bnn_matmul as bnn
 from repro_torch.kernels import cac_matmul as cac
+from repro_torch.kernels import paged_attn as pa
 from repro_torch.kernels import qnn_matmul as qnn
 from repro_torch.kernels import ref
 from repro_torch.kernels.cac_matmul import cac_matmul_kernel_call, cac_matmul_plain
@@ -109,17 +116,63 @@ def test_bnn_forward_routes_on_card(cuda, past, w_dtype, k, n):
     assert bnn.bnn_matmul_kernel_call.launches == before + 6
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,c,hq,hkv,d,bs,t,quantized", PAGED_CASES)
-def test_paged_attention_kernel_on_card(cuda, b, c, hq, hkv, d, bs, t, quantized):
+def _paged_operands(cuda, b, c, hq, hkv, d, bs, t, quantized, positions):
     rng = np.random.default_rng(b + c + hq)
-    case = paged_case(rng, b, c, hq, hkv, d, bs, t, quantized)
-    q, k, v, tables, q_pos, ks, vs = (None if a is None else torch.from_numpy(a) for a in case)
-    want = ref.paged_attention_ref(q, k, v, tables, q_pos, ks, vs)
-    dev = [None if a is None else a.to(cuda) for a in (q, k, v, tables, q_pos, ks, vs)]
+    case = paged_case(rng, b, c, hq, hkv, d, bs, t, quantized, positions)
+    host = [None if a is None else torch.from_numpy(a) for a in case]
+    return host, [None if a is None else a.to(cuda) for a in host]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,hq,hkv,d,bs,t,quantized,positions", PAGED_CASES,
+                         ids=paged_ids())
+def test_paged_attention_kernel_on_card(cuda, b, c, hq, hkv, d, bs, t, quantized, positions):
+    """Within 2e-5 of the gather oracle, and two calls equal bit for bit
+    (the ranks' partials meet in a fixed order)."""
+    host, dev = _paged_operands(cuda, b, c, hq, hkv, d, bs, t, quantized, positions)
+    want = ref.paged_attention_ref(*host)
     got = paged_attn_kernel_call(*dev[:5], k_scale=dev[5], v_scale=dev[6])
+    again = paged_attn_kernel_call(*dev[:5], k_scale=dev[5], v_scale=dev[6])
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
+    assert torch.equal(got, again)
+
+
+# (case for _paged_operands, plan): tiles that cut a chunk unevenly and
+# clusters of 1 to 16 (non-portable) ranks at T = 20 with the chunk's
+# queries in the last blocks; whole-chunk tiles over a chunk from position
+# 0, whose first queries see rank 0 alone
+PLAN_CASES = [((2, 9, 6, 2, 64, 8, 20, False, "tail"), plan)
+              for plan in [(1, 1), (3, 2), (8, 5), (2, 8), (4, 16)]] + [
+              ((1, 8, 6, 2, 16, 2, 8, False, "head"), (8, 4)),
+              ((2, 8, 4, 4, 16, 4, 6, True, "head"), (8, 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,plan", PLAN_CASES)
+def test_paged_attention_kernel_plans_on_card(cuda, case, plan):
+    """Any plan within 2e-5 of the oracle."""
+    host, dev = _paged_operands(cuda, *case)
+    want = ref.paged_attention_ref(*host)
+    got = paged_attn_kernel_call(*dev[:5], k_scale=dev[5], v_scale=dev[6], plan=plan)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,t", [(4, 1, 8), (4, 4, 8), (1, 32, 8), (4, 1, 64), (1, 32, 64),
+                                   (2, 24, 20), (1, 32, 2)])
+def test_paged_attention_plan_matches_the_kernel(cuda, b, c, t):
+    """The compiled kernel's plan is attn_plan's, with its shared memory
+    and threads, and the card keeps the whole grid resident."""
+    hq, hkv, d, bs = 15, 5, 64, 16
+    q_tile, splits = pa.attn_plan(b, c, hq, hkv, d, bs, t)
+    g = hq // hkv
+    assert pa.card_plan(b, c, hq, hkv, d, bs, t) == (
+        q_tile, splits, pa.attn_smem_bytes(q_tile, g, d, bs, t, splits),
+        32 * min(pa.MAX_WARPS, min(q_tile, c) * g))
+    blocks = b * hkv * -(-c // q_tile) * splits
+    assert blocks <= pa.card_max_blocks(b, c, hq, hkv, d, bs, t, False, q_tile, splits)
 
 
 @pytest.mark.cuda
@@ -241,24 +294,30 @@ def test_bnn_packed_equals_kernel6_on_card(cuda, m, k, n):
     assert torch.equal(bnn.bnn_packed_matmul_kernel_call(x, wp), got)
 
 
-def device_ops(fn, trace_path):
+def device_ops(fn, trace_path, tries=3):
     """The device operations (kernels, memsets, copies) of one call of
     ``fn``, by name, from a torch.profiler trace; ``fn`` runs once before,
-    so that its kernel is built and its plan made outside the trace."""
+    so that its kernel is built and its plan made outside the trace. A trace
+    that holds no device event at all (the profiler sometimes returns one
+    empty in a long process) is taken again, up to ``tries`` times."""
     import json
 
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(str(trace_path))
-    with open(trace_path) as fh:
-        events = json.load(fh)["traceEvents"]
-    return [e["name"] for e in events if e.get("ph") == "X"
-            and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace_path))
+        with open(trace_path) as fh:
+            events = json.load(fh)["traceEvents"]
+        ops = [e["name"] for e in events if e.get("ph") == "X"
+               and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
+        if ops:
+            break
+    return ops
 
 
 @pytest.mark.cuda
@@ -275,3 +334,13 @@ def test_stream_kernels_one_device_op_on_card(cuda, tmp_path, m):
     wp = pack_signs(sign(wf).to(torch.int8))
     ops = device_ops(lambda: bnn.bnn_packed_matmul_kernel_call(xf, wp), tmp_path / "bnn.json")
     assert len(ops) == 1 and "stream_kernel<3," in ops[0], ops  # op SIGN_PACKED
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c", [(4, 1), (1, 32)])
+def test_paged_attention_one_device_op_on_card(cuda, tmp_path, b, c):
+    """A call of kernel 11 at decode and at a prefill chunk is one device
+    operation: one kernel, no memset, no copy."""
+    _, dev = _paged_operands(cuda, b, c, 15, 5, 64, 16, 8, False, "tail")
+    ops = device_ops(lambda: paged_attn_kernel_call(*dev[:5]), tmp_path / "attn.json")
+    assert len(ops) == 1 and "paged_attn_kernel" in ops[0], ops

@@ -11,8 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import functools
+
 from _torch_cases import (H100_STREAM_BLOCKS, LANE_FLUSH_ROWS, PAGED_CASES,
-                          byte_lane_mismatches, cac_case, paged_case, to_words)
+                          byte_lane_mismatches, cac_case, paged_case, paged_ids, to_words)
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -20,6 +22,7 @@ from repro.kernels.paged_attn import paged_attn_kernel_call as jax_paged_attn
 from repro_torch.core.backend import pack_signs
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import cac_matmul as cac
+from repro_torch.kernels import paged_attn as pa
 from repro_torch.kernels.cac_matmul import cac_matmul_kernel_call, cac_matmul_plain
 
 
@@ -160,19 +163,206 @@ def _j(a):
     return None if a is None else jnp.asarray(a)
 
 
-@pytest.mark.parametrize("b,c,hq,hkv,d,bs,t,quantized", PAGED_CASES)
-def test_paged_attention_plain_matches_reference(b, c, hq, hkv, d, bs, t, quantized):
-    """The port's paged attention (CPU -> plain gather oracle) against the
-    JAX fused kernel (interpret mode) and the JAX gather oracle."""
+PAGED_ARGS = "b,c,hq,hkv,d,bs,t,quantized,positions"
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_reference(case):
+    """A PAGED_CASES case's operands (numpy) and the JAX fused kernel's
+    (interpret mode) and gather oracle's outputs, made once per case."""
+    b, c, hq, hkv, d, bs, t, quantized, positions = case
     rng = np.random.default_rng(b * 100 + c * 10 + hq)
-    q, k, v, tables, q_pos, ks, vs = paged_case(rng, b, c, hq, hkv, d, bs, t, quantized)
-    got = ops.paged_attention(_t(q), _t(k), _t(v), _t(tables), _t(q_pos),
-                              k_scale=_t(ks), v_scale=_t(vs)).numpy()
+    ops_np = paged_case(rng, b, c, hq, hkv, d, bs, t, quantized, positions)
+    q, k, v, tables, q_pos, ks, vs = ops_np
     want_kernel = jax_paged_attn(_j(q), _j(k), _j(v), _j(tables), _j(q_pos),
                                  k_scale=_j(ks), v_scale=_j(vs), interpret=True)
     want_ref = jref.paged_attention_ref(_j(q), _j(k), _j(v), _j(tables), _j(q_pos), _j(ks), _j(vs))
-    np.testing.assert_allclose(got, np.asarray(want_kernel), atol=2e-5, rtol=2e-5)
-    np.testing.assert_allclose(got, np.asarray(want_ref), atol=2e-5, rtol=2e-5)
+    return ops_np, np.asarray(want_kernel), np.asarray(want_ref)
+
+
+@pytest.mark.parametrize(PAGED_ARGS, PAGED_CASES, ids=paged_ids())
+def test_paged_attention_plain_matches_reference(b, c, hq, hkv, d, bs, t, quantized, positions):
+    """The port's paged attention (CPU -> plain gather oracle) against the
+    JAX fused kernel (interpret mode) and the JAX gather oracle."""
+    ops_np, want_kernel, want_ref = _paged_reference((b, c, hq, hkv, d, bs, t, quantized,
+                                                      positions))
+    q, k, v, tables, q_pos, ks, vs = (_t(a) for a in ops_np)
+    got = ops.paged_attention(q, k, v, tables, q_pos, k_scale=ks, v_scale=vs).numpy()
+    np.testing.assert_allclose(got, want_kernel, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(got, want_ref, atol=2e-5, rtol=2e-5)
+
+
+def _rank_partials(q, k, v, tables, q_pos, k_scale, v_scale, row, c0, splits, q_tile,
+                   masked_rule=True):
+    """The live ranks' (m, l, acc) of one row's tile of ``q_tile`` query
+    tokens from ``c0``, as kernel 11 forms them: the tile's live blocks are
+    those up to its largest q_pos (whole-block skip); rank r of ``splits``
+    walks blocks r, r + splits, ... with an online softmax from (m, l, acc)
+    = (-1e30, 0, 0), p = 0 at a masked position (``masked_rule``; without it
+    a rank that sees nothing unmasked for a query sums exp(-1e30 + 1e30) = 1
+    over its positions). float32 throughout."""
+    d = q.shape[3]
+    bs, hkv = k.shape[1], k.shape[2]
+    g = q.shape[2] // hkv
+    t = tables.shape[1]
+    neg = torch.tensor(-1e30)
+    root_d = torch.sqrt(torch.tensor(float(d)))
+    qt = q[row, c0:c0 + q_tile].float()  # (nc, Hq, D)
+    qp = q_pos[row, c0:c0 + q_tile].long()
+    nblk = min(t, max(int(qp.max()), 0) // bs + 1)
+    parts = []
+    for r in range(min(splits, nblk)):
+        m = torch.full(qt.shape[:2], -1e30)
+        l = torch.zeros(qt.shape[:2])
+        acc = torch.zeros(qt.shape)
+        for j in range(r, nblk, splits):
+            phys = int(tables[row, j])
+            kb, vb = k[phys].float(), v[phys].float()  # (bs, Hkv, D)
+            if k_scale is not None:
+                kb, vb = kb * k_scale[phys], vb * v_scale[phys]
+            kb, vb = kb.repeat_interleave(g, dim=1), vb.repeat_interleave(g, dim=1)
+            s = torch.einsum("chd,thd->cht", qt, kb) / root_d
+            ok = ((j * bs + torch.arange(bs))[None] <= qp[:, None])[:, None, :]
+            s = torch.where(ok, s, neg)
+            m_new = torch.maximum(m, s.max(-1).values)
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            if masked_rule:
+                p = torch.where(ok, p, torch.zeros(()))
+            l = alpha * l + p.sum(-1)
+            acc = alpha[..., None] * acc + torch.einsum("cht,thd->chd", p, vb)
+            m = m_new
+        parts.append((m, l, acc))
+    return parts
+
+
+def paged_attn_split_model(q, k, v, tables, q_pos, k_scale, v_scale, splits, q_tile,
+                           masked_rule=True):
+    """Kernel 11's order in plain PyTorch: each row's tiles of ``q_tile``
+    query tokens, each tile's table split over ``splits`` ranks
+    (``_rank_partials``), and rank 0's merge of the live ranks in rank
+    order: m* = max m_r, a_r = exp(m_r - m*), l = sum a_r l_r, acc = sum a_r
+    acc_r, out = acc / l. Shapes as ``ref.paged_attention_ref``."""
+    b, c = q.shape[:2]
+    out = torch.empty(q.shape)
+    for row in range(b):
+        for c0 in range(0, c, q_tile):
+            parts = _rank_partials(q, k, v, tables, q_pos, k_scale, v_scale, row, c0, splits,
+                                   q_tile, masked_rule)
+            m_star = torch.stack([pm for pm, _, _ in parts]).max(0).values
+            l_sum, acc_sum = 0.0, 0.0
+            for pm, pl, pacc in parts:  # rank order
+                a = torch.exp(pm - m_star)
+                l_sum = l_sum + a * pl
+                acc_sum = acc_sum + a[..., None] * pacc
+            out[row, c0:c0 + q_tile] = acc_sum / l_sum[..., None]
+    return out
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize(PAGED_ARGS, PAGED_CASES, ids=paged_ids())
+def test_paged_attn_split_model_matches_reference(b, c, hq, hkv, d, bs, t, quantized, positions,
+                                                  splits):
+    """The kernel's split order (strided table blocks a rank, the masked-rank
+    rule, the rank-order merge) within 2e-5 of the JAX fused kernel
+    (interpret mode) and the JAX gather oracle: at 8 ranks with the
+    kernel's own query tile, at 1, 2 and 3 with tiles of 4, 3 and 2 tokens
+    (a chunk's last tile short)."""
+    ops_np, want_kernel, want_ref = _paged_reference((b, c, hq, hkv, d, bs, t, quantized,
+                                                      positions))
+    q, k, v, tables, q_pos, ks, vs = (_t(a) for a in ops_np)
+    q_tile = {1: 4, 2: 3, 3: 2}.get(splits) or pa.attn_plan(b, c, hq, hkv, d, bs, t)[0]
+    got = paged_attn_split_model(q, k, v, tables, q_pos, ks, vs, splits, q_tile).numpy()
+    np.testing.assert_allclose(got, want_kernel, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(got, want_ref, atol=2e-5, rtol=2e-5)
+
+
+HEAD_CASES = [cs for cs in PAGED_CASES if cs[8] == "head"]
+
+
+@pytest.mark.parametrize("case", HEAD_CASES, ids=paged_ids(HEAD_CASES))
+def test_paged_attn_split_model_masked_rank_rule(case):
+    """The "head" cases reach the trap the split opens: queries whose every
+    position lies in block 0 see nothing unmasked in ranks 1... There the
+    rule gives l_r = 0 and acc_r = 0 exactly; summing exp(s - m) instead
+    gives l_r = the rank's positions (exp(-1e30 + 1e30) = 1 each). The merge
+    weighs such a rank by exp(-1e30 - m*) = 0 either way, so both orders
+    stay within 2e-5 of the oracle: the rule and the weight each guard it."""
+    ops_np, _, want_ref = _paged_reference(case)
+    q, k, v, tables, q_pos, ks, vs = (_t(a) for a in ops_np)
+    b, c, bs = case[0], case[1], case[5]
+    splits = pa.attn_plan(*case[:7])[1]
+    blind = q_pos[0] < bs  # queries that see block 0 alone
+    assert blind.any() and not blind.all()
+    for rule in (True, False):
+        parts = _rank_partials(q, k, v, tables, q_pos, ks, vs, 0, 0, splits, c, rule)
+        assert len(parts) > 1
+        for m, l, acc in parts[1:]:
+            assert torch.all(m[blind] == -1e30)
+            if rule:
+                assert torch.all(l[blind] == 0) and torch.all(acc[blind] == 0)
+            else:
+                assert torch.all(l[blind] == bs)
+        got = paged_attn_split_model(q, k, v, tables, q_pos, ks, vs, splits, c, rule).numpy()
+        np.testing.assert_allclose(got, want_ref, atol=2e-5, rtol=2e-5)
+
+
+# (B, C, T) at smollm-360m's heads (Hq 15, Hkv 5, D 64) and block 16: decode,
+# the speculative verify and a prefill chunk at max_len 128 (T = 8), and
+# decode and a chunk at T = 64 (max_len 1024)
+SMOKE_ATTN = [(4, 1, 8), (4, 4, 8), (1, 32, 8), (4, 1, 64), (1, 32, 64)]
+H100_SMS = 132
+
+
+def _resident_blocks_per_sm(smem, threads, regs=128):
+    """What an H100 SM holds of a block: 228 KB of shared memory (1 KB a
+    block reserved), 2,048 threads, 64 K registers, 32 blocks."""
+    return min((233472) // (smem + 1024), 2048 // threads, 65536 // (regs * threads), 32)
+
+
+@pytest.mark.parametrize("b,c,t", SMOKE_ATTN)
+def test_attn_plan_fits_the_card(b, c, t):
+    """The plan at the smoke shapes: a cluster of min(T, 8) (of min(T, 16)
+    past T = 8 where that grid is one wave), the query vectors of a tile
+    within 8 warps' registers, the slots fitting two blocks an SM, and the
+    whole grid resident on the H100 at once."""
+    hq, hkv, d, bs = 15, 5, 64, 16
+    q_tile, splits = pa.attn_plan(b, c, hq, hkv, d, bs, t)
+    g = hq // hkv
+    assert splits == min(t, 8) or (t > 8 and splits == min(t, 16))
+    assert 1 <= q_tile <= min(c, pa.QTILE)
+    assert q_tile * g <= pa.MAX_WARPS * pa.qmax(d)
+    smem = pa.attn_smem_bytes(q_tile, g, d, bs, t, splits)
+    threads = 32 * min(pa.MAX_WARPS, q_tile * g)
+    assert smem <= pa.SMEM_BUDGET and _resident_blocks_per_sm(smem, threads) >= 2
+    blocks = b * hkv * -(-c // q_tile) * splits
+    assert 8 * blocks <= 7 * H100_SMS * _resident_blocks_per_sm(smem, threads)  # clusters' 7/8
+    if c > 1:  # a chunk's tiles even: sizes differ by at most one
+        sizes = [min(q_tile, c - c0) for c0 in range(0, c, q_tile)]
+        assert max(sizes) - min(sizes) <= 1 or c % q_tile == 0
+
+
+def test_attn_plan_shrinks_the_tile_and_refuses_what_it_cannot_take():
+    """One token a tile where that grid is one wave of the card, else up to
+    4; a large GQA group at a wide head takes fewer tokens a tile (its query
+    vectors must fit the warps' registers) or fewer where the slots would
+    keep two blocks from an SM; a long table takes 16 ranks where that grid
+    is one wave; D > 256, a block past 128 positions or a group past the
+    registers of 8 warps is refused before any launch."""
+    assert pa.attn_plan(64, 32, 32, 4, 128, 16, 2) == (2, 2)  # G = 8: 2 query vectors a warp
+    assert pa.attn_plan(64, 32, 64, 4, 128, 16, 8) == (1, 8)  # G = 16
+    assert pa.attn_plan(1, 4, 32, 4, 256, 64, 8) == (1, 8)    # 201 KB: one block an SM
+    assert pa.attn_plan(64, 5, 6, 2, 16, 8, 3) == (5, 3)      # T < 8: a cluster of T
+    assert pa.attn_plan(64, 12, 6, 2, 16, 8, 3) == (6, 3)     # 12 tokens: two tiles of 6
+    assert pa.attn_plan(2, 5, 6, 2, 16, 8, 3) == (1, 3)       # one-token tiles: one wave
+    assert pa.attn_plan(2, 4, 15, 5, 64, 16, 8) == (1, 8)     # 320 one-token blocks: one wave
+    assert pa.attn_plan(4, 4, 15, 5, 64, 16, 8) == (4, 8)     # the verify: 640 would not be
+    assert pa.attn_plan(1, 32, 15, 5, 64, 16, 8) == (8, 8)    # a chunk: 1,280 would not be
+    assert pa.attn_plan(4, 1, 15, 5, 64, 16, 64) == (1, 16)   # 320 small blocks: one wave
+    assert pa.attn_plan(1, 32, 15, 5, 64, 16, 64) == (8, 8)   # 16 ranks' slots: not one tile
+    for shape in [(1, 1, 2, 1, 320, 16, 8), (1, 1, 2, 1, 64, 256, 8), (1, 1, 64, 4, 256, 16, 8)]:
+        with pytest.raises(ValueError):
+            pa.attn_plan(*shape)
 
 
 def test_kernel_routes_and_counters():
