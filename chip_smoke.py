@@ -8,9 +8,10 @@ Phases (each prints its own line; any failure exits non-zero):
 2. build   — compile every kernel in src/repro_torch/csrc/ with nvcc, in
              parallel, and print the build time.
    device-ops — one call each of kernel 10 (stream route), kernel 7 and
-             kernel 10's tile route at decode gate/up, and of kernel 11 at
-             decode and at a prefill chunk, under torch.profiler: all but
-             the tile route must be one device operation each (no memset).
+             kernel 10's tile route at decode gate/up, of kernel 11 at
+             decode and at a prefill chunk, and of kernels 3 and 4 at train
+             gate/up, under torch.profiler: all but the tile route must be
+             one device operation each (no memset).
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
              at the shapes of the path that runs it: CAC bit-exact and
              repeatable (M = 4 and 32 at the four projections, timed, and
@@ -23,13 +24,15 @@ Phases (each prints its own line; any failure exits non-zero):
              query tile (chunk, verify) and cluster size (long decode);
              the training CAC forward bit-exact and its STE backward (fused,
              and the split dx + dw pair) within atol = rtol = 1e-4 off the
-             |pre| = 1 window edge, at M = 512 and two ragged shapes, the
-             fused one bit-repeatable; on a dyadic grid with +-0, +-inf and
-             NaN rows and columns (every product and sum exact) the forward
-             and the fused backward equal their plain versions bit for bit,
-             window edges included; the -Xptxas -v lines and the hot loops'
-             instruction mix of kernels 2 and 5, their cluster occupancy and
-             a sweep of their split counts. Times
+             |pre| = 1 window edge, at M = 512 and two ragged shapes, all
+             three backward kernels bit-repeatable, and whether the split
+             pair equals the fused kernel bit for bit printed; on a dyadic
+             grid with +-0, +-inf and NaN rows and columns (every product
+             and sum exact) the forward and the fused and split backwards
+             equal their plain versions bit for bit, window edges included;
+             the -Xptxas -v lines and the hot loops' instruction mix of
+             kernels 2-5, their occupancy and plans, and a sweep of every
+             plan kernels 2-5 could take. Times
              the kernel, its plain version and, where one exists, a library
              call that computes the same function (gather + SDPA for
              attention; timed here only, the port never calls it).
@@ -49,9 +52,9 @@ Phases (each prints its own line; any failure exits non-zero):
              (remat on), batch 4 x seq 128: 3 steps with the fused backward
              and 1 with the split pair, launch counts exact per step (448
              forward, 224 fused; 224 dx + 224 dw on the split step), finite
-             losses; ms per step, peak memory, and one more step under
-             torch.profiler (device busy, idle share, top kernels, the device
-             ms of kernels 2 and 5).
+             losses; ms per step, peak memory, and one more step of each
+             backward under torch.profiler (device busy, idle share, top
+             kernels, the device ms of kernels 2 and 5, or 2, 3 and 4).
 7. train parity — one train step of the same model cut to 2 layers on the
              card and on the CPU plain path, CAC outputs held equal where
              the two split a Sign at a near-zero pre-activation (see
@@ -555,19 +558,26 @@ def _bits_equal(torch, a, b):
 
 
 def _train_split_sweep(torch, cac, x, w, beta, g, flush):
-    """Kernel 2 at every K split count of 1..8 and kernel 5 at every
-    cluster size of 1..min(16, N tiles), through the launchers (these
-    launches are timing only, not counted): the times the plans in
-    kernels/cac_matmul.py are checked against."""
+    """Every plan kernels 2-5 could take, through the launchers (these
+    launches are timing only, not counted): kernel 2 at every K split count
+    of 1..8, kernels 5 and 3 at every cluster size of 1..min(16, N tiles),
+    kernel 4 with 8 and with 4 columns a thread, one block an N tile (the
+    plan's) and, for contrast, a half and a quarter as many blocks walking
+    2 and 4 tiles. The times the plans in kernels/cac_matmul.py are checked
+    against."""
     m, k = x.shape
     n = w.shape[1]
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     dx, dw, db = torch.empty_like(x), torch.empty_like(w), torch.empty_like(w)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    ops = (x.data_ptr(), w.data_ptr(), beta.data_ptr(), g.data_ptr())
     fwd = cac._train_lib("cac_train_fwd_launch")
-    bwd = cac._train_lib("cac_train_bwd_fused_launch")
+    launchers = {"bwd": (cac._train_lib("cac_train_bwd_fused_launch"),
+                         (dx.data_ptr(), dw.data_ptr(), db.data_ptr())),
+                 "dx": (cac._train_lib("cac_train_bwd_dx_launch"), (dx.data_ptr(),))}
+    dw_launch = cac._train_lib("cac_train_bwd_dw_launch")
     slices = -(-k // cac.TRAIN_FWD_SLICE)
-    out = {"fwd": {}, "bwd": {}}
+    out = {"fwd": {}, "bwd": {}, "dx": {}, "dw": {}}
     for s in range(1, cac.TRAIN_MAX_SPLITS + 1):
         if s > slices or -(-slices // -(-slices // s)) != s:
             continue
@@ -576,16 +586,27 @@ def _train_split_sweep(torch, cac, x, w, beta, g, flush):
         if launch() != 0:
             fail(f"cac_train_fwd launcher refused {s} splits at M={m} K={k} N={n}")
         out["fwd"][s] = time_ms(torch, launch, flush=flush)
-    for c in range(1, min(cac.TRAIN_BWD_MAX_CLUSTER, -(-n // cac.TRAIN_BWD_TILE[1])) + 1):
-        launch = lambda: bwd(x.data_ptr(), w.data_ptr(), beta.data_ptr(), g.data_ptr(),
-                             dx.data_ptr(), dw.data_ptr(), db.data_ptr(), m, n, k, c, stream)
-        if launch() != 0:
-            fail(f"cac_train_bwd_fused launcher refused a cluster of {c} at M={m} K={k} N={n}")
-        out["bwd"][c] = time_ms(torch, launch, flush=flush)
+    for key, (fn, outs) in launchers.items():
+        for c in range(1, min(cac.TRAIN_BWD_MAX_CLUSTER, -(-n // cac.TRAIN_BWD_TILE[1])) + 1):
+            launch = lambda: fn(*ops, *outs, m, n, k, c, stream)
+            if launch() != 0:
+                fail(f"cac_train_bwd {key} launcher refused a cluster of {c} at M={m} K={k} N={n}")
+            out[key][c] = time_ms(torch, launch, flush=flush)
+    for nt in (8, 4):
+        tiles = -(-n // (8 * nt))
+        for parts in sorted({tiles, -(-tiles // 2), -(-tiles // 4)}, reverse=True):
+            launch = lambda: dw_launch(*ops, dw.data_ptr(), db.data_ptr(), m, n, k, nt, parts,
+                                       stream)
+            if launch() != 0:
+                fail(f"cac_train_bwd_dw launcher refused nt {nt}, {parts} parts at M={m} K={k} "
+                     f"N={n}")
+            out["dw"][f"{nt}x{parts}"] = time_ms(torch, launch, flush=flush)
     torch.cuda.synchronize()
-    print(f"[kernels] cac_train M={m} K={k} N={n} split sweep ms: fwd "
-          + ", ".join(f"{s}: {t:.5f}" for s, t in out["fwd"].items()) + "; fused bwd "
-          + ", ".join(f"{c}: {t:.5f}" for c, t in out["bwd"].items()))
+    print(f"[kernels] cac_train M={m} K={k} N={n} plan sweep ms: fwd by K split "
+          + ", ".join(f"{s}: {t:.5f}" for s, t in out["fwd"].items()) + "; fused bwd by cluster "
+          + ", ".join(f"{c}: {t:.5f}" for c, t in out["bwd"].items()) + "; dx by cluster "
+          + ", ".join(f"{c}: {t:.5f}" for c, t in out["dx"].items()) + "; dw by columns a "
+          "thread x blocks a K tile " + ", ".join(f"{c}: {t:.5f}" for c, t in out["dw"].items()))
     return out
 
 
@@ -593,9 +614,11 @@ def phase_train_kernels(torch, np, dev, flush):
     """Kernels 2-5 against their plain versions: forward bit-exact; dx, dw,
     dbeta of the fused kernel and of the split pair within TRAIN_TOL of the
     plain fused backward and of each other, off the |pre| = 1 window edge,
-    and a second fused launch equal bit for bit; on the dyadic grid
-    (``_dyadic_operands``) at q/o and the ragged shapes, the forward and the
-    fused backward bit-equal to their plain versions. Inputs as the
+    and a second launch of each of kernels 3-5 equal bit for bit; whether
+    the split pair equals kernel 5 bit for bit, printed (both sum in kernel
+    5's order, kernel 3 at kernel 5's cluster size); on the
+    dyadic grid (``_dyadic_operands``) at q/o and the ragged shapes, the
+    forward and both backwards bit-equal to their plain versions. Inputs as the
     reference's kernel tests draw them (x, g ~ N(0, 1); w, beta ~ N(0,
     0.25)). Timed at the path's shapes, with each launch's plan and a sweep
     of the split counts. Operations per (m, k, n) as the bound counts them
@@ -607,12 +630,16 @@ def phase_train_kernels(torch, np, dev, flush):
     beta) summed over K)."""
     from repro_torch.kernels import cac_matmul as cac
 
-    fwd_blocks, bwd_blocks = (cac._train_lib(f"cac_train_{nm}_max_blocks")
-                              for nm in ("fwd", "bwd_fused"))
-    print(f"[kernels] cac_train cluster occupancy (blocks resident): fwd by split "
-          f"{[fwd_blocks(s) for s in range(1, cac.TRAIN_MAX_SPLITS + 1)]}, fused bwd at "
-          f"M={TRAIN_SHAPES[0][0]} by cluster "
-          f"{[bwd_blocks(c, TRAIN_SHAPES[0][0]) for c in range(1, cac.TRAIN_BWD_MAX_CLUSTER + 1)]}")
+    fwd_blocks, bwd_blocks, dx_blocks, dw_blocks = (
+        cac._train_lib(f"cac_train_{nm}_max_blocks") for nm in ("fwd", "bwd_fused", "bwd_dx",
+                                                                 "bwd_dw"))
+    m0 = TRAIN_SHAPES[0][0]
+    clusters = range(1, cac.TRAIN_BWD_MAX_CLUSTER + 1)
+    print(f"[kernels] cac_train occupancy (blocks resident): fwd by split "
+          f"{[fwd_blocks(s) for s in range(1, cac.TRAIN_MAX_SPLITS + 1)]}; at M={m0}: fused bwd "
+          f"by cluster {[bwd_blocks(c, m0) for c in clusters]}, dx (kernel 3) by cluster "
+          f"{[dx_blocks(c, m0) for c in clusters]}, dw (kernel 4) with 8 and 4 columns a thread "
+          f"{[dw_blocks(nt, m0) for nt in (8, 4)]}")
     rng = np.random.default_rng(SEED + 2)
     rows = []
     for m, k, n in TRAIN_SHAPES + TRAIN_RAGGED:
@@ -631,15 +658,22 @@ def phase_train_kernels(torch, np, dev, flush):
                  f"(must be 0)")
         plain = cac.cac_train_bwd_fused_plain(x, w, beta, g)
         dx_keep, dw_keep = _window_clear(torch, x, w, beta)
+        index = dev.index or 0
         row = {"M": m, "K": k, "N": n, "fwd_max_abs_err": fwd_err,
                "left_out": {"dx": int((~dx_keep).sum()), "dw": int((~dw_keep).sum())},
-               "fwd_splits": cac.card_train_fwd_plan(dev.index or 0, m, k, n)[0],
-               "bwd_cluster": cac.card_train_bwd_plan(dev.index or 0, m, k, n)}
-        again = cac.cac_train_bwd_fused_call(x, w, beta, g)
-        for name, a, b in zip(("dx", "dw", "dbeta"), fused, again):
-            if not _bits_equal(torch, a, b):
-                fail(f"cac_train_bwd_fused M={m} K={k} N={n}: {name} differs between two "
-                     f"launches (must repeat bit for bit)")
+               "fwd_splits": cac.card_train_fwd_plan(index, m, k, n)[0],
+               "bwd_cluster": cac.card_train_bwd_plan(index, m, k, n),
+               "dw_plan": cac.card_train_bwd_dw_plan(index, m, k, n),
+               "split_equals_fused": {name: _bits_equal(torch, a, b) for name, a, b in
+                                      zip(("dx", "dw", "dbeta"), split, fused)}}
+        again = (cac.cac_train_bwd_fused_call(x, w, beta, g),
+                 (cac.cac_train_bwd_dx_call(x, w, beta, g),) + cac.cac_train_bwd_dw_call(
+                     x, w, beta, g))
+        for which, first, second in zip(("fused", "split"), (fused, split), again):
+            for name, a, b in zip(("dx", "dw", "dbeta"), first, second):
+                if not _bits_equal(torch, a, b):
+                    fail(f"cac_train_bwd {which} M={m} K={k} N={n}: {name} differs between two "
+                         f"launches (must repeat bit for bit)")
         if (m, k, n) in TRAIN_DYADIC:
             xd, wd, bd, _ = (torch.from_numpy(a).to(dev) for a in _dyadic_operands(np, rng, m, k, n))
             if not _bits_equal(torch, cac.cac_train_fwd_call(xd, wd, bd),
@@ -647,12 +681,14 @@ def phase_train_kernels(torch, np, dev, flush):
                 fail(f"cac_train_fwd M={m} K={k} N={n}: differs from plain on the dyadic grid")
             xd, wd, bd, gd = (torch.from_numpy(a).to(dev)
                               for a in _dyadic_operands(np, rng, m, k, n, sparse=True))
-            for name, a, b in zip(("dx", "dw", "dbeta"),
-                                  cac.cac_train_bwd_fused_call(xd, wd, bd, gd),
-                                  cac.cac_train_bwd_fused_plain(xd, wd, bd, gd)):
-                if not _bits_equal(torch, a, b):
-                    fail(f"cac_train_bwd_fused M={m} K={k} N={n}: {name} differs from plain on "
-                         f"the dyadic grid (every product and sum there is exact)")
+            want = cac.cac_train_bwd_fused_plain(xd, wd, bd, gd)
+            for which, got in (("fused", cac.cac_train_bwd_fused_call(xd, wd, bd, gd)),
+                               ("split", (cac.cac_train_bwd_dx_call(xd, wd, bd, gd),)
+                                + cac.cac_train_bwd_dw_call(xd, wd, bd, gd))):
+                for name, a, b in zip(("dx", "dw", "dbeta"), got, want):
+                    if not _bits_equal(torch, a, b):
+                        fail(f"cac_train_bwd {which} M={m} K={k} N={n}: {name} differs from "
+                             f"plain on the dyadic grid (every product and sum there is exact)")
             row["dyadic_bit_exact"] = True
         for name, a, b, c, keep in zip(("dx", "dw", "dbeta"), fused, split, plain,
                                        (dx_keep, dw_keep, dw_keep)):
@@ -692,10 +728,13 @@ def phase_train_kernels(torch, np, dev, flush):
         times = "".join(f" {nm} {row[nm]['ms']:.4f} ms (plain {row[nm]['plain_ms']:.3f}, bound "
                         f"{row[nm]['bound_ms']:.6f} {row[nm]['bound_by']})"
                         for nm in ("fwd", "bwd_fused", "bwd_dx", "bwd_dw") if nm in row)
+        same = row["split_equals_fused"]
         print(f"[kernels] cac_train M={m} K={k} N={n}: fwd bit-exact (K split {row['fwd_splits']}"
               f"); bwd fused/split within {TRAIN_TOL} ({errs}; left out dx "
-              f"{row['left_out']['dx']}, dw {row['left_out']['dw']}), fused repeatable (cluster "
-              f"{row['bwd_cluster']})"
+              f"{row['left_out']['dx']}, dw {row['left_out']['dw']}), fused and split "
+              f"repeatable (cluster {row['bwd_cluster']}, fused and dx; dw (columns a thread, "
+              f"blocks a K tile) {row['dw_plan']}); split == fused bit for "
+              f"bit: {'yes' if all(same.values()) else same}"
               + ("; dyadic grid bit-exact" if row.get("dyadic_bit_exact") else "") + times)
     return rows
 
@@ -926,11 +965,11 @@ def _int_mm_yardstick(torch, x, w, ws):
 def phase_device_ops(torch, np, dev, tries=3):
     """The device operations (kernels, memsets, copies) of one call each of
     kernel 10 (stream route), kernel 7 and, for contrast, kernel 10's tile
-    route, at decode gate/up, and of kernel 11 at decode and at a prefill
-    chunk, from one torch.profiler trace (kept under build/profile/,
-    gitignored): each call is synchronised, so its operations lie between
-    the previous call's and the next one's. The stream route, kernel 7 and
-    both kernel 11 calls must be one kernel each, no memset; the tile route
+    route, at decode gate/up, of kernel 11 at decode and at a prefill chunk,
+    and of kernels 3 and 4 at train gate/up, from one torch.profiler trace
+    (kept under build/profile/, gitignored): each call is synchronised, so
+    its operations lie between the previous call's and the next one's. All
+    but the tile route must be one kernel each, no memset; the tile route
     splits K at decode and so shows its memset. A trace with no device
     event at all is taken again, up to ``tries`` times. Returns {call: [op
     names]}."""
@@ -939,6 +978,7 @@ def phase_device_ops(torch, np, dev, tries=3):
     from repro_torch.core.backend import pack_signs
     from repro_torch.core.ste import sign
     from repro_torch.kernels import bnn_matmul as bnn
+    from repro_torch.kernels import cac_matmul as cac
     from repro_torch.kernels import qnn_matmul as qnn
     from repro_torch.kernels.paged_attn import paged_attn_kernel_call
 
@@ -949,12 +989,19 @@ def phase_device_ops(torch, np, dev, tries=3):
     wp = pack_signs(sign(wf).to(torch.int8))
     attn = {name: _paged_case(torch, np, rng, dev, b, c, MAX_LEN // BLOCK, False)[:5]
             for name, b, c in (("decode", N_SLOTS, 1), ("chunk", 1, CHUNK))}
+    m, k, n = TRAIN_SHAPES[2]  # train gate/up
+    xt, gt = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+              for s in ((m, k), (m, n)))
+    wt, bt = (torch.from_numpy((rng.normal(size=(k, n)) * 0.5).astype(np.float32)).to(dev)
+              for _ in range(2))
     calls = {"qnn_matmul stream": lambda: qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE),
              "bnn_packed_matmul": lambda: bnn.bnn_packed_matmul_kernel_call(xf, wp),
              "qnn_matmul tile": lambda: qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE,
                                                                    route="tile"),
              "paged_attn decode": lambda: paged_attn_kernel_call(*attn["decode"]),
-             "paged_attn chunk": lambda: paged_attn_kernel_call(*attn["chunk"])}
+             "paged_attn chunk": lambda: paged_attn_kernel_call(*attn["chunk"]),
+             "cac_train_bwd_dx": lambda: cac.cac_train_bwd_dx_call(xt, wt, bt, gt),
+             "cac_train_bwd_dw": lambda: cac.cac_train_bwd_dw_call(xt, wt, bt, gt)}
     for fn in calls.values():  # built and planned outside the trace
         fn()
     torch.cuda.synchronize()
@@ -983,16 +1030,19 @@ def phase_device_ops(torch, np, dev, tries=3):
                         ("bnn_packed_matmul", "stream_kernel<3,"),
                         ("qnn_matmul tile", "qnn_kernel<"),
                         ("paged_attn decode", "paged_attn_kernel"),
-                        ("paged_attn chunk", "paged_attn_kernel")):
+                        ("paged_attn chunk", "paged_attn_kernel"),
+                        ("cac_train_bwd_dx", "cac_train_bwd_dx_kernel"),
+                        ("cac_train_bwd_dw", "cac_train_bwd_dw_kernel")):
         end = next((i for i, name in enumerate(rest) if marker in name), None)
         if end is None:
             fail(f"device ops: no {marker} kernel in the trace: {rest}")
         result[key], rest = rest[:end + 1], rest[end + 1:]
-    print("[device-ops] one call (decode gate/up; attention at decode and a chunk): "
+    print("[device-ops] one call (decode gate/up; attention at decode and a chunk; kernels 3 "
+          "and 4 at train gate/up): "
           + "; ".join(f"{k} {len(v)} ({', '.join(n[:40] for n in v)})"
                       for k, v in result.items()))
     for key in ("qnn_matmul stream", "bnn_packed_matmul", "paged_attn decode",
-                "paged_attn chunk"):
+                "paged_attn chunk", "cac_train_bwd_dx", "cac_train_bwd_dw"):
         if len(result[key]) != 1:
             fail(f"{key}: one call ran {len(result[key])} device operations: {result[key]}")
     return result
@@ -1721,7 +1771,7 @@ def phase_train_path(torch, np, dev, mode, tag="train"):
         main = {"bnn": 2 * n_proj, "bnn_bwd_dx": n_proj, "bnn_bwd_dw": n_proj}
         split = None
     cfg = TrainConfig(arch=arch, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                      steps=TRAIN_STEPS + 2)
+                      steps=TRAIN_STEPS + (2 if split is None else 3))
     trainer = Trainer(cfg, OptimizerSpec(total_steps=cfg.steps), device=dev)
     t0 = time.perf_counter()
     params, opt, _ = trainer.init()
@@ -1761,6 +1811,23 @@ def phase_train_path(torch, np, dev, mode, tag="train"):
               {"cac_train_fwd": ("cac_train_fwd_kernel",),
                "cac_train_bwd_fused": ("cac_train_bwd_fused_kernel",)})
     share = _device_share(prof, label, groups)
+    split_share = None
+    if split is not None:  # one split step under the profiler too, after the
+        # fused step's trace is read (a second profiler clears its events)
+        split_label = f"{mode}_train_step_split"
+        ops.FUSED_BWD_DEFAULT = False
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_split:
+                with torch.profiler.record_function(split_label):
+                    params, opt, _ = _train_step(torch, ops, trainer, params, opt,
+                                                 TRAIN_STEPS + 2, split)
+        finally:
+            ops.FUSED_BWD_DEFAULT = True
+        split_share = _device_share(prof_split, split_label, {
+            "cac_train_fwd": ("cac_train_fwd_kernel",),
+            "cac_train_bwd_dx": ("cac_train_bwd_dx_kernel",),
+            "cac_train_bwd_dw": ("cac_train_bwd_dw_kernel",)})
+        result["split_profile"] = split_share
     print(f"[{tag}] peak memory {peak / 2**30:.2f} GiB; steps "
           f"{[round(r['ms'], 1) for r in steps[:TRAIN_STEPS]]} ms"
           + (f", split step {steps[-1]['ms']:.1f} ms" if split is not None else ""))
@@ -1775,6 +1842,12 @@ def phase_train_path(torch, np, dev, mode, tag="train"):
     for name, r in share["groups"].items():
         print(f"[{tag}] profiled step: {name} {r['ms']:.3f} device ms in {r['count']} kernel "
               f"launches" + (" (sign pass + product per call)" if mode == "bnn" else ""))
+    if split_share is not None:
+        print(f"[{tag}] one split-backward step under torch.profiler: window "
+              f"{split_share['window_ms']:.1f} ms, device busy {split_share['device_busy_ms']:.2f} "
+              f"ms, idle share {split_share['idle_share']:.4f}; "
+              + ", ".join(f"{name} {r['ms']:.3f} device ms in {r['count']} launches"
+                          for name, r in split_share["groups"].items()))
     return result
 
 
@@ -1990,10 +2063,11 @@ def main() -> int:
           f"{sorted(paths)}")
     # the -Xptxas -v lines (registers, spills) of the redesigned kernels: the
     # product template (kernels 6 at large M, 8, 9) and its sign pass, the
-    # streaming template (kernel 1, kernel 6 at small M, kernel 7), kernels 2
-    # and 5, kernel 10's stream route and kernel 11
+    # streaming template (kernel 1, kernel 6 at small M, kernel 7), kernels
+    # 2-5, kernel 10's stream route and kernel 11
     redesigned = ("bnn_bwd", "bnn_sign", "stream_kernel", "cac_train_fwd_kernel",
-                  "cac_train_bwd_fused_kernel", "qnn_stream_kernel", "paged_attn_kernel")
+                  "cac_train_bwd_fused_kernel", "cac_train_bwd_dx_kernel",
+                  "cac_train_bwd_dw_kernel", "qnn_stream_kernel", "paged_attn_kernel")
     for source in ("cac_matmul", "bnn_matmul", "cac_train", "qnn_matmul", "paged_attn"):
         show = False
         for line in logs.get(source, "").splitlines():
@@ -2001,16 +2075,18 @@ def main() -> int:
                 show = any(nm in line for nm in redesigned)
             if show and ("Compiling entry function" in line or "Used" in line or "spill" in line):
                 print(f"[build] ptxas -v {source}: {line.strip()}")
-    # kernels 2 and 5: the instructions of their hot loop. An iteration of
-    # kernel 2's is a K slice, 512 terms a thread; kernel 5's is a pass, 128
-    # terms a thread, and its body also holds the code a new N tile runs
-    # (the window bounds), so its count is no per-term figure
-    for kernel, ops in build.hot_loop_mix(paths["cac_train"], ("cac_train_fwd_kernelILb1",
-                                                               "cac_train_bwd_fused_kernelILb1")).items():
+    # kernels 2-5: the instructions of their hot loop. An iteration of
+    # kernel 2's is a K slice, 512 terms a thread; kernel 5's and 3's is a
+    # pass, 128 terms a thread, kernel 4's 256 (8 columns) or 128 (4), and
+    # their bodies also hold the code a new N tile runs (the window bounds),
+    # so their counts are no per-term figure
+    for kernel, ops in build.hot_loop_mix(paths["cac_train"], (
+            "cac_train_fwd_kernelILb1", "cac_train_bwd_fused_kernelILb1",
+            "cac_train_bwd_dx_kernelILb1", "cac_train_bwd_dw_kernelILb1")).items():
         per = (f", {sum(ops.values()) / 512:.2f} a term" if "fwd" in kernel else
                " (with the tile-start code)")
-        print(f"[build] sass {kernel[-40:]}: {sum(ops.values())} instructions an iteration{per}: "
-              f"{ops}")
+        short = kernel[kernel.rindex("cac_train_"):].split("EEEv")[0]
+        print(f"[build] sass {short}: {sum(ops.values())} instructions an iteration{per}: {ops}")
 
     dev = torch.device("cuda")
     device_ops = phase_device_ops(torch, np, dev)
@@ -2098,6 +2174,10 @@ def main() -> int:
                      + ("split-backward step" if key in ("bwd_dx", "bwd_dw") else "fused step"),
             "shapes": [{k: v for k, v in r.items() if k in ("M", "K", "N", key)}
                        for r in train_rows if key in r]})
+    for entry, key in zip(kernels[-3:-1], ("cac_train_bwd_dx", "cac_train_bwd_dw")):
+        entry["device_ops_per_call"] = device_ops[key]
+        entry["split_step_device_ms"] = (training.get("split_profile") or {}).get(
+            "groups", {}).get(key)
     bnn_train = next(r for r in bnn_rows if (r["M"], r["K"], r["N"]) == (512, 960, 2560))
     bnn_decode = next(r for r in bnn_rows if (r["M"], r["K"], r["N"]) == (N_SLOTS, 960, 2560))
     bnn_step = bnn_training["steps"][0]["launches"]

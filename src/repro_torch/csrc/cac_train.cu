@@ -86,7 +86,7 @@
 //   and sends sit in fixed registers and no select is needed; it ends with
 //   row l of its 8, which it adds into the block's dx sums in shared memory
 //   (one owner a (row, k): no race). A block walks a range of N tiles in
-//   turn, and the ranks of a cluster of up to 8 along N split the N tiles
+//   turn, and the ranks of a cluster of up to 16 along N split the N tiles
 //   between them; after a cluster barrier each rank adds its share of dx
 //   rows over the ranks in rank order and writes dx. Every sum has one fixed
 //   order, so dx, dw and dbeta repeat bit for bit, with no float atomics and
@@ -94,12 +94,30 @@
 //   is walked in ranges of 512 rows (dw and dbeta read back by the thread
 //   that wrote them and added to, in order).
 //
-// Kernels 3 and 4 (the split step, FUSED_BWD_DEFAULT = False) keep the
-// first port's template: a 64 (K) x 64 (N) tile of w and beta in
-// registers, M staged 32 rows at a time; dx summed by warp shuffles and
-// float atomicAdd into zeroed outputs, dw and dbeta by atomicAdd when M is
-// split. Their dx (and dw when M splits) is therefore not bit-repeatable;
-// they are off the main path and left for a later redesign.
+// Kernels 3 and 4, the split step (FUSED_BWD_DEFAULT = False): kernel 5's
+// design, each kernel doing its share, sharing its window search.
+//   Kernel 3 (dx) is kernel 5 without dw and dbeta: a term is the two setp
+//   and, predicated on both, dx += g w (three instructions); the same tile,
+//   row order, butterfly and M ranges, and by the wrapper's plan the same
+//   cluster size, so its dx equals kernel 5's bit for bit. (Deciding the
+//   window with one unsigned compare of order keys instead, x's key minus
+//   key(xlo) below the window's width in keys, the subtract on IMAD, gave
+//   the same bits more slowly on the H100: the compare pipe does not bound
+//   it.)
+//   Kernel 4 (dw, dbeta): a term is the two setp and dw += g x, dbeta += g
+//   (four instructions). With no dx it has no butterfly, no 80 KB of dx
+//   sums in shared memory and no cluster: a block a (K tile, N tile), M
+//   walked in passes of 32 rows. Each group takes 8 of every 16 rows, a lane
+//   reads them in the order s ^ ng, ng the octet of its columns in a
+//   64-column frame, and group 1 hands its sums to group 0 at the end of an
+//   M range, all as in kernel 5: every (k, n) sums in kernel 5's order, so dw
+//   and dbeta equal kernel 5's bit for bit. A thread takes 8 columns (64 a
+//   tile, two blocks an SM) where the K x N tiles fill the card, else 4 (32
+//   a tile, 64 registers, four blocks an SM: 300 blocks at k/v where 64
+//   columns give 150); the plan is the wrapper's.
+//   Both write every output once in one launch, with no memset and no float
+//   atomics, and repeat bit for bit; a non-finite w or x and a non-finite g
+//   give what kernel 5 gives.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
@@ -114,6 +132,8 @@ namespace {
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 // Run `set` (a kernel's cudaFuncSetAttribute calls) once per device.
 template <class F>
 cudaError_t once_per_device(std::atomic<uint64_t>& done, F set) {
@@ -125,10 +145,6 @@ cudaError_t once_per_device(std::atomic<uint64_t>& done, F set) {
   err = set();
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
-}
-
-__device__ __forceinline__ float pre_act(float x, float w, float b) {
-  return __fadd_rn(__fmul_rn(x, w), b);
 }
 
 // ---------------------------------------------------------------------------
@@ -835,118 +851,501 @@ cudaError_t allow_smem() {
 }  // namespace fused
 
 // ---------------------------------------------------------------------------
-// Kernels 3 and 4 (the split step): the first port's template
+// Kernels 3 and 4: dx alone, and dw and dbeta alone, on kernel 5's design
 // ---------------------------------------------------------------------------
 
-constexpr int THREADS = 256;
-constexpr int TILE = 64;    // output columns (and rows) per block
-constexpr int BWD_TM = 32;  // M rows staged per backward step
-constexpr int TARGET_BLOCKS = 264;  // about two blocks per SM on 132 SMs
+namespace split {
 
-template <bool DX, bool DW>
-__global__ void __launch_bounds__(THREADS)
-cac_train_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ beta, const float* __restrict__ g,
-                     float* __restrict__ dx, float* __restrict__ dw,
-                     float* __restrict__ db, int M, int N, int K, int m_per_split) {
-  __shared__ float xs[BWD_TM][TILE];
-  __shared__ float gs[BWD_TM][TILE];
-  const int tid = threadIdx.x;
-  // the 16 lanes of a half-warp share kg: the dx shuffle stays inside them
-  const int kg = tid / 16, ng = tid % 16;  // k = k0 + kg + 16 i, n = n0 + ng + 16 j
-  const int k0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
-  const int m_begin = blockIdx.z * m_per_split;
-  const int m_end = min(M, m_begin + m_per_split);
+using fused::BK;
+using fused::MAX_CLUSTER;
+using fused::MAX_ROWS;
+using fused::STAGES;
+using fused::THREADS;
+using fused::XS;
+using fused::is_finite;
+constexpr int DX_RP = 16, DW_RP = 32;  // rows a pass of kernels 3 and 4
 
-  float wr[4][4], br[4][4], dwa[4][4], dba[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + kg + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + ng + 16 * j;
-      const bool ok = k < K && n < N;
-      wr[i][j] = ok ? w[(size_t)k * N + n] : 0.f;
-      br[i][j] = ok ? beta[(size_t)k * N + n] : 0.f;
-      dwa[i][j] = 0.f;
-      dba[i][j] = 0.f;
-    }
+// A tile of 8 NT columns (a thread takes NT of them) walked in passes of RP
+// rows, each group taking 8 of every 16.
+template <int NT, int RP>
+struct Tile {
+  static constexpr int BN = 8 * NT;
+  // g row stride: the 8 lanes of a k pair read 8 rows (NT 8) or 4 rows, two
+  // lanes each (NT 4), and their column quads land on distinct bank quads
+  static constexpr int GS = NT == 8 ? BN + 4 : BN;
+  // floats a thread of a group hands the other: 2 k x NT window bounds, or
+  // its dw and dbeta sums
+  static constexpr int SUMS = 4 * NT;
+  struct Stage {
+    float x[RP][XS];
+    float g[RP][GS];
+  };
+  // the ring, the handover area of `sums`, and (with dx) the dx sums
+  static size_t smem_bytes(bool with_dx, int rows) {
+    return STAGES * sizeof(Stage) +
+           (SUMS * THREADS / 2 + (with_dx ? (size_t)rows * XS : 0)) * sizeof(float);
   }
+};
 
-  for (int mc = m_begin; mc < m_end; mc += BWD_TM) {
-    __syncthreads();
-    for (int e = tid; e < BWD_TM * TILE; e += THREADS) {
-      const int r = e / TILE, c = e % TILE;
-      const int m = mc + r;
-      const bool mok = m < m_end;
-      xs[r][c] = (mok && k0 + c < K) ? x[(size_t)m * K + k0 + c] : 0.f;
-      gs[r][c] = (mok && n0 + c < N) ? g[(size_t)m * N + n0 + c] : 0.f;
-    }
-    __syncthreads();
-    const int rows = min(BWD_TM, m_end - mc);
-    for (int r = 0; r < rows; ++r) {
-      float xv[4], gv[4], dxp[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        xv[i] = xs[r][kg + 16 * i];
-        dxp[i] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) gv[j] = gs[r][ng + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float pre = pre_act(xv[i], wr[i][j], br[i][j]);
-          const float gm = fabsf(pre) <= 1.f ? gv[j] : 0.f;
-          if (DW) {
-            dwa[i][j] += gm * xv[i];
-            dba[i][j] += gm;
-          }
-          if (DX) dxp[i] += gm * wr[i][j];
-        }
-      if (DX) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int off = 8; off > 0; off >>= 1)
-            dxp[i] += __shfl_xor_sync(0xffffffffu, dxp[i], off);
-        if (ng == 0) {
-          const int m = mc + r;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int k = k0 + kg + 16 * i;
-            if (k < K) atomicAdd(&dx[(size_t)m * K + k], dxp[i]);
-          }
-        }
-      }
-    }
+// Rows of an M range for an M of m: min(m, MAX_ROWS), a multiple of rp.
+int range_rows(int m, int rp) { return std::min(cdiv(m, rp) * rp, MAX_ROWS); }
+
+// The STE term, predicated on xlo <= x <= xhi (two setp): kernel 3 adds d
+// += g w, kernel 4 dw += g x and db += g (kernel 5's operations, operand
+// for operand).
+template <bool DX>
+__device__ __forceinline__ void ste_term(float x, float w, float xlo, float xhi, float g,
+                                         float& dw, float& db, float& d) {
+  if constexpr (DX) {
+    asm("{\n .reg .pred p, q;\n setp.ge.f32 p, %1, %2;\n setp.le.and.f32 q, %1, %3, p;\n"
+        " @q fma.rn.f32 %0, %4, %5, %0;\n}"
+        : "+f"(d)
+        : "f"(x), "f"(xlo), "f"(xhi), "f"(g), "f"(w));
+  } else {
+    asm("{\n .reg .pred p, q;\n setp.ge.f32 p, %2, %3;\n setp.le.and.f32 q, %2, %4, p;\n"
+        " @q fma.rn.f32 %0, %5, %2, %0;\n @q add.rn.f32 %1, %1, %5;\n}"
+        : "+f"(dw), "+f"(db)
+        : "f"(x), "f"(xlo), "f"(xhi), "f"(g));
   }
-  if (DW) {
+}
+
+// Copies of pass rows [mr0, mr0 + RP) (clipped at m_end) of x at k0 .. k0
+// + 31 and of g at n0 .. n0 + BN - 1. VEC: K % 4 == 0, N % 4 == 0 and
+// 16-byte aligned operands.
+template <bool VEC, int NT, int RP>
+__device__ __forceinline__ void load_pass(typename Tile<NT, RP>::Stage& st,
+                                          const float* __restrict__ x,
+                                          const float* __restrict__ g, int N, int K, int m_end,
+                                          int mr0, int k0, int n0, int tid) {
+  constexpr int BN = Tile<NT, RP>::BN;
+  if (VEC) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + kg + 16 * i;
+    for (int e = tid; e < RP * BK / 4; e += THREADS) {  // x: RP rows x 8 float4
+      const int r = e >> 3, c = (e & 7) * 4;
+      const int m = mr0 + r, k = k0 + c;
+      const bool ok = m < m_end && k < K;
+      cp_async16(&st.x[r][c], ok ? x + (size_t)m * K + k : x, ok);
+    }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + ng + 16 * j;
-        if (k < K && n < N) {
-          atomicAdd(&dw[(size_t)k * N + n], dwa[i][j]);
-          atomicAdd(&db[(size_t)k * N + n], dba[i][j]);
-        }
-      }
+    for (int e = tid; e < RP * BN / 4; e += THREADS) {  // g: RP rows x BN / 4 float4
+      const int r = e / (BN / 4), c = (e % (BN / 4)) * 4;
+      const int m = mr0 + r, n = n0 + c;
+      const bool ok = m < m_end && n < N;
+      cp_async16(&st.g[r][c], ok ? g + (size_t)m * N + n : g, ok);
+    }
+  } else {  // rolled: unrolled, the 4-byte copies' addresses spill
+#pragma unroll 1
+    for (int e = tid; e < RP * BK; e += THREADS) {
+      const int r = e / BK, c = e % BK;
+      const int m = mr0 + r, k = k0 + c;
+      const bool ok = m < m_end && k < K;
+      cp_async4(&st.x[r][c], ok ? x + (size_t)m * K + k : x, ok);
+    }
+#pragma unroll 1
+    for (int e = tid; e < RP * BN; e += THREADS) {
+      const int r = e / BN, c = e % BN;
+      const int m = mr0 + r, n = n0 + c;
+      const bool ok = m < m_end && n < N;
+      cp_async4(&st.g[r][c], ok ? g + (size_t)m * N + n : g, ok);
     }
   }
 }
 
-// Split `len` over enough parts that `tiles * parts` reaches TARGET_BLOCKS,
-// each part a multiple of `step`. Returns the part length.
-int split_len(int len, int tiles, int step) {
-  int parts = std::max(1, cdiv(TARGET_BLOCKS, tiles));
-  parts = std::min(parts, cdiv(len, step));
-  return cdiv(cdiv(len, parts), step) * step;
+// Mark in xbad the k columns of the x elements this thread copied into `st`
+// that are not finite (a thread sees its own cp.async data once its group
+// has been waited on).
+template <bool VEC, int NT, int RP>
+__device__ __forceinline__ void mark_nonfinite_x(const typename Tile<NT, RP>::Stage& st,
+                                                 int* xbad, int tid) {
+  if (VEC) {
+#pragma unroll
+    for (int e = tid; e < RP * BK / 4; e += THREADS) {
+      const float4 v = *reinterpret_cast<const float4*>(&st.x[e >> 3][(e & 7) * 4]);
+      const int c = (e & 7) * 4;
+      if (!is_finite(v.x)) atomicOr(&xbad[c], 1);
+      if (!is_finite(v.y)) atomicOr(&xbad[c + 1], 1);
+      if (!is_finite(v.z)) atomicOr(&xbad[c + 2], 1);
+      if (!is_finite(v.w)) atomicOr(&xbad[c + 3], 1);
+    }
+  } else {
+#pragma unroll 1
+    for (int e = tid; e < RP * BK; e += THREADS)
+      if (!is_finite(st.x[e / BK][e % BK])) atomicOr(&xbad[e % BK], 1);
+  }
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+// The body of kernel 3 (DX: dx) and kernel 4 (dw and dbeta), with NT
+// columns a thread and RP rows a pass. Grid (parts, ceil(K / BK)): K tile
+// blockIdx.y; part q of the parts takes N tiles [q T / P, (q + 1) T / P) of
+// T. With dx the parts are the ranks of one cluster, which add their dx sums
+// in rank order. `rows` (range_rows(M, RP)) is the M range a block walks
+// before it writes dx, or dw and dbeta.
+template <bool VEC, bool DX, int NT, int RP>
+__device__ __forceinline__ void body(const float* __restrict__ x, const float* __restrict__ w,
+                                     const float* __restrict__ beta, const float* __restrict__ g,
+                                     float* __restrict__ dx, float* __restrict__ dw,
+                                     float* __restrict__ db, int M, int N, int K, int rows) {
+  using T = Tile<NT, RP>;
+  using Stage = typename T::Stage;
+  constexpr int BN = T::BN, SUMS = T::SUMS, HN = NT / 2;
+  static_assert(!DX || NT == 8, "the dx butterfly takes 8 columns a lane");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int xbad[BK];  // a non-finite x in this k column (any row), with dw
+  Stage* ring = reinterpret_cast<Stage*>(smem_raw);
+  // [SUMS][THREADS / 2]: a tile's window bounds, then group 1's dw and dbeta sums
+  float* sums = reinterpret_cast<float*>(smem_raw + STAGES * sizeof(Stage));
+  float* dxs = sums + SUMS * THREADS / 2;  // [rows][XS], with dx
+  cg::cluster_group cluster = cg::this_cluster();
+  const int part = DX ? (int)cluster.block_rank() : (int)blockIdx.x;
+  const int parts = DX ? (int)cluster.num_blocks() : (int)gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // group `half` takes rows 8 half .. + 7 of every 16 of a pass; in it, 8
+  // lanes share a k pair, k0 + 2 kg + i, and lane h = lane & 7 owns columns
+  // n0 + NT h + j
+  const int half = warp >> 2, kg = (warp & 3) * 4 + (lane >> 3), h = lane & 7;
+  const int gtid = tid & (THREADS / 2 - 1);
+  const int k0 = blockIdx.y * BK;
+  const int tiles = cdiv(N, BN);
+  const int t_begin = part * tiles / parts, t_end = (part + 1) * tiles / parts;
+  const int ntiles = t_end - t_begin;
+  const float nan = __int_as_float(0x7fc00000);
+  if (!DX && tid < BK) xbad[tid] = 0;
+
+  for (int m_base = 0; m_base < M; m_base += rows) {
+    const int m_end = min(M, m_base + rows);
+    const int passes = cdiv(m_end - m_base, RP);
+    if (DX)
+      for (int e = tid; e < rows * XS / 4; e += THREADS)
+        reinterpret_cast<float4*>(dxs)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();  // xbad and the dx sums are clear before any pass marks or adds
+
+    const int items = ntiles * passes;  // (tile, pass) pairs, tile-major
+    float wr[2][NT], xlo[2][NT], xhi[2][NT], dwa[2][NT], dba[2][NT];
+    float poison[2];  // NaN for a k whose w row holds a non-finite value in this tile
+    // A lane reads its group's rows of each 16 in the order s ^ ng, ng the
+    // octet of its columns in a 64-column frame: h at NT 8 (which the dx
+    // butterfly relies on), at NT 4 set per tile. So every (k, n) sums its
+    // rows in kernel 5's order.
+    int ng = h;
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < items)
+        load_pass<VEC, NT, RP>(ring[s], x, g, N, K, m_end, m_base + (s % passes) * RP, k0,
+                               (t_begin + s / passes) * BN, tid);
+      cp_async_commit();
+    }
+    for (int it = 0; it < items; ++it) {
+      const int tile = t_begin + it / passes, pass = it % passes;
+      const int n0 = tile * BN;
+      cp_async_wait<STAGES - 2>();
+      const Stage& st = ring[it % STAGES];
+      if (!DX) mark_nonfinite_x<VEC, NT, RP>(st, xbad, tid);
+      __syncthreads();  // pass `it` is in; every thread is done with pass it - 1
+      const int next = it + STAGES - 1;
+      if (next < items)
+        load_pass<VEC, NT, RP>(ring[next % STAGES], x, g, N, K, m_end,
+                               m_base + (next % passes) * RP, k0, (t_begin + next / passes) * BN,
+                               tid);
+      cp_async_commit();
+      if (pass == 0) {  // a new N tile: its w, window bounds, and dw, dbeta so far
+        if (NT == 4) ng = ((tile & 1) << 2) + (h >> 1);
+        // group `half` finds the bounds of columns HN half .. + HN - 1 of
+        // the thread's 2 x NT and hands them over in shared memory; every
+        // load of the tile is issued first
+        float wb[NT], bb[NT];
+#pragma unroll
+        for (int e = 0; e < NT; ++e) {
+          const int i = e / HN, j = HN * half + e % HN;
+          const int k = k0 + 2 * kg + i, n = n0 + NT * h + j;
+          const bool ok = k < K && n < N;
+          const size_t o = ok ? (size_t)k * N + n : 0;
+          wb[e] = ok ? w[o] : 0.f;
+          bb[e] = ok ? beta[o] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int k = k0 + 2 * kg + i;
+          int bad = 0;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const int n = n0 + NT * h + j;
+            const bool ok = k < K && n < N;
+            const size_t o = (size_t)k * N + n;
+            wr[i][j] = DX && ok ? w[o] : 0.f;
+            dwa[i][j] = !DX && ok && m_base > 0 && half == 0 ? dw[o] : 0.f;
+            dba[i][j] = !DX && ok && m_base > 0 && half == 0 ? db[o] : 0.f;
+            bad |= !is_finite(wr[i][j]);
+          }
+          if (DX) {
+            bad |= __shfl_xor_sync(0xffffffffu, bad, 1);
+            bad |= __shfl_xor_sync(0xffffffffu, bad, 2);
+            bad |= __shfl_xor_sync(0xffffffffu, bad, 4);
+            poison[i] = bad ? nan : 0.f;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < NT; ++e) {
+          const int i = e / HN, j = HN * half + e % HN;
+          fused::window_on_x(wb[e], bb[e], sums[(NT * i + j) * (THREADS / 2) + gtid],
+                             sums[(2 * NT + NT * i + j) * (THREADS / 2) + gtid]);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            xlo[i][j] = sums[(NT * i + j) * (THREADS / 2) + gtid];
+            xhi[i][j] = sums[(2 * NT + NT * i + j) * (THREADS / 2) + gtid];
+          }
+      }
+
+#pragma unroll
+      for (int q = 0; q < RP / 16; ++q) {  // the pass's 16-row slices
+        float dxp[8][2];  // slot s: this lane's row 16 q + 8 half + (s ^ h), summed over its 8 n
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+          const int r = 16 * q + 8 * half + (s ^ ng);
+          const float2 xv = *reinterpret_cast<const float2*>(&st.x[r][2 * kg]);
+          float ga[NT];
+#pragma unroll
+          for (int v = 0; v < NT / 4; ++v) {
+            const float4 gv = *reinterpret_cast<const float4*>(&st.g[r][NT * h + 4 * v]);
+            ga[4 * v] = gv.x;
+            ga[4 * v + 1] = gv.y;
+            ga[4 * v + 2] = gv.z;
+            ga[4 * v + 3] = gv.w;
+          }
+          const float xa[2] = {xv.x, xv.y};
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            dxp[s][i] = 0.f;
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+              ste_term<DX>(xa[i], wr[i][j], xlo[i][j], xhi[i][j], ga[j], dwa[i][j], dba[i][j],
+                           dxp[s][i]);
+          }
+        }
+        if (DX) {
+          // kernel 5's butterfly reduce-scatter over the 8 lanes of the k
+          // pair: slot 0 ends with row 16 q + 8 half + h summed over the
+          // tile's 64 columns
+#pragma unroll
+          for (int b = 0; b < 3; ++b) {
+            const int off = 1 << b;
+#pragma unroll
+            for (int s = 0; s < 8; s += 2 * off)
+#pragma unroll
+              for (int i = 0; i < 2; ++i)
+                dxp[s][i] =
+                    __fadd_rn(dxp[s][i], __shfl_xor_sync(0xffffffffu, dxp[s + off][i], off));
+          }
+          float2* acc = reinterpret_cast<float2*>(
+              &dxs[(pass * RP + 16 * q + 8 * half + h) * XS + 2 * kg]);
+          float2 v = *acc;
+          v.x = __fadd_rn(__fadd_rn(v.x, dxp[0][0]), poison[0]);
+          v.y = __fadd_rn(__fadd_rn(v.y, dxp[0][1]), poison[1]);
+          *acc = v;
+        }
+      }
+
+      if (!DX && pass == passes - 1) {  // the tile's M range is done: dw, dbeta out
+        // group 1 hands its sums to group 0, which adds them to its own
+        __syncthreads();  // every thread has its window bounds out of `sums`
+        if (half == 1) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              sums[(NT * i + j) * (THREADS / 2) + gtid] = dwa[i][j];
+              sums[(2 * NT + NT * i + j) * (THREADS / 2) + gtid] = dba[i][j];
+            }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (half == 1) break;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            dwa[i][j] = __fadd_rn(dwa[i][j], sums[(NT * i + j) * (THREADS / 2) + gtid]);
+            dba[i][j] = __fadd_rn(dba[i][j], sums[(2 * NT + NT * i + j) * (THREADS / 2) + gtid]);
+          }
+          const int k = k0 + 2 * kg + i, n = n0 + NT * h;
+          if (k >= K) continue;
+          const bool xnan = xbad[2 * kg + i] != 0;  // g 0 x with x non-finite: NaN
+          float* pw = dw + (size_t)k * N + n;
+          float* pb = db + (size_t)k * N + n;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) dwa[i][j] = xnan ? nan : dwa[i][j];
+          if (VEC) {
+#pragma unroll
+            for (int v = 0; v < NT / 4; ++v)
+              if (n + 4 * v < N) {
+                *reinterpret_cast<float4*>(pw + 4 * v) =
+                    make_float4(dwa[i][4 * v], dwa[i][4 * v + 1], dwa[i][4 * v + 2], dwa[i][4 * v + 3]);
+                *reinterpret_cast<float4*>(pb + 4 * v) =
+                    make_float4(dba[i][4 * v], dba[i][4 * v + 1], dba[i][4 * v + 2], dba[i][4 * v + 3]);
+              }
+          } else {
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+              if (n + j < N) {
+                pw[j] = dwa[i][j];
+                pb[j] = dba[i][j];
+              }
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    if (DX) {
+      // dx of the range: rank q adds rows [q rows / C, (q + 1) rows / C) over
+      // the ranks in rank order
+      cluster.sync();
+      const int nrow = m_end - m_base;
+      const int lo = part * nrow / parts, hi = (part + 1) * nrow / parts;
+      for (int e = lo * (BK / 4) + tid; e < hi * (BK / 4); e += THREADS) {
+        const int r = e / (BK / 4), c = (e % (BK / 4)) * 4;
+        const float* p = &dxs[r * XS + c];
+        float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(p, 0));
+        for (int q = 1; q < parts; ++q)
+          v = add4(v, *reinterpret_cast<const float4*>(cluster.map_shared_rank(p, q)));
+        const int k = k0 + c;
+        float* o = dx + (size_t)(m_base + r) * K + k;
+        if (VEC) {
+          if (k < K) *reinterpret_cast<float4*>(o) = v;
+        } else {
+          const float va[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (k + j < K) o[j] = va[j];
+        }
+      }
+      cluster.sync();  // no rank leaves or clears its dx sums while another reads them
+    }
+  }
+}
+
+#define SPLIT_ARGS                                                                         \
+  const float *__restrict__ x, const float *__restrict__ w, const float *__restrict__ beta, \
+      const float *__restrict__ g, float *__restrict__ dx, float *__restrict__ dw,         \
+      float *__restrict__ db, int M, int N, int K, int rows
+
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, 2) cac_train_bwd_dx_kernel(SPLIT_ARGS) {
+  body<VEC, true, 8, DX_RP>(x, w, beta, g, dx, dw, db, M, N, K, rows);
+}
+
+// kernel 4 at NT 8 (64-column tiles, two blocks an SM) or NT 4 (32-column
+// tiles, 64 registers: four blocks an SM)
+template <bool VEC, int NT>
+__global__ void __launch_bounds__(THREADS, NT == 4 ? 4 : 2) cac_train_bwd_dw_kernel(SPLIT_ARGS) {
+  body<VEC, false, NT, DW_RP>(x, w, beta, g, dx, dw, db, M, N, K, rows);
+}
+
+#undef SPLIT_ARGS
+
+using Kernel = void (*)(const float*, const float*, const float*, const float*, float*, float*,
+                        float*, int, int, int, int);
+
+// The launch shape of kernel 3 (DX) or 4 (NT 4 or 8).
+template <bool DX, int NT>
+struct Launch {
+  static constexpr int RP = DX ? DX_RP : DW_RP;
+  using T = Tile<NT, RP>;
+  static Kernel kernel(bool vec) {
+    if constexpr (DX)
+      return vec ? cac_train_bwd_dx_kernel<true> : cac_train_bwd_dx_kernel<false>;
+    else
+      return vec ? cac_train_bwd_dw_kernel<true, NT> : cac_train_bwd_dw_kernel<false, NT>;
+  }
+  static size_t smem(int rows) { return T::smem_bytes(DX, rows); }
+};
+
+// Grid `grid`, a cluster of `cluster` along x (kernel 3), none (cluster 0).
+void config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1], dim3 grid, int cluster,
+            size_t smem) {
+  cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 0 ? 1 : 0;
+}
+
+template <bool DX, int NT>
+cudaError_t allow_smem() {
+  using L = Launch<DX, NT>;
+  static std::atomic<uint64_t> done{0};
+  return once_per_device(done, [] {
+    const int most = (int)L::smem(MAX_ROWS);
+    cudaError_t err = cudaSuccess;
+    for (Kernel kernel : {L::kernel(true), L::kernel(false)}) {
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+      if (DX && err == cudaSuccess)
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+    return err;
+  });
+}
+
+// Blocks the current card keeps resident at an M of m: in clusters of
+// `cluster` (kernel 3), or in all (kernel 4; cluster ignored); -1 if it
+// cannot say or an argument is out of range.
+template <bool DX, int NT>
+int max_blocks(int cluster, int m) {
+  using L = Launch<DX, NT>;
+  if (m <= 0 || (DX && (cluster < 1 || cluster > MAX_CLUSTER)) ||
+      allow_smem<DX, NT>() != cudaSuccess)
+    return -1;
+  const size_t smem = L::smem(range_rows(m, L::RP));
+  if (!DX) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, L::kernel(true), THREADS, smem) !=
+            cudaSuccess)
+      return -1;
+    return per_sm * sms;
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  config(cfg, attr, dim3(cluster, 1, 1), cluster, smem);
+  int clusters = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, L::kernel(true), &cfg);
+  return err == cudaSuccess ? clusters * cluster : -1;
+}
+
+// Launch kernel 3 or 4 with the N tiles split over `parts` blocks (a
+// cluster with dx; at most one per N tile).
+template <bool DX, int NT>
+int launch(const void* x, const void* w, const void* beta, const void* g, void* dx, void* dw,
+           void* db, int M, int N, int K, int parts, void* stream) {
+  using L = Launch<DX, NT>;
+  if (M <= 0 || N <= 0 || K <= 0 || parts < 1 || parts > cdiv(N, L::T::BN) ||
+      (DX ? parts > MAX_CLUSTER || !dx : !dw || !db))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem<DX, NT>();
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = K % 4 == 0 && N % 4 == 0 && aligned16(x) && aligned16(w) && aligned16(beta) &&
+                   aligned16(g) && aligned16(dx) && aligned16(dw) && aligned16(db);
+  const int rows = range_rows(M, L::RP);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  config(cfg, attr, dim3(parts, cdiv(K, BK), 1), DX ? parts : 0, L::smem(rows));
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  err = cudaLaunchKernelEx(&cfg, L::kernel(vec), static_cast<const float*>(x),
+                           static_cast<const float*>(w), static_cast<const float*>(beta),
+                           static_cast<const float*>(g), static_cast<float*>(dx),
+                           static_cast<float*>(dw), static_cast<float*>(db), M, N, K, rows);
+  return (int)err;
+}
+
+}  // namespace split
 
 }  // namespace
 
@@ -1043,37 +1442,46 @@ extern "C" int cac_train_bwd_fused_launch(const void* x, const void* w, const vo
   return (int)err;
 }
 
-// Kernels 3 and 4. x (M, K), w and beta (K, N), g (M, N) float32. Exactly
-// one of dx (M, K) -> kernel 3, or dw and db (K, N) -> kernel 4, non-null.
-// Zeroes its outputs, launches on `stream`, does not synchronise, returns
-// cudaGetLastError().
-extern "C" int cac_train_bwd_launch(const void* x, const void* w, const void* beta,
-                                    const void* g, void* dx, void* dw, void* db,
-                                    int M, int N, int K, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool want_dx = dx != nullptr, want_dw = dw != nullptr;
-  if (M <= 0 || N <= 0 || K <= 0 || want_dx == want_dw || (want_dw != (db != nullptr)))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSuccess;
-  if (want_dx) err = cudaMemsetAsync(dx, 0, (size_t)M * K * sizeof(float), st);
-  if (err == cudaSuccess && want_dw) err = cudaMemsetAsync(dw, 0, (size_t)K * N * sizeof(float), st);
-  if (err == cudaSuccess && want_dw) err = cudaMemsetAsync(db, 0, (size_t)K * N * sizeof(float), st);
-  if (err != cudaSuccess) return (int)err;
-  const int gn = cdiv(N, TILE), gk = cdiv(K, TILE);
-  const int m_per_split = split_len(M, gn * gk, BWD_TM);
-  const dim3 grid(gn, gk, cdiv(M, m_per_split));
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(beta);
-  const float* gf = static_cast<const float*>(g);
-  float* dxf = static_cast<float*>(dx);
-  float* dwf = static_cast<float*>(dw);
-  float* dbf = static_cast<float*>(db);
-  if (want_dx)
-    cac_train_bwd_kernel<true, false><<<grid, THREADS, 0, st>>>(xf, wf, bf, gf, dxf, dwf, dbf,
-                                                                M, N, K, m_per_split);
-  else
-    cac_train_bwd_kernel<false, true><<<grid, THREADS, 0, st>>>(xf, wf, bf, gf, dxf, dwf, dbf,
-                                                                M, N, K, m_per_split);
-  return (int)cudaGetLastError();
+// How many blocks of kernel 3 at an M of m the current card keeps
+// resident in clusters of `cluster`; -1 if it cannot say or an argument is
+// out of range.
+extern "C" int cac_train_bwd_dx_max_blocks(int cluster, int m) {
+  return split::max_blocks<true, 8>(cluster, m);
+}
+
+// How many blocks of kernel 4 with `nt` columns a thread (4 or 8) at an M
+// of m the current card keeps resident (no cluster); -1 if it cannot say or
+// an argument is out of range.
+extern "C" int cac_train_bwd_dw_max_blocks(int nt, int m) {
+  return nt == 4 ? split::max_blocks<false, 4>(0, m)
+                 : nt == 8 ? split::max_blocks<false, 8>(0, m) : -1;
+}
+
+// Kernel 3. x (M, K), w and beta (K, N), g (M, N) float32 -> dx (M, K),
+// the N tiles split over a cluster of `cluster` blocks (the wrapper's plan,
+// kernel 5's; at most one rank per N tile). Writes every element once, in
+// kernel 5's order; launches on `stream`, does not synchronise, returns
+// cudaErrorInvalidValue for a shape or plan it does not take, else the
+// launch's error.
+extern "C" int cac_train_bwd_dx_launch(const void* x, const void* w, const void* beta,
+                                       const void* g, void* dx, int M, int N, int K, int cluster,
+                                       void* stream) {
+  return split::launch<true, 8>(x, w, beta, g, dx, nullptr, nullptr, M, N, K, cluster, stream);
+}
+
+// Kernel 4. x (M, K), w and beta (K, N), g (M, N) float32 -> dw and db (K,
+// N), with `nt` columns a thread (4 or 8: 32- or 64-column N tiles) and the
+// N tiles split over `parts` blocks a K tile (the wrapper's plan; at most
+// one block per N tile). Writes every element once (M <= 512; above, once
+// per 512-row range, by the same thread), in kernel 5's order; launches on
+// `stream`, does not synchronise, returns cudaErrorInvalidValue for a shape
+// or plan it does not take, else the launch's error.
+extern "C" int cac_train_bwd_dw_launch(const void* x, const void* w, const void* beta,
+                                       const void* g, void* dw, void* db, int M, int N, int K,
+                                       int nt, int parts, void* stream) {
+  if (nt == 4)
+    return split::launch<false, 4>(x, w, beta, g, nullptr, dw, db, M, N, K, parts, stream);
+  if (nt == 8)
+    return split::launch<false, 8>(x, w, beta, g, nullptr, dw, db, M, N, K, parts, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -16,10 +16,14 @@ The training kernels (``csrc/cac_train.cu``) replace the reference's
 and ``cac_train_bwd_fused_call``. All four are bound by operations on the
 CUDA cores at the training path's shapes (no tensor-core form of a
 compare-select; the source says how each reduces across blocks). The
-forward (kernel 2) splits K, and the fused backward (kernel 5) the N tiles,
-over a thread block cluster by ``train_fwd_plan`` and ``train_bwd_plan``
-(computed here from the card's SM count and cluster occupancy, checked by
-the launchers); both write each output once, in a fixed order. Each
+forward (kernel 2) splits K, and the fused backward (kernel 5) and its dx
+half (kernel 3) the N tiles, over a thread block cluster by
+``train_fwd_plan`` and ``train_bwd_plan``; the dw half (kernel 4) splits
+its N tiles over blocks by ``train_bwd_dw_plan`` (all computed here from
+the card's SM count and occupancy, checked by the launchers). Every one
+writes each output once, in a fixed order; kernels 3 and 4 sum in kernel
+5's order (kernel 3 takes kernel 5's cluster size), so the split pair
+equals kernel 5 bit for bit. Each
 wrapper takes float32 (M, K) x, (K, N) w and beta (and (M, N) g), launches
 on PyTorch's current stream, raises on a CPU tensor or a failed launch, and
 counts its launches; its ``*_plain`` twin computes the same function in
@@ -51,9 +55,11 @@ __all__ = [
     "cac_train_fwd_call",
     "cac_train_fwd_plain",
     "card_stream_plan",
+    "card_train_bwd_dw_plan",
     "card_train_bwd_plan",
     "card_train_fwd_plan",
     "stream_plan",
+    "train_bwd_dw_plan",
     "train_bwd_plan",
     "train_fwd_plan",
 ]
@@ -67,8 +73,9 @@ STREAM_MT = (4, 8)
 _TRAIN_CHUNK_ELEMS = 1 << 24  # (rows, K, N) elements per slice of the plain training versions
 # the training kernels' tiling (csrc/cac_train.cu): kernel 2 owns 128 x 64
 # tiles of y and walks K in slices of 16 rows, split over at most 8 cluster
-# ranks; kernel 5 owns a 32-row K tile and walks 64-column N tiles, split
-# over at most 16 ranks (a non-portable cluster size); two blocks an SM
+# ranks; kernels 5 and 3 own a 32-row K tile and walk 64-column N tiles,
+# split over at most 16 ranks (a non-portable cluster size); two blocks an
+# SM. Kernel 4 takes 64- or 32-column N tiles, a block each
 TRAIN_FWD_TILE, TRAIN_FWD_SLICE = (128, 64), 16
 TRAIN_BWD_TILE = (32, 64)
 TRAIN_MAX_SPLITS, TRAIN_BWD_MAX_CLUSTER, TRAIN_BLOCKS_PER_SM = 8, 16, 2
@@ -315,6 +322,22 @@ def train_bwd_plan(m: int, k: int, n: int, max_blocks=None, sms: int = STREAM_SM
     return best[1]
 
 
+def train_bwd_dw_plan(m: int, k: int, n: int, max_blocks=None, sms: int = STREAM_SMS) -> tuple:
+    """(nt, parts) for kernel 4 at x (m, k), w (k, n): ``nt`` columns a
+    thread, 8 (64-column N tiles, two blocks an SM) where the ceil(k / 32) x
+    ceil(n / 64) tiles fill the blocks the card holds at once
+    (``max_blocks(8)``, or two an SM of ``sms``), else 4 (32-column tiles,
+    four blocks an SM: twice the blocks, at a few more instructions a
+    term); and ``parts``, the blocks that split a K tile's N tiles, one a
+    tile (M is walked inside every block; no cluster: dw and dbeta are
+    summed over M inside a block), which the card's block scheduler spreads
+    best (chip_smoke.py's sweep times fewer)."""
+    k_tiles = _cdiv(k, TRAIN_BWD_TILE[0])
+    cap = TRAIN_BLOCKS_PER_SM * sms if max_blocks is None else max_blocks(8)
+    nt = 8 if k_tiles * _cdiv(n, 64) >= cap else 4
+    return nt, _cdiv(n, 8 * nt)
+
+
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
@@ -329,10 +352,21 @@ def card_train_fwd_plan(index: int, m: int, k: int, n: int) -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def card_train_bwd_plan(index: int, m: int, k: int, n: int) -> int:
-    """``train_bwd_plan`` under card ``index``'s SM count and occupancy."""
+    """``train_bwd_plan`` under card ``index``'s SM count and kernel 5's
+    cluster occupancy: the cluster size of kernel 5, and of kernel 3, which
+    needs no more shared memory or registers a block and so sums dx in
+    kernel 5's order."""
     fn = _train_lib("cac_train_bwd_fused_max_blocks")
     with torch.cuda.device(index):
         return train_bwd_plan(m, k, n, lambda c: fn(c, m), _sms(index))
+
+
+@functools.lru_cache(maxsize=None)
+def card_train_bwd_dw_plan(index: int, m: int, k: int, n: int) -> tuple:
+    """``train_bwd_dw_plan`` under card ``index``'s SM count and occupancy."""
+    fn = _train_lib("cac_train_bwd_dw_max_blocks")
+    with torch.cuda.device(index):
+        return train_bwd_dw_plan(m, k, n, lambda nt: fn(nt, m), _sms(index))
 
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
@@ -341,7 +375,10 @@ _TRAIN_ARGTYPES = {
     "cac_train_fwd_max_blocks": [_INT],
     "cac_train_bwd_fused_launch": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     "cac_train_bwd_fused_max_blocks": [_INT] * 2,
-    "cac_train_bwd_launch": [_PTR] * 7 + [_INT] * 3 + [_PTR],
+    "cac_train_bwd_dx_launch": [_PTR] * 5 + [_INT] * 4 + [_PTR],
+    "cac_train_bwd_dx_max_blocks": [_INT] * 2,
+    "cac_train_bwd_dw_launch": [_PTR] * 6 + [_INT] * 5 + [_PTR],
+    "cac_train_bwd_dw_max_blocks": [_INT] * 2,
 }
 
 
@@ -386,21 +423,20 @@ def _bwd_call(fn, x, w, beta, g, want_dx: bool, want_dw: bool):
     x, w, beta, g = _on_card(fn.__name__, x, w, beta, g)
     m, k = x.shape
     n = w.shape[1]
-    # kernel 5 writes every element once; kernels 3 and 4 zero theirs first
     dx = torch.empty_like(x) if want_dx else None
     dw = torch.empty_like(w) if want_dw else None
     db = torch.empty_like(w) if want_dw else None
     if m == 0 or k == 0 or n == 0:
         return tuple(None if t is None else t.zero_() for t in (dx, dw, db))
-    ptr = lambda t: None if t is None else t.data_ptr()
-    args = (x.data_ptr(), w.data_ptr(), beta.data_ptr(), g.data_ptr(), ptr(dx), ptr(dw),
-            ptr(db), m, n, k)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if want_dx and want_dw:
-        cluster = card_train_bwd_plan(x.device.index, m, k, n)
-        err = _train_lib("cac_train_bwd_fused_launch")(*args, cluster, stream)
+    ops = [x.data_ptr(), w.data_ptr(), beta.data_ptr(), g.data_ptr()]
+    outs = [t.data_ptr() for t in (dx, dw, db) if t is not None]
+    index, stream = x.device.index, torch.cuda.current_stream(x.device).cuda_stream
+    if want_dx:  # kernel 5, or 3 at kernel 5's cluster size
+        name = "cac_train_bwd_fused_launch" if want_dw else "cac_train_bwd_dx_launch"
+        plan = (card_train_bwd_plan(index, m, k, n),)
     else:
-        err = _train_lib("cac_train_bwd_launch")(*args, stream)
+        name, plan = "cac_train_bwd_dw_launch", card_train_bwd_dw_plan(index, m, k, n)
+    err = _train_lib(name)(*ops, *outs, m, n, k, *plan, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {err}")
     fn.launches += 1
@@ -408,12 +444,16 @@ def _bwd_call(fn, x, w, beta, g, want_dx: bool, want_dw: bool):
 
 
 def cac_train_bwd_dx_call(x, w, beta, g) -> torch.Tensor:
-    """Launch kernel 3: dx (M, K). Adds one to ``.launches`` per launch."""
+    """Launch kernel 3: dx (M, K), the N tiles split by
+    ``card_train_bwd_plan``, as kernel 5's; bit-repeatable. Adds one to
+    ``.launches`` per launch."""
     return _bwd_call(cac_train_bwd_dx_call, x, w, beta, g, True, False)[0]
 
 
 def cac_train_bwd_dw_call(x, w, beta, g) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel 4: (dw, dbeta), each (K, N). Adds one to ``.launches``."""
+    """Launch kernel 4: (dw, dbeta), each (K, N), the N tiles split by
+    ``card_train_bwd_dw_plan``; bit-repeatable. Adds one to ``.launches``
+    per launch."""
     _, dw, db = _bwd_call(cac_train_bwd_dw_call, x, w, beta, g, False, True)
     return dw, db
 

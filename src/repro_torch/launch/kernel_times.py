@@ -4,14 +4,18 @@ for M = 4 (decode), 16 (the draft's bucketed prefill) and 32 (prefill
 chunks), and kernel 11 (paged attention, smollm-360m's 15 / 5 heads of 64,
 blocks of 16) at decode, a drain-like decode (rows of 3-35 positions), the
 speculative verify (C = 4) and a prefill chunk (C = 32) at T = 8 table
-entries a row, and a long decode at T = 64, each with fp32 and int8 pools.
-Device ms per launch with a spin kernel ahead of the first event, as
+entries a row, and a long decode at T = 64, each with fp32 and int8 pools;
+and the training kernels 2-5 (the training CAC forward, the STE backward's
+dx and dw halves, and the fused backward) at the four projections for a
+batch of 4 x 128 tokens (M = 512). Device ms per launch with a spin kernel
+ahead of the first event, as
 ``chip_smoke.py`` times kernels: ``ms`` with L2 flushed before every call
 (weights and K/V read from device memory, as a drain finds a model larger
 than L2), ``warm_ms`` without (left in L2 by the previous call, as a drain
 finds a model that fits: 32 layers of packed bnn planes are 39 MB of the
 H100's 50 MB). Each result is first held against the plain version: kernels
-7 and 10 bit-exact, kernel 11 within 2e-5.
+2, 7 and 10 bit-exact, kernel 11 within 2e-5, kernels 3, 4 and 5 within
+atol = rtol = 1e-4 off the |x w + beta| = 1 window edge.
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_times [--out FILE]
 
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.backend import pack_signs
+from repro_torch.kernels import cac_matmul as cac
 from repro_torch.kernels.bnn_matmul import (bnn_packed_matmul_kernel_call,
                                              bnn_packed_matmul_plain)
 from repro_torch.kernels.paged_attn import paged_attn_kernel_call
@@ -49,6 +54,7 @@ ATTN_CASES = [("decode", 4, 1, 8, (1, 128)), ("drain", 4, 1, 8, (3, 36)),
               ("verify", 4, 4, 8, (4, 128)), ("chunk", 1, 32, 8, (32, 128)),
               ("long", 4, 1, 64, (1000, 1023))]
 HQ, HKV, HEAD_DIM, BLOCK = 15, 5, 64, 16
+TRAIN_M, TRAIN_TOL, WINDOW_EPS = 512, 1e-4, 1e-4
 
 
 def time_ms(fn, flush=None, iters: int = 20, warmup: int = 3) -> float:
@@ -116,6 +122,55 @@ def attn_rows(rng, dev, flush):
     return rows
 
 
+def _window_clear(x, w, beta, rows=8):
+    """(dx_keep, dw_keep): gradient elements whose reduction touches no
+    pre-activation within WINDOW_EPS of |x w + beta| = 1."""
+    dx_keep = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    dw_keep = torch.ones(w.shape, dtype=torch.bool, device=x.device)
+    for a in range(0, x.shape[0], rows):
+        near = ((x[a:a + rows, :, None] * w[None] + beta[None]).abs() - 1.0).abs() <= WINDOW_EPS
+        dx_keep[a:a + rows] = ~near.any(dim=2)
+        dw_keep &= ~near.any(dim=0)
+    return dx_keep, dw_keep
+
+
+def train_rows(rng, dev, flush):
+    """Kernels 2-5's rows at M = 512 and the four projections (x, g ~ N(0,
+    1), w, beta ~ N(0, 0.25)), or None when one is out of tolerance."""
+    rows = []
+    for k, n in PATH_KN:
+        x = torch.from_numpy(rng.normal(size=(TRAIN_M, k)).astype(np.float32)).to(dev)
+        w, beta = (torch.from_numpy((rng.normal(size=(k, n)) * 0.5).astype(np.float32)).to(dev)
+                   for _ in range(2))
+        g = torch.from_numpy(rng.normal(size=(TRAIN_M, n)).astype(np.float32)).to(dev)
+        if not torch.equal(cac.cac_train_fwd_call(x, w, beta), cac.cac_train_fwd_plain(x, w, beta)):
+            print(f"kernel_times: cac_train_fwd K={k} N={n} is not bit-exact", file=sys.stderr)
+            return None
+        dx_keep, dw_keep = _window_clear(x, w, beta)
+        plain = cac.cac_train_bwd_fused_plain(x, w, beta, g)
+        cases = (("cac_train_bwd_dx", lambda: (cac.cac_train_bwd_dx_call(x, w, beta, g),),
+                  (0,)),
+                 ("cac_train_bwd_dw", lambda: cac.cac_train_bwd_dw_call(x, w, beta, g), (1, 2)),
+                 ("cac_train_bwd_fused", lambda: cac.cac_train_bwd_fused_call(x, w, beta, g),
+                  (0, 1, 2)))
+        errs = {}
+        for name, kern, which in cases:
+            for got, i in zip(kern(), which):
+                keep = dx_keep if i == 0 else dw_keep
+                d = torch.where(keep, (got - plain[i]).abs(), 0)
+                if not bool((d <= TRAIN_TOL + TRAIN_TOL * plain[i].abs()).all()):
+                    print(f"kernel_times: {name} K={k} N={n} beyond atol = rtol = {TRAIN_TOL} off "
+                          f"the window edge", file=sys.stderr)
+                    return None
+                errs[name] = max(errs.get(name, 0.0), float(d.max()))
+        for name, kern in (("cac_train_fwd", lambda: cac.cac_train_fwd_call(x, w, beta)),) + tuple(
+                (name, kern) for name, kern, _ in cases):
+            rows.append({"kernel": name, "M": TRAIN_M, "K": k, "N": n,
+                         "max_abs_err": errs.get(name, 0.0), "ms": time_ms(kern, flush),
+                         "warm_ms": time_ms(kern)})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the rows here as JSON")
@@ -137,6 +192,10 @@ def main(argv=None) -> int:
     if attn is None:
         return 1
     rows += attn
+    train = train_rows(np.random.default_rng(args.seed + 23), dev, flush)
+    if train is None:
+        return 1
+    rows += train
     for m in ROWS:
         for k, n in PATH_KN:
             x = torch.from_numpy(rng.integers(-128, 128, size=(m, k)).astype(np.int8)).to(dev)

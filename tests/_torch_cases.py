@@ -4,8 +4,8 @@ import numpy as np
 
 __all__ = ["BNN_KERNEL_SHAPES", "H100_STREAM_BLOCKS", "LANE_FLUSH_ROWS", "PAGED_CASES",
            "QNN_KERNEL_SHAPES", "TRAIN_KERNEL_SHAPES", "bnn_case", "byte_lane_mismatches", "cac_case",
-           "cac_train_case", "cac_train_dyadic_case", "paged_case", "paged_ids", "qnn_case", "to_words",
-           "window_clear"]
+           "cac_train_case", "cac_train_dyadic_case", "cac_train_split_order_model", "paged_case",
+           "paged_ids", "qnn_case", "to_words", "window_clear"]
 
 HI = 0x80808080
 # the streaming kernels' byte-lane flush: a thread counts at most 16 rows a
@@ -133,6 +133,89 @@ def window_clear(x, w, beta, eps=1e-4, rows=8):
         dx_keep[a:a + rows] = ~near.any(dim=2)
         dw_keep &= ~near.any(dim=0)
     return dx_keep, dw_keep
+
+
+def _fma(acc, a, b, keep):
+    """fl32(a b + acc) where ``keep``, else acc: fma.rn.f32's one rounding,
+    from a b exact in float64 (a second rounding could differ at a tie of
+    the float64 sum; on the dyadic grid every sum is exact)."""
+    import torch
+
+    return torch.where(keep, (a.double() * b.double() + acc.double()).float(), acc)
+
+
+def cac_train_split_order_model(x, w, beta, g, cluster):
+    """The STE backward's sums in the order of the split kernels (3: dx, 4:
+    dw and dbeta; kernel 5's order, csrc/cac_train.cu), in plain PyTorch
+    float32 on the CPU: torch (M, K) x, (K, N) w and beta, (M, N) g ->
+    (dx, dw, dbeta).
+
+    The window is the plain version's |fl(fl(x w) + beta)| <= 1. dw and
+    dbeta: over M ranges of 512 rows, each (k, n) sums two row groups apart,
+    rows 16 p + (s ^ o) and 16 p + 8 + (s ^ o) for p in order and s = 0..7,
+    o the octet of n in a 64-column frame (at kernel 4's 32-column tiles too:
+    tile t's lane h has o = 4 (t & 1) + h / 2), each term one fma; at a
+    range's end dw = group 0 + group 1, and group 0 goes on from it (NaN in
+    a k column where x holds a non-finite value). dx: per 64-column tile and
+    row, each of 8 lanes sums its 8 columns (fma, from 0), the lanes meet in
+    the butterfly ((P_r + P_r^1) + (P_r^2 + P_r^3)) + ((P_r^4 + P_r^5) +
+    (P_r^6 + P_r^7)), r the row's index in its group of 8, which is added
+    to the row's sum, then NaN where the tile's w row holds a non-finite
+    value; the ``cluster`` ranks take the tiles [q T / C, (q + 1) T / C) and
+    their sums are added in rank order."""
+    import torch
+
+    m, k = x.shape
+    n = w.shape[1]
+    inside = (x[:, :, None] * w[None] + beta[None]).abs() <= 1.0  # (M, K, N)
+    cols = torch.arange(n)
+    octet = (cols % 64) // 8
+    dw = torch.zeros(k, n)
+    db = torch.zeros(k, n)
+    for base in range(0, m, 512):
+        end = min(m, base + 512)
+        sums = [[dw, db], [torch.zeros(k, n), torch.zeros(k, n)]]
+        for p in range(base, end, 16):
+            for s in range(8):
+                for half in (0, 1):
+                    rows = p + 8 * half + (s ^ octet)
+                    ok = rows < end
+                    r = rows.clamp(max=m - 1)
+                    gv = torch.where(ok, g[r, cols], 0.0)[None]  # (1, N)
+                    keep = inside[r, :, cols].T & ok[None]  # (K, N)
+                    sw, sb = sums[half]
+                    sums[half] = [_fma(sw, gv.expand(k, n), x[r].T, keep),
+                                  torch.where(keep, sb + gv, sb)]
+        dw = sums[0][0] + sums[1][0]
+        db = sums[0][1] + sums[1][1]
+        bad = ~torch.isfinite(x[:end]).all(dim=0)
+        dw = torch.where(bad[:, None], torch.nan, dw)
+    tiles = -(-n // 64)
+    lane = torch.arange(m) % 8
+    ranks = []
+    for q in range(cluster):
+        acc = torch.zeros(m, k)
+        for t in range(q * tiles // cluster, (q + 1) * tiles // cluster):
+            part = []
+            for h in range(8):
+                ph = torch.zeros(m, k)
+                for j in range(8):
+                    c = 64 * t + 8 * h + j
+                    if c < n:
+                        ph = _fma(ph, g[:, c][:, None].expand(m, k), w[:, c][None].expand(m, k),
+                                  inside[:, :, c])
+                part.append(ph)
+            p = torch.stack(part)  # (8 lanes, M, K)
+            at = lambda c: p[lane ^ c, torch.arange(m)]
+            tile = ((at(0) + at(1)) + (at(2) + at(3))) + ((at(4) + at(5)) + (at(6) + at(7)))
+            cols_t = slice(64 * t, min(n, 64 * t + 64))
+            poison = torch.where(torch.isfinite(w[:, cols_t]).all(dim=1), 0.0, torch.nan)
+            acc = (acc + tile) + poison[None]
+        ranks.append(acc)
+    dx = ranks[0]
+    for r in ranks[1:]:
+        dx = dx + r
+    return dx, dw, db
 
 
 def paged_case(rng, b, c, hq, hkv, d, bs, t, quantized, positions=None):

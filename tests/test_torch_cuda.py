@@ -13,10 +13,13 @@ gather oracle. The training CAC forward is bit-exact (it compares the
 rounded product with the remapped -beta, which decides as the plain
 version's rounded sum does); its STE backward within atol/rtol 1e-4 off
 the |pre| = 1 window edge, split and fused alike (the kernels sum in
-another order), the fused one bit-repeatable (fixed order, no atomics);
-on the dyadic grid, where every product and sum is exact, both are equal
-to their plain versions bit for bit, window edges and +-0, +-inf and NaN
-included. The BNN forwards
+another order), all three bit-repeatable (fixed order, no atomics), the
+split pair equal to kernel 5 bit for bit at its plan and to
+``cac_train_split_order_model`` at every plan it could take, and each of
+kernels 3 and 4 one device operation a call; on the dyadic grid, where
+every product and sum is exact, both backwards are equal to their plain
+versions bit for bit, window edges and +-0, +-inf and NaN included. The BNN
+forwards
 (kernels 6 and 7) are bit-exact, 7 equal to 6 on the same signs, kernel 6 on
 both of its routes (streaming and tensor cores) at the route threshold and
 one row past it; the
@@ -39,7 +42,8 @@ import pytest
 import torch
 from _torch_cases import (BNN_KERNEL_SHAPES, PAGED_CASES, QNN_KERNEL_SHAPES,
                           TRAIN_KERNEL_SHAPES, bnn_case, cac_case, cac_train_case,
-                          cac_train_dyadic_case, paged_case, paged_ids, qnn_case, window_clear)
+                          cac_train_dyadic_case, cac_train_split_order_model, paged_case,
+                          paged_ids, qnn_case, window_clear)
 
 from repro_torch.core.backend import pack_signs
 from repro_torch.core.ste import sign
@@ -199,6 +203,12 @@ def test_cac_train_kernels_on_card(cuda, m, k, n):
                                        atol=1e-4, rtol=1e-4, msg=name)
     for a, b in zip(fused, cac.cac_train_bwd_fused_call(x, w, beta, g)):
         assert bits_equal(a, b)  # kernel 5 repeats bit for bit
+    again = (cac.cac_train_bwd_dx_call(x, w, beta, g),) + cac.cac_train_bwd_dw_call(x, w, beta, g)
+    for a, b in zip(split, again):
+        assert bits_equal(a, b)  # kernels 3 and 4 repeat bit for bit
+    # kernels 3 and 4 sum in kernel 5's order (3 at its cluster size)
+    for a, b in zip(split, fused):
+        assert bits_equal(a, b)
 
 
 def bits_equal(a, b):
@@ -211,17 +221,49 @@ def bits_equal(a, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(512, 960, 960), (37, 100, 130), (129, 968, 65)])
 def test_cac_train_kernels_exact_on_dyadic_grid(cuda, m, k, n):
-    """Kernel 2 and kernel 5 on the dyadic grid (exact products and sums,
-    many pre-activations exactly 0 or +-1) with +-0, +-inf and NaN rows and
-    columns: both equal their plain versions bit for bit."""
+    """Kernels 2-5 on the dyadic grid (exact products and sums, many
+    pre-activations exactly 0 or +-1) with +-0, +-inf and NaN rows and
+    columns: all equal their plain versions bit for bit."""
     rng = np.random.default_rng(m + 2 * k + n)
     x, w, beta, _ = (torch.from_numpy(a).to(cuda) for a in cac_train_dyadic_case(rng, m, k, n))
     assert bits_equal(cac.cac_train_fwd_call(x, w, beta), cac.cac_train_fwd_plain(x, w, beta))
     x, w, beta, g = (torch.from_numpy(a).to(cuda)
                      for a in cac_train_dyadic_case(rng, m, k, n, sparse=True))
-    got = cac.cac_train_bwd_fused_call(x, w, beta, g)
-    for name, a, b in zip(("dx", "dw", "dbeta"), got, cac.cac_train_bwd_fused_plain(x, w, beta, g)):
-        assert bits_equal(a, b), name
+    want = cac.cac_train_bwd_fused_plain(x, w, beta, g)
+    for got in (cac.cac_train_bwd_fused_call(x, w, beta, g),
+                (cac.cac_train_bwd_dx_call(x, w, beta, g),) + cac.cac_train_bwd_dw_call(
+                    x, w, beta, g)):
+        for name, a, b in zip(("dx", "dw", "dbeta"), got, want):
+            assert bits_equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(37, 100, 130), (129, 968, 65), (600, 40, 200)])
+def test_cac_train_split_kernels_follow_the_order_model_on_card(cuda, m, k, n):
+    """Kernel 3 at every cluster size it takes and kernel 4 at both tile
+    widths, one block a tile and one block a K tile: each equal bit for bit
+    to ``cac_train_split_order_model`` (the order of kernel 5's sums) at its
+    cluster size; so kernel 4's bits do not depend on its plan. M = 600
+    walks two 512-row ranges."""
+    rng = np.random.default_rng(m + 3 * k + n)
+    x, w, beta, g = (torch.from_numpy(a).to(cuda) for a in cac_train_case(rng, m, k, n))
+    ops = (x.data_ptr(), w.data_ptr(), beta.data_ptr(), g.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    tiles = -(-n // 64)
+    models = {c: cac_train_split_order_model(x.cpu(), w.cpu(), beta.cpu(), g.cpu(), c)
+              for c in range(1, min(cac.TRAIN_BWD_MAX_CLUSTER, tiles) + 1)}
+    launch = cac._train_lib("cac_train_bwd_dx_launch")
+    for c, (want, _, _) in models.items():
+        dx = torch.empty_like(x)
+        assert launch(*ops, dx.data_ptr(), m, n, k, c, stream) == 0
+        assert bits_equal(dx.cpu(), want), c
+    launch = cac._train_lib("cac_train_bwd_dw_launch")
+    for nt in (8, 4):
+        for parts in (-(-n // (8 * nt)), 1):
+            dw, db = torch.empty_like(w), torch.empty_like(w)
+            assert launch(*ops, dw.data_ptr(), db.data_ptr(), m, n, k, nt, parts, stream) == 0
+            assert bits_equal(dw.cpu(), models[1][1]) and bits_equal(db.cpu(), models[1][2]), (
+                nt, parts)
 
 
 @pytest.mark.cuda
@@ -334,6 +376,20 @@ def test_stream_kernels_one_device_op_on_card(cuda, tmp_path, m):
     wp = pack_signs(sign(wf).to(torch.int8))
     ops = device_ops(lambda: bnn.bnn_packed_matmul_kernel_call(xf, wp), tmp_path / "bnn.json")
     assert len(ops) == 1 and "stream_kernel<3," in ops[0], ops  # op SIGN_PACKED
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(960, 2560), (960, 320)])
+def test_cac_train_split_kernels_one_device_op_on_card(cuda, tmp_path, k, n):
+    """A call of kernel 3 and of kernel 4 at M = 512 (gate/up: 64-column
+    tiles; k/v: 32-column tiles) is one device operation each: one kernel,
+    no memset, no copy."""
+    rng = np.random.default_rng(k + n)
+    x, w, beta, g = (torch.from_numpy(a).to(cuda) for a in cac_train_case(rng, 512, k, n))
+    ops = device_ops(lambda: cac.cac_train_bwd_dx_call(x, w, beta, g), tmp_path / "dx.json")
+    assert len(ops) == 1 and "cac_train_bwd_dx_kernel" in ops[0], ops
+    ops = device_ops(lambda: cac.cac_train_bwd_dw_call(x, w, beta, g), tmp_path / "dw.json")
+    assert len(ops) == 1 and "cac_train_bwd_dw_kernel" in ops[0], ops
 
 
 @pytest.mark.cuda

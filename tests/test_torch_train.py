@@ -26,7 +26,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_cases import cac_train_case, cac_train_dyadic_case
+from _torch_cases import (cac_train_case, cac_train_dyadic_case, cac_train_split_order_model,
+                          window_clear)
 
 from repro.configs import get_smoke as jax_get_smoke
 from repro.core import bika as jbika
@@ -374,12 +375,16 @@ def test_train_plans_cover_k_and_n(m, k, n):
         assert 1 <= cluster <= min(tcac.TRAIN_BWD_MAX_CLUSTER, -(-n // tcac.TRAIN_BWD_TILE[1]))
         if max_blocks is not None:
             assert splits <= 2 and cluster <= 2
+        nt, parts = tcac.train_bwd_dw_plan(m, k, n, max_blocks)
+        assert nt in (4, 8) and parts == -(-n // (8 * nt))  # a block a (K tile, N tile)
 
 
 # the H100's cluster occupancy (cudaOccupancyMaxActiveClusters x size) for
-# kernels 2 and 5 at M = 512, sizes 1, 2, ..., as chip_smoke.py prints it
+# kernels 2 and 5 at M = 512, sizes 1, 2, ..., and kernel 4's resident
+# blocks with 8 and 4 columns a thread, as chip_smoke.py prints them
 H100_FWD_BLOCKS = (264, 264, 237, 248, 235, 234, 224, 240)
 H100_BWD_BLOCKS = (264, 264, 237, 248, 235, 234, 224, 240, 207, 210, 176, 192, 182, 196, 210, 224)
+H100_DW_BLOCKS = {8: 264, 4: 528}
 
 
 @pytest.mark.parametrize("k,n,splits,cluster", [(960, 960, 4, 8), (960, 320, 8, 5),
@@ -393,6 +398,63 @@ def test_train_plans_at_the_path_shapes(k, n, splits, cluster):
     with 8 ranks (three waves of 2 tiles) and 5: the larger is taken."""
     assert tcac.train_fwd_plan(512, k, n, lambda s: H100_FWD_BLOCKS[s - 1])[0] == splits
     assert tcac.train_bwd_plan(512, k, n, lambda c: H100_BWD_BLOCKS[c - 1]) == cluster
+
+
+@pytest.mark.parametrize("k,n,nt,parts", [(960, 960, 8, 15), (960, 320, 4, 10),
+                                           (960, 2560, 8, 40), (2560, 960, 8, 15)])
+def test_dw_plan_at_the_path_shapes(k, n, nt, parts):
+    """At M = 512 under the H100's occupancy, kernel 4 takes 64-column
+    tiles where the 30 or 80 K tiles x N tiles fill the 264 blocks the card
+    holds (q/o 450, gate/up and down 1,200) and 32-column tiles at k/v (150
+    would leave the card half idle: 300 blocks of the 528), one block a
+    tile."""
+    assert tcac.train_bwd_dw_plan(512, k, n, H100_DW_BLOCKS.get) == (nt, parts)
+
+
+SPLIT_MODEL_CASES = [(37, 24, 130, 3), (600, 16, 70, 2), (40, 33, 200, 4), (20, 8, 64, 1)]
+
+
+def _split_reference(x, w, beta, g):
+    """jax.vjp of the reference's op on its split backward (kernels 3 and
+    4, interpret mode)."""
+    _, pull = jax.vjp(lambda *a: jops.cac_train_matmul(*a, interpret=True, fused_bwd=False),
+                      jnp.asarray(x), jnp.asarray(w), jnp.asarray(beta))
+    return [np.asarray(a) for a in pull(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("m,k,n,cluster", SPLIT_MODEL_CASES)
+def test_split_order_model_matches_reference_split_kernels(m, k, n, cluster):
+    """The split kernels' order (``cac_train_split_order_model``: kernel 5's
+    row groups and lane order for dw and dbeta over M ranges of 512, the
+    8-lane butterfly and the rank-order cluster sum for dx) against the
+    reference's split pair in interpret mode, within atol = rtol = 1e-4 off
+    the |pre| = 1 edge: one, two, three and four ranks, a ragged last tile,
+    and M past one 512-row range."""
+    x, w, beta, g = cac_train_case(np.random.default_rng(m + k + n), m, k, n)
+    want = _split_reference(x, w, beta, g)
+    got = cac_train_split_order_model(_t(x), _t(w), _t(beta), _t(g), cluster)
+    dx_keep, dw_keep = window_clear(_t(x), _t(w), _t(beta))
+    for name, a, b, keep in zip(("dx", "dw", "dbeta"), got, want, (dx_keep, dw_keep, dw_keep)):
+        np.testing.assert_allclose(np.where(keep, a.numpy(), 0), np.where(keep, b, 0),
+                                   atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("m,k,n,cluster", SPLIT_MODEL_CASES)
+def test_split_order_model_exact_on_dyadic_grid(m, k, n, cluster):
+    """On the dyadic grid every sum is exact in any order: the order model
+    equals the reference's split pair bit for bit with finite x and w (its
+    dx kernel leaves 0 where a non-finite w lies outside the window), and
+    the port's plain versions with the +-0, +-inf and NaN elements in."""
+    x, w, beta, g = cac_train_dyadic_case(np.random.default_rng(k + 5), m, k, n, sparse=True)
+    got = cac_train_split_order_model(_t(x), _t(w), _t(beta), _t(g), cluster)
+    want = (tcac.cac_train_bwd_dx_plain(_t(x), _t(w), _t(beta), _t(g)),
+            *tcac.cac_train_bwd_dw_plain(_t(x), _t(w), _t(beta), _t(g)))
+    for name, a, b in zip(("dx", "dw", "dbeta"), got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
+    x[~np.isfinite(x)], w[~np.isfinite(w)] = 0.0, 0.0
+    got = cac_train_split_order_model(_t(x), _t(w), _t(beta), _t(g), cluster)
+    for name, a, b in zip(("dx", "dw", "dbeta"), got, _split_reference(x, w, beta, g)):
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
 
 
 @pytest.mark.parametrize("name", ["sign_ste", "round_ste", "clip_ste"])
