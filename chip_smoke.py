@@ -117,6 +117,26 @@ Phases (each prints its own line; any failure exits non-zero):
              and goodput printed for the record, and one more speculative
              drain per engine under torch.profiler.
 
+14. paper  — the paper's models (TFC, SFC, LFC, CNV; models/paper.py) at
+             their published widths, batch 128: every kernel of their paths
+             (1, 2, 3-5, 6 on float32 and int8 weights, 8, 9, 10) against its
+             plain version at each distinct (M, K, N) of their projections
+             (PAPER_SHAPES: CNV's im2col M = 131,072 and K = 27, the heads'
+             N = 10), timed, beside its bound and, for the sign products,
+             torch.matmul; sums over M > 512 rows (dw, dbeta) held within
+             an absolute 1e-4 x sqrt(M / 512) (``_m_tol``); then 3 bika
+             training steps of each model (CNV a 4th with the split
+             backward, kernels 3 and 4) and 3
+             of TFC in dense, bnn and qnn8, launches exact a step; one bika
+             step of full-width CNV on 4 images card vs CPU (CAC outputs held
+             at near-zero Signs); the served forward of each trained model
+             (bika for all four, CNV's first conv through the K' = 27 pad;
+             bnn and qnn8 on TFC) at batch 128 and, on 8 images, equal to the
+             CPU's bit for bit (codes held at half-way ties); and the
+             quickstart at 200 steps (check (a) >= 99 % of units, (b)
+             bit-equal). ``python3 chip_smoke.py --only paper`` builds and
+             runs this phase alone (a partial run: no result line).
+
 Before the last line come the card's name and power limit as nvidia-smi
 prints them, then the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and when the
@@ -153,6 +173,7 @@ TRAIN_RAGGED = [(37, 100, 130), (129, 968, 65)]
 TRAIN_DYADIC = [(512, 960, 960)] + TRAIN_RAGGED
 TRAIN_TOL = 1e-4  # atol = rtol for dx/dw/dbeta, the reference's own STE-backward bound
 WINDOW_EPS = 1e-4  # |pre| within this of 1: the reference leaves the element out
+STE_RANGE = 512  # rows of an M range of kernels 3-5 (csrc/cac_train.cu, MAX_ROWS)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3
 TRAIN_SIGN_TIE = 1e-6  # |pre| within this of 0: a Sign the two devices may split
 TRAIN_PARITY_LOSS = 1e-5  # relative loss difference, card vs CPU, codes held
@@ -518,12 +539,27 @@ def _window_clear(torch, x, w, beta, rows=8):
     return dx_keep, dw_keep
 
 
-def _close_err(torch, got, want, keep):
+def _close_err(torch, got, want, keep, tol=TRAIN_TOL, rtol=None):
     """max |got - want| over kept elements, and whether every kept element
-    is within TRAIN_TOL + TRAIN_TOL * |want|."""
+    is within tol + rtol * |want| (rtol None: tol)."""
     d = torch.where(keep, (got - want).abs(), 0)
-    ok = bool((d <= TRAIN_TOL + TRAIN_TOL * want.abs()).all())
+    ok = bool((d <= tol + (tol if rtol is None else rtol) * want.abs()).all())
     return float(d.max()), ok
+
+
+def _m_tol(m):
+    """(atol, rtol) of a gradient summed over M rows (dw, dbeta; the
+    SignSTE dw): TRAIN_TOL for both up to STE_RANGE rows, the reference's
+    bound for a short sum. Above, kernels 3-5 sum M in ranges of STE_RANGE
+    rows and add the ranges' sums: each range's sum is held to an absolute
+    TRAIN_TOL and the ranges' independent roundings add as the square root
+    of their count, so atol = TRAIN_TOL * sqrt(M / STE_RANGE), with no
+    relative term (one would grow with |dw|, not with the rounding, and at
+    CNV's |dw| ~ 1e3 would let a lost pass of rows through; PERF.md §6,
+    ``ste_accuracy.py``)."""
+    if m <= STE_RANGE:
+        return TRAIN_TOL, TRAIN_TOL
+    return TRAIN_TOL * math.sqrt(-(-m // STE_RANGE)), 0.0
 
 
 def _dyadic_operands(np, rng, m, k, n, sparse=False):
@@ -1969,6 +2005,8 @@ def _bnn_train_hooks(torch):
 def _tree_np(tree):
     if isinstance(tree, dict):
         return {k: _tree_np(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_np(v) for v in tree)
     return tree.detach().cpu().numpy()
 
 
@@ -2038,7 +2076,416 @@ def phase_train_parity(torch, np, dev, mode, hooks, tag="train-parity"):
             "param_rel": p_rel, "held": held}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 14: the paper's models (TFC, SFC, LFC, CNV) at their published widths
+# ---------------------------------------------------------------------------
+
+# Table II's structures at batch 128: each distinct (M, K, N) a projection
+# of them gives the training and serving kernels (a CNV conv's M is batch x
+# H x W of its im2col; conv1's K = 3 x 3 x 3 = 27 and every head's N = 10
+# take the kernels' ragged branches)
+PAPER_BATCH, PAPER_STEPS, PAPER_PARITY_BATCH = 128, 3, 8
+PAPER_SHAPES = [
+    ("tfc fc1", 128, 784, 64), ("tfc fc2", 128, 64, 32), ("tfc fc3", 128, 32, 10),
+    ("sfc fc2", 128, 256, 256),
+    ("lfc fc1", 128, 784, 1024), ("lfc fc2", 128, 1024, 1024), ("lfc fc4", 128, 1024, 10),
+    ("cnv conv1", 131072, 27, 64), ("cnv conv2", 131072, 576, 64),
+    ("cnv conv3", 32768, 576, 128), ("cnv conv4", 32768, 1152, 128),
+    ("cnv conv5", 8192, 1152, 256), ("cnv conv6", 8192, 2304, 256),
+    ("cnv fc1", 128, 4096, 512), ("cnv fc2", 128, 512, 512), ("cnv fc3", 128, 512, 10)]
+_PLAIN_ELEMS = 1 << 24  # (rows, K, N) elements a slice of the window masks
+
+
+def phase_paper_kernels(torch, np, dev, flush):
+    """Every kernel on the paper models' paths against its plain version at
+    PAPER_SHAPES, on the card: the training CAC forward (kernel 2) and the
+    CAC on int8 codes (kernel 1; at K = 27 through the serve tree's pad to
+    K' = 32, ``backend.pad_contraction``) bit-exact; the STE backward, fused
+    (5) and split (3 + 4), off the |pre| = 1 edge, dx within TRAIN_TOL and
+    dw, dbeta within ``_m_tol(M)`` (absolute above 512 rows); the sign
+    product (6) on float32 weights (training) and int8 signs (serving)
+    bit-exact; its SignSTE dx and dw (8,
+    9) on every element, dx within TRAIN_TOL, dw within ``_m_tol(M)``; the
+    int8 matmul (10) bit-exact. Each timed, L2 flushed, beside
+    its plain version, the bnn kernels also beside torch.matmul on +-1
+    operands, and the bound as the main rows count it (bytes and operations
+    per (M, K, N): kernels 2-5 4, 9, 6, 7 operations on the CUDA cores;
+    1 two; 6, 8, 9 two at the bf16 tensor-core rate; 10 two at the int8
+    rate). The plain versions (kernel 1's: ``bika_matmul_hw_tiled``) and
+    the window masks run a slice of rows at a time: at CNV's im2col M
+    (131,072) nothing else fits."""
+    from repro_torch.core.backend import pack_signs, pad_contraction
+    from repro_torch.core.bika import bika_matmul_hw_tiled
+    from repro_torch.kernels import bnn_matmul as bnn
+    from repro_torch.kernels import cac_matmul as cac
+    from repro_torch.kernels import qnn_matmul as qnn
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    sign = lambda v: torch.where(v >= 0, 1.0, -1.0).to(torch.float32)
+    rows = []
+    for where, m, k, n in PAPER_SHAPES:
+        rnd = lambda *shape, s=1.0: torch.randn(shape, generator=gen, device=dev) * s
+        x, w, beta, g = rnd(m, k), rnd(k, n, s=0.5), rnd(k, n, s=0.5), rnd(m, n)
+        row = {"where": where, "M": m, "K": k, "N": n,
+               "fwd_splits": cac.card_train_fwd_plan(dev.index or 0, m, k, n)[0],
+               "bwd_cluster": cac.card_train_bwd_plan(dev.index or 0, m, k, n),
+               "dw_plan": list(cac.card_train_bwd_dw_plan(dev.index or 0, m, k, n))}
+        y = cac.cac_train_fwd_call(x, w, beta)
+        if not torch.equal(y, cac.cac_train_fwd_plain(x, w, beta)):
+            fail(f"paper cac_train_fwd {where} M={m} K={k} N={n}: differs from plain")
+        plain = cac.cac_train_bwd_fused_plain(x, w, beta, g)
+        dx_keep, dw_keep = _window_clear(torch, x, w, beta,
+                                         rows=max(1, _PLAIN_ELEMS // (k * n)))
+        got = {"fused": cac.cac_train_bwd_fused_call(x, w, beta, g),
+               "split": (cac.cac_train_bwd_dx_call(x, w, beta, g),)
+               + cac.cac_train_bwd_dw_call(x, w, beta, g)}
+        for which, grads in got.items():
+            for name, a, b, keep in zip(("dx", "dw", "dbeta"), grads, plain,
+                                        (dx_keep, dw_keep, dw_keep)):
+                tol, rtol = (TRAIN_TOL, TRAIN_TOL) if name == "dx" else _m_tol(m)
+                err, ok = _close_err(torch, a, b, keep, tol, rtol)
+                row[f"{name}_{which}_max_abs_err"] = err
+                if not ok:
+                    fail(f"paper cac_train {which} {name} {where} M={m} K={k} N={n}: beyond "
+                         f"atol {tol:.2e}, rtol {rtol:.0e} (max |diff| {err:.3e})")
+        row["left_out"] = {"dx": int((~dx_keep).sum()), "dw": int((~dw_keep).sum())}
+        del plain, got, dx_keep, dw_keep
+        x_int = torch.randint(-128, 128, (m, k), generator=gen, device=dev).to(torch.int8)
+        tau = torch.randint(-128, 128, (k, n), generator=gen, device=dev).to(torch.int8)
+        s = torch.where(torch.rand((k, n), generator=gen, device=dev) < 0.5, 1, -1).to(torch.int8)
+        tau_pad, s_pad = pad_contraction(tau, s)
+        kp = tau_pad.shape[0]
+        x_pad = torch.nn.functional.pad(x_int, (0, kp - k))
+        sp = pack_signs(s_pad)
+        if not torch.equal(cac.cac_matmul_kernel_call(x_pad, tau_pad, sp) - (kp - k),
+                           bika_matmul_hw_tiled(x_int, tau, s)):
+            fail(f"paper cac_matmul {where} M={m} K={k} N={n}: differs from bika_matmul_hw")
+        wb = sign(w).to(torch.int8)
+        for name, a, b in (("f32", bnn.bnn_matmul_kernel_call(x, w), bnn.bnn_matmul_plain(x, w)),
+                           ("int8", bnn.bnn_matmul_kernel_call(x, wb),
+                            bnn.bnn_matmul_plain(x, wb))):
+            if not torch.equal(a, b):
+                fail(f"paper bnn_matmul ({name} weights) {where} M={m} K={k} N={n}: differs "
+                     f"from plain")
+        for name, a, b in (("dx", bnn.bnn_bwd_dx_call(x, w, g), bnn.bnn_bwd_dx_plain(x, w, g)),
+                           ("dw", bnn.bnn_bwd_dw_call(x, w, g), bnn.bnn_bwd_dw_plain(x, w, g))):
+            tol, rtol = (TRAIN_TOL, TRAIN_TOL) if name == "dx" else _m_tol(m)
+            err, ok = _close_err(torch, a, b, torch.ones_like(a, dtype=torch.bool), tol, rtol)
+            row[f"bnn_{name}_max_abs_err"] = err
+            if not ok:
+                fail(f"paper bnn_bwd_{name} {where} M={m} K={k} N={n}: beyond atol {tol:.2e}, "
+                     f"rtol {rtol:.0e} (max |diff| {err:.3e})")
+        w_int = torch.randint(-127, 128, (k, n), generator=gen, device=dev).to(torch.int8)
+        ws = torch.rand((1, n), generator=gen, device=dev) * 1e-2 + 1e-4
+        if not torch.equal(qnn.qnn_matmul_kernel_call(x_int, w_int, ws, ACT_SCALE),
+                           qnn.qnn_matmul_plain(x_int, w_int, ws, ACT_SCALE)):
+            fail(f"paper qnn_matmul {where} M={m} K={k} N={n}: differs from plain")
+        xs, ws_pm = sign(x), sign(w)
+        mkn = float(m) * k * n
+        timed = {
+            "cac_train_fwd": (lambda: cac.cac_train_fwd_call(x, w, beta),
+                              lambda: cac.cac_train_fwd_plain(x, w, beta), None,
+                              4 * (m * k + 2 * k * n + m * n), 4 * mkn, CUDA_CORE_OPS_S),
+            "cac_train_bwd_fused": (lambda: cac.cac_train_bwd_fused_call(x, w, beta, g),
+                                    lambda: cac.cac_train_bwd_fused_plain(x, w, beta, g), None,
+                                    4 * (2 * m * k + 4 * k * n + m * n), 9 * mkn,
+                                    CUDA_CORE_OPS_S),
+            "cac_train_bwd_dx": (lambda: cac.cac_train_bwd_dx_call(x, w, beta, g),
+                                 lambda: cac.cac_train_bwd_dx_plain(x, w, beta, g), None,
+                                 4 * (2 * m * k + 2 * k * n + m * n), 6 * mkn, CUDA_CORE_OPS_S),
+            "cac_train_bwd_dw": (lambda: cac.cac_train_bwd_dw_call(x, w, beta, g),
+                                 lambda: cac.cac_train_bwd_dw_plain(x, w, beta, g), None,
+                                 4 * (m * k + 4 * k * n + m * n), 7 * mkn, CUDA_CORE_OPS_S),
+            "cac_matmul": (lambda: cac.cac_matmul_kernel_call(x_pad, tau_pad, sp),
+                           lambda: bika_matmul_hw_tiled(x_int, tau, s), None,
+                           m * k + k * n + k * n // 8 + 4 * m * n, 2 * mkn, CUDA_CORE_OPS_S),
+            "bnn_matmul": (lambda: bnn.bnn_matmul_kernel_call(x, w),
+                           lambda: bnn.bnn_matmul_plain(x, w), lambda: torch.matmul(xs, ws_pm),
+                           4 * (m * k + k * n + m * n), 2 * mkn, TENSOR_CORE_OPS_S),
+            "bnn_matmul_int8": (lambda: bnn.bnn_matmul_kernel_call(x, wb),
+                                lambda: bnn.bnn_matmul_plain(x, wb),
+                                lambda: torch.matmul(xs, ws_pm),
+                                4 * m * k + k * n + 4 * m * n, 2 * mkn, TENSOR_CORE_OPS_S),
+            "bnn_bwd_dx": (lambda: bnn.bnn_bwd_dx_call(x, w, g),
+                           lambda: bnn.bnn_bwd_dx_plain(x, w, g),
+                           lambda: torch.matmul(g, ws_pm.T),
+                           4 * (2 * m * k + k * n + m * n), 2 * mkn, TENSOR_CORE_OPS_S),
+            "bnn_bwd_dw": (lambda: bnn.bnn_bwd_dw_call(x, w, g),
+                           lambda: bnn.bnn_bwd_dw_plain(x, w, g),
+                           lambda: torch.matmul(xs.T, g),
+                           4 * (m * k + 2 * k * n + m * n), 2 * mkn, TENSOR_CORE_OPS_S),
+            "qnn_matmul": (lambda: qnn.qnn_matmul_kernel_call(x_int, w_int, ws, ACT_SCALE),
+                           lambda: qnn.qnn_matmul_plain(x_int, w_int, ws, ACT_SCALE), None,
+                           m * k + k * n + 4 * n + 4 * m * n, 2 * mkn, INT8_TENSOR_OPS_S),
+        }
+        for name, (kern, plain_fn, lib, nbytes, ops, rate) in timed.items():
+            bound, by = _bound(nbytes, ops, rate)
+            r = {"ms": time_ms(torch, kern, iters=10, warmup=2, flush=flush),
+                 "plain_ms": time_ms(torch, plain_fn, iters=2, warmup=1, flush=flush),
+                 "library_ms": (time_ms(torch, lib, iters=10, warmup=2, flush=flush)
+                                if lib is not None else None),
+                 "bound_ms": bound, "bound_by": by}
+            r["bound_share"] = bound / r["ms"]
+            row[name] = r
+        row["qnn_route"] = qnn._card_plan(dev.index or 0, m, k, n)[0]
+        row["bnn_route"] = bnn._card_fwd_plan(dev.index or 0, m, k, n, torch.float32)[0]
+        rows.append(row)
+        print(f"[paper-kernels] {where} M={m} K={k} N={n}: kernels 1, 2, 6, 10 bit-exact, "
+              f"3-5, 8, 9 dx within {TRAIN_TOL}, dw and dbeta within atol {_m_tol(m)[0]:.2e}, "
+              f"rtol {_m_tol(m)[1]:.0e} (max "
+              f"|diff| kernel 5 dw {row['dw_fused_max_abs_err']:.2e}, dbeta "
+              f"{row['dbeta_fused_max_abs_err']:.2e}; left out dx {row['left_out']['dx']}, dw "
+              f"{row['left_out']['dw']}); plans fwd splits {row['fwd_splits']}, bwd cluster "
+              f"{row['bwd_cluster']}, dw {row['dw_plan']}, bnn {row['bnn_route']}, qnn "
+              f"{row['qnn_route']}; ms (plain, bound share): "
+              + ", ".join(f"{nm} {row[nm]['ms']:.5f} ({row[nm]['plain_ms']:.3f}, "
+                          f"{100 * row[nm]['bound_share']:.1f}%)" for nm in timed))
+        del x, w, beta, g, x_int, tau, s, x_pad, tau_pad, s_pad, sp, xs, ws_pm, wb, w_int, timed
+    return rows
+
+
+def _paper_expect(cfg, split=False):
+    """Exact kernel launches of one training step of ``cfg``: each
+    projection (conv or fc) runs its forward kernel once and its backward
+    once (no remat in the paper models; kernel 5 or 3 computes dx even for
+    the first layer, whose input needs none)."""
+    n = len(cfg.features) + (len([c for c in cfg.conv_plan if c != "P"])
+                             if cfg.kind == "cnv" else 0)
+    if cfg.mode == "bika":
+        bwd = ({"cac_train_bwd_dx": n, "cac_train_bwd_dw": n} if split
+               else {"cac_train_bwd_fused": n})
+        return dict({"cac_train_fwd": n}, **bwd)
+    if cfg.mode == "bnn":
+        return {"bnn": n, "bnn_bwd_dx": n, "bnn_bwd_dw": n}
+    return {}  # dense and qnn8 train with plain float matmuls
+
+
+def _paper_train(torch, ops, cfg, dev, steps, split_last=False, tag="paper-train"):
+    """``steps`` training steps of ``cfg`` at batch PAPER_BATCH from seed
+    SEED (the recipe of train/paper.py), launch counts zeroed just before
+    each step and read just after; a last extra step with the split STE
+    backward (kernels 3 and 4) if ``split_last``. Returns the trained
+    params and the per-step rows."""
+    from repro_torch.models.paper import build_paper_model
+    from repro_torch.optim.adamw import OptimizerSpec, make_optimizer
+    from repro_torch.train.paper import PAPER_LOSS, dataset_batch, image_api
+    from repro_torch.train.steps import loss_and_grads
+
+    init, apply = build_paper_model(cfg, device=dev)
+    api = image_api(apply)
+    params = init(SEED)
+    total = steps + int(split_last)
+    opt_init, opt_update = make_optimizer(OptimizerSpec(
+        peak_lr=3e-3, warmup=max(total // 20, 10), total_steps=total, weight_decay=0.0))
+    opt = opt_init(params)
+    get_batch = dataset_batch("textures" if cfg.kind == "cnv" else "digits")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for step in range(total):
+        split = split_last and step == steps
+        x, y = get_batch(SEED, step, PAPER_BATCH, device=dev)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ops.FUSED_BWD_DEFAULT = not split
+        try:
+            t0 = time.perf_counter()
+            metrics, grads = loss_and_grads(api, params, {"x": x, "labels": y}, **PAPER_LOSS)
+            params, opt, stats = opt_update(grads, opt, params)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            ops.FUSED_BWD_DEFAULT = True
+        counts = ops.launch_counts()
+        expect = _paper_expect(cfg, split)
+        if counts != dict(_NO_LAUNCHES, **expect):
+            fail(f"{tag} {cfg.name} {cfg.mode} step {step}: launch counts {counts}, expected "
+                 f"{expect} and 0 elsewhere")
+        if not math.isfinite(loss):
+            fail(f"{tag} {cfg.name} {cfg.mode} step {step}: loss {loss}")
+        rows.append({"step": step, "loss": loss, "ms": ms, "split": split,
+                     "grad_norm": float(stats["grad_norm"]),
+                     "launches": {k: v for k, v in counts.items() if v}})
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] {cfg.name} {cfg.mode} batch {PAPER_BATCH}: losses "
+          f"{[round(r['loss'], 5) for r in rows]}, ms/step {[round(r['ms'], 1) for r in rows]}"
+          f", launches a step {rows[0]['launches']}"
+          + (f" (split step {rows[-1]['launches']})" if split_last else "")
+          + f", peak memory {peak / 2**30:.2f} GiB")
+    return params, {"steps": rows, "max_memory_allocated": peak}
+
+
+def phase_paper_parity(torch, np, dev, tag="paper-parity"):
+    """One bika training step of CNV at full width (the whole conv plan and
+    the 512-512-10 head) on PAPER_PARITY_BATCH // 2 images, on the card and
+    on the CPU plain path, from the same numpy params and batch: loss
+    within TRAIN_PARITY_LOSS relative, each gradient and each updated
+    parameter within TRAIN_PARITY_REL of its L2 norm, CAC outputs held to
+    the card's at near-zero pre-activations (``_sign_hooks``, as
+    phase_train_parity). Also the largest |dw| of each layer: how much
+    gradient reaches each conv down the stack."""
+    from repro_torch.core.convert import from_reference
+    from repro_torch.data.vision import textures_batch
+    from repro_torch.models.paper import CNV, build_paper_model
+    from repro_torch.optim.adamw import OptimizerSpec, make_optimizer, tree_leaves
+    from repro_torch.train.paper import PAPER_LOSS, image_api
+    from repro_torch.train.steps import loss_and_grads
+
+    cfg = CNV.replace(mode="bika")
+    np_params = _tree_np(build_paper_model(cfg, device="cpu")[0](SEED + 3))
+    x, y = textures_batch(SEED + 5, 0, PAPER_PARITY_BATCH // 2, device="cpu")
+    install, restore, report = _sign_hooks(torch)
+    out = {}
+    try:
+        for side, where in (("card", dev), ("cpu", torch.device("cpu"))):  # the card first
+            install(side)
+            apply = build_paper_model(cfg, device=where)[1]
+            params = from_reference(np_params, device=where)
+            t0 = time.perf_counter()
+            metrics, grads = loss_and_grads(image_api(apply), params,
+                                            {"x": x.to(where), "labels": y.to(where)},
+                                            **PAPER_LOSS)
+            init, upd = make_optimizer(OptimizerSpec(peak_lr=1e-3, warmup=0, total_steps=10))
+            params, _, _ = upd(grads, init(params), params)
+            out[side] = (float(metrics["loss"]), [t.cpu() for t in tree_leaves(grads)],
+                         [t.cpu() for t in tree_leaves(params)], time.perf_counter() - t0,
+                         [float(layer["w"].abs().max()) for layer in grads["conv"] + grads["fc"]])
+    finally:
+        restore()
+    held = report()
+    (lc, gc, pc, tc, dw_max), (lp, gp, pp, tp, _) = out["card"], out["cpu"]
+    loss_rel = abs(lc - lp) / abs(lp)
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
+    g_rel = max(rel(a, b) for a, b in zip(gc, gp))
+    p_rel = max(rel(a, b) for a, b in zip(pc, pp))
+    if not (np.isfinite(lc) and loss_rel <= TRAIN_PARITY_LOSS):
+        fail(f"{tag}: loss card {lc} cpu {lp} (relative {loss_rel:.3e} > {TRAIN_PARITY_LOSS})")
+    if not (g_rel <= TRAIN_PARITY_REL and p_rel <= TRAIN_PARITY_REL):
+        fail(f"{tag}: worst leaf relative L2 gradient {g_rel:.3e}, parameter {p_rel:.3e} "
+             f"(limit {TRAIN_PARITY_REL})")
+    print(f"[{tag}] CNV bika at full width, {PAPER_PARITY_BATCH // 2} images, one train step, "
+          f"card vs CPU plain path: loss {lc:.6f} vs {lp:.6f} (relative {loss_rel:.2e}, limit "
+          f"{TRAIN_PARITY_LOSS}); worst leaf relative L2 gradient {g_rel:.2e}, parameter "
+          f"{p_rel:.2e} (limit {TRAIN_PARITY_REL}); {held}; card {tc:.1f} s, CPU {tp:.1f} s; "
+          f"max |dw| a layer, conv1 .. fc3: {', '.join(f'{v:.3e}' for v in dw_max)}")
+    return {"loss_card": lc, "loss_cpu": lp, "loss_rel": loss_rel, "grad_rel": g_rel,
+            "param_rel": p_rel, "held": held, "dw_max_per_layer": dw_max}
+
+
+def _paper_serve(torch, np, ops, cfg, params, dev, tag="paper-serve"):
+    """``paper_model_to_serve`` of trained ``params``, then the served
+    forward: at PAPER_BATCH on the card (timed; one launch of the mode's
+    serve kernel a projection, 0 elsewhere), and on PAPER_PARITY_BATCH
+    images on the card and on the CPU, whose logits must be equal bit for
+    bit once the activation codes agree (``_code_hooks`` holds them at
+    genuine half-way ties)."""
+    from repro_torch.core.convert import from_reference
+    from repro_torch.models.paper import build_paper_model, paper_model_to_serve
+
+    served = paper_model_to_serve(params, cfg)
+    apply = build_paper_model(cfg, phase="serve", device=dev)[1]
+    dataset = "textures" if cfg.kind == "cnv" else "digits"
+    from repro_torch.train.paper import dataset_batch
+
+    x, _ = dataset_batch(dataset)(SEED + 7, 0, PAPER_BATCH, device=dev)
+    n_proj = len(cfg.features) + (len([c for c in cfg.conv_plan if c != "P"])
+                                  if cfg.kind == "cnv" else 0)
+    route = {"bika": "cac_hw", "bnn": "bnn", "qnn8": "qnn8"}[cfg.mode]
+    with torch.no_grad():
+        apply(served, x)  # warm: plans and the first launches
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits = apply(served, x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        if counts != dict(_NO_LAUNCHES, **{route: n_proj}):
+            fail(f"{tag} {cfg.name} {cfg.mode}: launch counts {counts}, expected {n_proj} "
+                 f"{route} and 0 elsewhere")
+        if tuple(logits.shape) != (PAPER_BATCH, 10) or not bool(torch.isfinite(logits).all()):
+            fail(f"{tag} {cfg.name} {cfg.mode}: logits {tuple(logits.shape)}, finite "
+                 f"{bool(torch.isfinite(logits).all())}")
+        xs = x[:PAPER_PARITY_BATCH]
+        np_served = _tree_np(served)
+        install, restore, report = _code_hooks(torch)
+        out = {}
+        try:
+            for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+                install(side)
+                out[side] = build_paper_model(cfg, phase="serve", device=where)[1](
+                    from_reference(np_served, device=where), xs.to(where)).cpu()
+        finally:
+            restore()
+    if not torch.equal(out["card"], out["cpu"]):
+        fail(f"{tag} {cfg.name} {cfg.mode}: served logits differ between card and CPU by up "
+             f"to {float((out['card'] - out['cpu']).abs().max()):.3e} ({report()})")
+    print(f"[{tag}] {cfg.name} {cfg.mode}: served forward at batch {PAPER_BATCH} {ms:.2f} ms, "
+          f"{n_proj} {route} launches; {PAPER_PARITY_BATCH} images card == CPU bit for bit "
+          f"({report()})")
+    return {"ms": ms, "launches": {route: n_proj}, "held": report()}
+
+
+def phase_paper(torch, np, dev, flush):
+    """The paper slice: kernels at the paper's shapes, TFC/SFC/LFC/CNV
+    trained in bika at full width (a split-backward step on CNV), TFC in
+    dense, bnn and qnn8, CNV's card-vs-CPU step, the served forwards (bika
+    for all four, CNV's first conv through the K' = 27 pad; bnn and qnn8
+    on TFC) and the quickstart at 200 steps. The launch counts of the
+    paper path (every training and serving step above) are summed into
+    ``launches``; each on-path kernel must have run in it."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quickstart
+    from repro_torch.models.paper import CNV, LFC, SFC, TFC
+
+    t0 = time.perf_counter()
+    kernel_rows = phase_paper_kernels(torch, np, dev, flush)
+    out = {"kernels": kernel_rows, "train": {}, "serve": {}}
+    launches = dict(_NO_LAUNCHES)
+    trained = {}
+    for base in (TFC, SFC, LFC, CNV):
+        cfg = base.replace(mode="bika")
+        trained[(base.name, "bika")], out["train"][f"{base.name} bika"] = _paper_train(
+            torch, ops, cfg, dev, PAPER_STEPS, split_last=base is CNV)
+    for mode in ("dense", "bnn", "qnn8"):
+        trained[("tfc", mode)], out["train"][f"tfc {mode}"] = _paper_train(
+            torch, ops, TFC.replace(mode=mode), dev, PAPER_STEPS)
+    for r in out["train"].values():
+        for step in r["steps"]:
+            for k, v in step["launches"].items():
+                launches[k] += v
+    out["parity"] = phase_paper_parity(torch, np, dev)
+    for (name, mode), params in trained.items():
+        if mode == "dense":
+            continue
+        cfg = {"tfc": TFC, "sfc": SFC, "lfc": LFC, "cnv": CNV}[name].replace(mode=mode)
+        r = _paper_serve(torch, np, ops, cfg, params, dev)
+        out["serve"][f"{name} {mode}"] = r
+        for k, v in r["launches"].items():
+            launches[k] += v
+    missing = [k for k in ("cac_hw", "cac_train_fwd", "cac_train_bwd_fused", "cac_train_bwd_dx",
+                           "cac_train_bwd_dw", "bnn", "bnn_bwd_dx", "bnn_bwd_dw", "qnn8")
+               if not launches[k]]
+    if missing:
+        fail(f"paper: kernels of the path never launched: {missing}")
+    out["launches"] = launches
+    q = quickstart.run(steps=200, device=dev, log=lambda s: print(f"[paper-quickstart] {s}"))
+    if q["match"] < quickstart.MATCH_MIN or not q["exact"]:
+        fail(f"paper quickstart: (a) {q['match']:.4f} of units agree (need "
+             f"{quickstart.MATCH_MIN}), (b) bit-equal {q['exact']}")
+    out["quickstart"] = q
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[paper] launches on the paper path {({k: v for k, v in launches.items() if v})}; "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    only_paper = argv == ["--only", "paper"]
+    if argv and not only_paper:
+        fail(f"unknown arguments {argv}; the one option is --only paper")
     try:
         import numpy as np
         import torch
@@ -2051,6 +2498,7 @@ def main() -> int:
     except ImportError as e:
         fail(f"the port's package is not beside this script ({e}); run from the repo root")
 
+    t_start = time.perf_counter()
     smi = smi_line()
     print(f"[device] {smi}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2089,6 +2537,16 @@ def main() -> int:
         print(f"[build] sass {short}: {sum(ops.values())} instructions an iteration{per}: {ops}")
 
     dev = torch.device("cuda")
+    if only_paper:  # a partial run: no kernels line, no last line
+        flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+        paper = phase_paper(torch, np, dev, flush)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_paper.json"), "w") as fh:
+            json.dump({"device": smi, "paper": paper}, fh, indent=1, sort_keys=True,
+                      default=str)
+        print(smi)
+        print("partial run (--only paper): no result line")
+        return 0
     device_ops = phase_device_ops(torch, np, dev)
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
     cac_rows, timing_floor = phase_cac(torch, np, dev, flush)
@@ -2119,6 +2577,9 @@ def main() -> int:
                                                 tag="bnn-train-parity")
     qnn_path = phase_qnn8_serve(torch, np, dev)
     spec = phase_spec(torch, np, dev)
+    flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    paper = phase_paper(torch, np, dev, flush)
+    del flush
 
     main_cac = next(r for r in cac_rows if (r["M"], r["K"], r["N"]) == (4, 960, 2560))
     main_attn = next(r for r in attn_rows if r["case"] == "decode" and not r["int8"])
@@ -2223,6 +2684,25 @@ def main() -> int:
         "device_ops_per_call": device_ops["qnn_matmul stream"],
         "tile_route_device_ops_per_call": device_ops["qnn_matmul tile"],
         "shapes": [r for r in qnn_rows if "ms" in r]})
+    # the paper slice: each on-path kernel's launches on the paper path and
+    # its rows at the paper's shapes (kernel 6 on float32 and on int8 weights)
+    paper_keys = {"cac_matmul": ("cac_hw", ("cac_matmul",)),
+                  "cac_train_fwd": ("cac_train_fwd", ("cac_train_fwd",)),
+                  "cac_train_bwd_dx": ("cac_train_bwd_dx", ("cac_train_bwd_dx",)),
+                  "cac_train_bwd_dw": ("cac_train_bwd_dw", ("cac_train_bwd_dw",)),
+                  "cac_train_bwd_fused": ("cac_train_bwd_fused", ("cac_train_bwd_fused",)),
+                  "bnn_matmul": ("bnn", ("bnn_matmul", "bnn_matmul_int8")),
+                  "bnn_bwd_dx": ("bnn_bwd_dx", ("bnn_bwd_dx",)),
+                  "bnn_bwd_dw": ("bnn_bwd_dw", ("bnn_bwd_dw",)),
+                  "qnn_matmul": ("qnn8", ("qnn_matmul",))}
+    for entry in kernels:
+        if entry["name"] not in paper_keys:
+            continue
+        count, row_keys = paper_keys[entry["name"]]
+        entry["paper_launches"] = paper["launches"][count]
+        entry["shapes"] = entry["shapes"] + [
+            dict({"paper": r["where"], "M": r["M"], "K": r["K"], "N": r["N"]},
+                 **{key: r[key] for key in row_keys}) for r in paper["kernels"]]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump({"device": smi, "kernels": kernels, "timing_floor_ms": timing_floor,
@@ -2232,7 +2712,8 @@ def main() -> int:
                    "bnn_training": bnn_training, "qnn_kernels": qnn_rows,
                    "qnn_route_sweep": qnn_route_sweep, "qnn_path": qnn_path,
                    "attn_sweep": attn_sweep,
-                   "spec": spec}, fh, indent=1, sort_keys=True)
+                   "spec": spec, "paper": paper}, fh, indent=1, sort_keys=True, default=str)
+    print(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     print(smi)
     print(json.dumps({"kernels": kernels}, sort_keys=True))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,6 +27,7 @@ __all__ = [
     "register",
     "get_backend",
     "pack_signs",
+    "pad_contraction",
     "quantize_activations",
     "unpack_signs",
     "DenseBackend",
@@ -86,6 +87,19 @@ def pack_signs(s: torch.Tensor) -> torch.Tensor:
     return (bits << shifts[:, None]).sum(dim=-2).to(torch.uint8)
 
 
+def pad_contraction(tau: torch.Tensor, s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., K, N) int8 thresholds and +-1 int8 signs with K rounded up to a
+    multiple of 8 (the CAC kernel's packed planes hold 8 rows a byte), the
+    new rows tau = -128 and s = +1. Every int8 code satisfies x >= -128, so
+    each new row adds exactly +1 to every sum, whatever x is padded with."""
+    pad = -tau.shape[-2] % 8
+    if not pad:
+        return tau, s
+    shape = tau.shape[:-2] + (pad, tau.shape[-1])
+    return (torch.cat([tau, tau.new_full(shape, -128)], dim=-2),
+            torch.cat([s, s.new_ones(shape)], dim=-2))
+
+
 def _uniform(gen: torch.Generator, shape, dtype, bound: float, device) -> torch.Tensor:
     u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
     return ((u * 2.0 - 1.0) * bound).to(dtype)
@@ -116,6 +130,13 @@ class QuantBackend:
     """Base class for one projection family (serve-slice subset)."""
 
     name: str = "?"
+    # does this mode carry an additive bias like an ordinary ANN layer?
+    default_bias: bool = False
+
+    def inter_act(self, x: torch.Tensor) -> torch.Tensor:
+        """Between-layer activation: the identity where the nonlinearity is
+        inside the contraction (bika's Sign, bnn's binarization)."""
+        return x
 
     def init_train(self, gen, k: int, n: int, spec, *, device):
         raise NotImplementedError
@@ -160,6 +181,10 @@ def get_backend(name: str) -> QuantBackend:
 
 class DenseBackend(QuantBackend):
     name = "dense"
+    default_bias = True
+
+    def inter_act(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(x)
 
     def init_train(self, gen, k, n, spec, *, device):
         p = {"w": _uniform(gen, (k, n), spec.pdtype, 1.0 / (k**0.5), device)}
@@ -196,20 +221,22 @@ class BikaBackend(QuantBackend):
         }
 
     def init_serve(self, gen, k, n, spec, *, device):
-        p = {"tau": torch.zeros((spec.m, k, n), dtype=torch.int8, device=device)}
-        if spec.pack_signs:
-            if k % 8:
-                raise ValueError(f"pack_signs requires K%8==0, got K={k}")
-            p["s"] = torch.zeros((spec.m, k // 8, n), dtype=torch.uint8, device=device)
-        else:
-            p["s"] = torch.ones((spec.m, k, n), dtype=torch.int8, device=device)
-        p["gamma"] = torch.ones((n,), dtype=torch.float32, device=device)
-        return p
+        """Placeholder serve tree (tau 0; s -1 in packed planes, +1
+        unpacked, as the reference's), K padded as ``to_serve`` pads it."""
+        tau = torch.zeros((spec.m, k, n), dtype=torch.int8, device=device)
+        s = torch.full((spec.m, k, n), -1 if spec.pack_signs else 1, dtype=torch.int8,
+                       device=device)
+        tau, s = pad_contraction(tau, s)
+        return {"tau": tau, "s": pack_signs(s) if spec.pack_signs else s,
+                "gamma": torch.ones((n,), dtype=torch.float32, device=device)}
 
     def to_serve(self, params, spec):
+        """(w, beta) -> int8 (tau, s), K padded to a multiple of 8 once here
+        (``pad_contraction``: CNV's first conv has K = 27), so that a served
+        forward pads only its activations."""
         tau, s = bika_core.to_hardware(params["w"], params["beta"])
         tau_int, _ = bika_core.quantize_thresholds(tau, spec.act_scale)
-        s = s.to(torch.int8)
+        tau_int, s = pad_contraction(tau_int, s.to(torch.int8))
         if spec.pack_signs:
             s = pack_signs(s)
         return {"tau": tau_int, "s": s, "gamma": params["gamma"].to(torch.float32)}
@@ -248,21 +275,29 @@ class BikaBackend(QuantBackend):
         compute exactly the integers of the reference's ``bika_matmul_hw``
         (its ``impl="pallas"`` route is the counterpart). The kernel reads
         the packed sign planes directly; unpacked serve trees are packed
-        per call. With m > 1 the fold feeds it K' = m*K."""
+        per call. Where the tree's K is padded (``pad_contraction``), the
+        activation codes are padded to it and the pad rows' +1 each is
+        subtracted. With m > 1 the fold feeds it K' = m*K."""
         from repro_torch.kernels.ops import cac_matmul
 
         cd = x.dtype
         tau, s = params["tau"], params["s"]
-        m, k = tau.shape[0], tau.shape[1]
-        if not spec.pack_signs:
-            s = pack_signs(s)
+        m, k = tau.shape[0], x.shape[-1]
+        pad = tau.shape[1] - k
         x_int = quantize_activations(x, spec.act_scale)
+        if pad:
+            x_int = torch.nn.functional.pad(x_int, (0, pad))
+
+        def mm(xi, t, sg):
+            return cac_matmul(xi, t, sg if spec.pack_signs else pack_signs(sg))
+
         if spec.fold_m and m > 1:
             # one comparator contraction over K' = m*K; exact (integer sums commute)
-            y = cac_matmul(bika_core.tile_m_axis(x_int, m), tau.reshape(m * k, -1),
-                           s.reshape(m * k // 8, -1)).to(cd)
+            y = mm(bika_core.tile_m_axis(x_int, m), tau.reshape(-1, tau.shape[-1]),
+                   s.reshape(-1, s.shape[-1]))
         else:
-            y = sum(cac_matmul(x_int, tau[j], s[j]) for j in range(m)).to(cd)
+            y = sum(mm(x_int, tau[j], s[j]) for j in range(m))
+        y = (y - m * pad if pad else y).to(cd)
         y = _out_scale(y, m * k, spec)
         return y * params["gamma"].to(cd)
 

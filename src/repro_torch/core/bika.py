@@ -1,14 +1,20 @@
 """BiKA math (port of ``repro/core/bika.py``): the training forms
 ``bika_matmul`` (fused broadcast or K-chunked) and ``bika_matmul_cvjp``
 (custom backward saving only (x, w, beta)), the (w, beta) -> (tau, s)
-export, threshold quantization, the m-axis fold and the plain comparator
-contraction ``bika_matmul_hw``.
+export, threshold quantization, the m-axis fold, the plain comparator
+contraction ``bika_matmul_hw`` with the 8-bit PE's saturating accumulator
+(``hw_exact``), and the reference's layer names ``bika_linear_*`` and
+``bika_conv2d_*`` under a ``BikaConfig``, over the port's one bika
+projection (``core/backend.py``) and one conv (``nn/conv.py``).
 
 The training forms are plain PyTorch. They are the plain versions behind
 the ``cac_train`` kernel route (``kernels/ops.py:cac_train_matmul``), which
-every bika training projection takes (``core/backend.py``)."""
+every bika training projection takes (``core/backend.py``). The reference's
+``tiled`` forms are an XLA memory schedule; here they are the same values
+computed a slice of rows at a time."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -18,16 +24,42 @@ from .ste import sign, sign_ste
 __all__ = [
     "ACC_LO",
     "ACC_HI",
+    "BikaConfig",
+    "bika_conv2d_apply",
+    "bika_conv2d_init",
+    "bika_linear_apply",
+    "bika_linear_init",
     "bika_matmul",
     "bika_matmul_cvjp",
     "bika_matmul_hw",
+    "bika_matmul_hw_tiled",
     "fold_m_axis",
     "tile_m_axis",
     "to_hardware",
     "quantize_thresholds",
+    "saturating_accumulate",
 ]
 
 ACC_LO, ACC_HI = -128, 127  # the 8-bit PE accumulator range
+
+
+@dataclasses.dataclass(frozen=True)
+class BikaConfig:
+    """Per-layer BiKA options (the reference's fields and defaults).
+
+    m: thresholds per edge (1 = BiKA). chunk: K slice of the chunked sum
+    (None = one broadcast). out_scale: 'none' (raw integer sums, the
+    paper's networks) or 'rsqrt_k' (y / sqrt(m K)). hw_exact: the 8-bit
+    saturating accumulator in the forward. fold_m: one contraction over
+    K' = m K instead of an m-term sum (ignored by ``hw_exact``, whose per-m
+    saturating sums depend on the order)."""
+
+    m: int = 1
+    chunk: Optional[int] = None
+    out_scale: str = "none"
+    hw_exact: bool = False
+    fold_m: bool = True
+
 
 _W_EPS = 1e-8
 _ALWAYS_FIRE = -1e9  # tau for degenerate w == 0 edges: Sign(beta) regardless of x
@@ -63,37 +95,49 @@ def bika_matmul(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor, *,
     return acc - pad if pad else acc
 
 
-def _bwd_fused(x, w, beta, g):
-    """The STE backward of ``bika_matmul`` from (x, w, beta): the hard-tanh
-    mask recomputed once for (dx, dw, dbeta). x (M, K), g (M, N)."""
-    mask = ((x[:, :, None] * w[None] + beta[None]).abs() <= 1.0).to(g.dtype)
-    gm = g[:, None, :] * mask
-    dx = (gm * w[None].to(g.dtype)).sum(dim=2)
-    dw = (gm * x[:, :, None].to(g.dtype)).sum(dim=0)
-    dbeta = gm.sum(dim=0)
-    return dx, dw, dbeta
-
-
 class _BikaCvjp(torch.autograd.Function):
+    """The training CAC with its STE backward from (x, w, beta) alone, a
+    slice of rows at a time: the plain versions of the training CAC
+    kernels (``cac_train_fwd_plain``, ``cac_train_bwd_fused_plain``), in
+    float32, whose (rows, K, N) intermediates stay bounded."""
+
     @staticmethod
     def forward(ctx, x2, w, beta):
+        from repro_torch.kernels.cac_matmul import cac_train_fwd_plain
+
         ctx.save_for_backward(x2, w, beta)
-        return sign(x2[:, :, None] * w + beta).sum(dim=-2)
+        return cac_train_fwd_plain(x2.float(), w.float(), beta.float()).to(x2.dtype)
 
     @staticmethod
     def backward(ctx, g):
+        from repro_torch.kernels.cac_matmul import cac_train_bwd_fused_plain
+
         x, w, beta = ctx.saved_tensors
-        dx, dw, dbeta = _bwd_fused(x, w, beta, g.to(torch.float32))
+        dx, dw, dbeta = cac_train_bwd_fused_plain(x.float(), w.float(), beta.float(),
+                                                  g.float().contiguous())
         return dx.to(x.dtype), dw.to(w.dtype), dbeta.to(beta.dtype)
 
 
-def bika_matmul_cvjp(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+def bika_matmul_cvjp(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor, *,
+                     tiled: bool = False) -> torch.Tensor:
     """Training-form BiKA whose backward keeps only (x, w, beta) and
-    recomputes the mask (``_bwd_fused``); the same function as
-    ``bika_matmul``. x: (..., K) -> (..., N)."""
+    recomputes the mask; the same function as ``bika_matmul``, a slice of
+    rows at a time. ``tiled`` is the reference's switch to its bounded-memory
+    (mc, kc) schedule; this form is bounded already, so both values take
+    the one route. x: (..., K) -> (..., N)."""
+    del tiled
     lead = x.shape[:-1]
     y = _BikaCvjp.apply(x.reshape(-1, x.shape[-1]), w, beta)
     return y.reshape(lead + (w.shape[-1],)).to(x.dtype)
+
+
+def saturating_accumulate(terms: torch.Tensor, lo: int = ACC_LO, hi: int = ACC_HI) -> torch.Tensor:
+    """The 8-bit PE's running sum ("sum limitation"): terms (K, ...) summed
+    over axis 0, saturating at [lo, hi] after every term."""
+    acc = torch.zeros(terms.shape[1:], dtype=terms.dtype, device=terms.device)
+    for t in terms:
+        acc = torch.clamp(acc + t, lo, hi)
+    return acc
 
 
 def bika_matmul_hw(
@@ -101,16 +145,38 @@ def bika_matmul_hw(
     tau: torch.Tensor,
     s: torch.Tensor,
     *,
+    hw_exact: bool = False,
     clamp: bool = True,
     acc_dtype: torch.dtype = torch.int32,
 ) -> torch.Tensor:
     """Plain hardware-form CAC: y[b,n] = sum_k s[k,n] * Sign(x[b,k] - tau[k,n]),
-    as a comparator (``x >= tau``) over an (..., K, N) broadcast. ``clamp``
-    applies the 8-bit range to the final sum; the LM path passes False."""
+    as a comparator (``x >= tau``) over an (..., K, N) broadcast.
+    ``hw_exact`` saturates the sum at the int8 bounds after every input,
+    bit for bit the FPGA PE; otherwise the sum is wide and ``clamp``
+    applies the 8-bit range to the final sum (the LM path passes False)."""
     one = torch.ones((), dtype=acc_dtype, device=x.device)
     cmp = torch.where(x[..., :, None] >= tau, one, -one)
-    acc = (cmp * s.to(acc_dtype)).sum(dim=-2, dtype=acc_dtype)
+    terms = cmp * s.to(acc_dtype)
+    if hw_exact:
+        return saturating_accumulate(torch.movedim(terms, -2, 0))
+    acc = terms.sum(dim=-2, dtype=acc_dtype)
     return acc.clamp(ACC_LO, ACC_HI) if clamp else acc
+
+
+def bika_matmul_hw_tiled(x: torch.Tensor, tau: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``bika_matmul_hw`` unclamped, summed in float32, a slice of rows at a
+    time (the training kernels' plain slices) so the (rows, K, N)
+    intermediate stays bounded. x (..., K) -> (..., N) float32."""
+    from repro_torch.kernels.cac_matmul import _row_chunks
+
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    k, n = tau.shape
+    tau, s = tau.to(torch.float32), s.to(torch.float32)
+    y = x2.new_empty((x2.shape[0], n))
+    for a, b in _row_chunks(x2.shape[0], k, n):
+        y[a:b] = bika_matmul_hw(x2[a:b], tau, s, clamp=False, acc_dtype=torch.float32)
+    return y.reshape(lead + (n,))
 
 
 def fold_m_axis(w: torch.Tensor, beta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -158,3 +224,62 @@ def quantize_thresholds(
     scale = torch.full((), x_scale, dtype=tau.dtype, device=tau.device)
     tau_int = torch.clamp(torch.round(tau / scale), lo, hi).to(torch.int8)
     return tau_int, x_scale
+
+
+# ---------------------------------------------------------------------------
+# Layer init / apply (training form, m thresholds per edge)
+# ---------------------------------------------------------------------------
+
+
+def bika_linear_init(gen: torch.Generator, k: int, n: int, m: int = 1,
+                     dtype: torch.dtype = torch.float32, *, device=None):
+    """PyTorch-Linear-style uniform init of (w, beta), each (m, K, N) in
+    [-1/sqrt(K), 1/sqrt(K)), drawn from ``gen`` (as the bika backend draws
+    its training parameters)."""
+    from .backend import _uniform
+
+    bound = 1.0 / (k ** 0.5)
+    return {"w": _uniform(gen, (m, k, n), dtype, bound, device),
+            "beta": _uniform(gen, (m, k, n), dtype, bound, device)}
+
+
+def _spec(cfg: BikaConfig):
+    from .backend import LinearSpec
+
+    return LinearSpec(mode="bika", m=cfg.m, fold_m=cfg.fold_m, chunk=cfg.chunk,
+                      out_scale=cfg.out_scale)
+
+
+def bika_linear_apply(params, x: torch.Tensor, cfg: BikaConfig = BikaConfig()) -> torch.Tensor:
+    """The reference's BiKA layer over the port's one bika projection:
+    ``BikaBackend.apply_train`` (the training CAC route) with gamma = 1.
+    ``chunk`` and ``fold_m`` change only the order of a sum of +-1 terms,
+    which is exact in any order, so they change no value. With
+    ``hw_exact`` the forward is the PE's: (tau, s) and one saturating int8
+    accumulator per threshold set j, never folded."""
+    from .backend import _out_scale, get_backend
+
+    w, beta = params["w"], params["beta"]
+    m, k, n = w.shape
+    if not cfg.hw_exact:
+        one = torch.ones((n,), dtype=w.dtype, device=w.device)
+        return get_backend("bika").apply_train(dict(params, gamma=one), x, _spec(cfg))
+    tau, s = to_hardware(w, beta)
+    y = sum(bika_matmul_hw(x, tau[j], s[j], hw_exact=True) for j in range(m)).to(x.dtype)
+    return _out_scale(y, m * k, _spec(cfg))
+
+
+def bika_conv2d_init(gen: torch.Generator, c_in: int, c_out: int, kh: int = 3, kw: int = 3,
+                     m: int = 1, dtype: torch.dtype = torch.float32, *, device=None):
+    return bika_linear_init(gen, c_in * kh * kw, c_out, m, dtype, device=device)
+
+
+def bika_conv2d_apply(params, x: torch.Tensor, *, kh: int = 3, kw: int = 3, stride: int = 1,
+                      padding: str = "SAME", cfg: BikaConfig = BikaConfig()) -> torch.Tensor:
+    """BiKAConv2d: x (B, H, W, C) -> (B, H', W', C_out), the port's one
+    conv (``nn/conv.im2col_apply``) over ``bika_linear_apply``. Each patch
+    element has its own threshold, the conv form of the per-edge bias."""
+    from repro_torch.nn.conv import im2col_apply
+
+    return im2col_apply(lambda rows: bika_linear_apply(params, rows, cfg), x,
+                        kh=kh, kw=kw, stride=stride, padding=padding)

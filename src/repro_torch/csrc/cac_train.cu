@@ -91,8 +91,12 @@
 //   rows over the ranks in rank order and writes dx. Every sum has one fixed
 //   order, so dx, dw and dbeta repeat bit for bit, with no float atomics and
 //   no memset. A block keeps 512 rows of dx (two blocks an SM); a larger M
-//   is walked in ranges of 512 rows (dw and dbeta read back by the thread
-//   that wrote them and added to, in order).
+//   is walked in ranges of 512 rows. A range sums its dw and dbeta from 0
+//   and then adds them to the earlier ranges' sums, which the same thread
+//   wrote and reads back: each term rounds against one range's partial sum,
+//   not against the sum of all M so far. (Summing on from the earlier sum
+//   put an error of 8.6e-3 on dw at CNV's conv1, M = 131,072, against a
+//   float64 sum; ste_accuracy.py, PERF.md section 6.)
 //
 // Kernels 3 and 4, the split step (FUSED_BWD_DEFAULT = False): kernel 5's
 // design, each kernel doing its share, sharing its window search.
@@ -680,8 +684,8 @@ cac_train_bwd_fused_kernel(const float* __restrict__ x, const float* __restrict_
             const bool ok = k < K && n < N;
             const size_t o = (size_t)k * N + n;
             wr[i][j] = ok ? w[o] : 0.f;
-            dwa[i][j] = ok && m_base > 0 && half == 0 ? dw[o] : 0.f;
-            dba[i][j] = ok && m_base > 0 && half == 0 ? db[o] : 0.f;
+            dwa[i][j] = 0.f;  // a range's sums start at 0 (see the write-out)
+            dba[i][j] = 0.f;
             bad |= !is_finite(wr[i][j]);
           }
           bad |= __shfl_xor_sync(0xffffffffu, bad, 1);
@@ -770,6 +774,14 @@ cac_train_bwd_fused_kernel(const float* __restrict__ x, const float* __restrict_
           const bool xnan = xbad[2 * kg + i] != 0;  // g 0 x with x non-finite: NaN
           float* pw = dw + (size_t)k * N + n;
           float* pb = db + (size_t)k * N + n;
+          if (m_base > 0) {  // the earlier ranges' sums, which this thread wrote
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (n + j < N) {
+                dwa[i][j] = __fadd_rn(pw[j], dwa[i][j]);
+                dba[i][j] = __fadd_rn(pb[j], dba[i][j]);
+              }
+          }
 #pragma unroll
           for (int j = 0; j < 8; ++j) dwa[i][j] = xnan ? nan : dwa[i][j];
           if (VEC) {
@@ -1072,8 +1084,8 @@ __device__ __forceinline__ void body(const float* __restrict__ x, const float* _
             const bool ok = k < K && n < N;
             const size_t o = (size_t)k * N + n;
             wr[i][j] = DX && ok ? w[o] : 0.f;
-            dwa[i][j] = !DX && ok && m_base > 0 && half == 0 ? dw[o] : 0.f;
-            dba[i][j] = !DX && ok && m_base > 0 && half == 0 ? db[o] : 0.f;
+            dwa[i][j] = 0.f;  // a range's sums start at 0, as kernel 5's
+            dba[i][j] = 0.f;
             bad |= !is_finite(wr[i][j]);
           }
           if (DX) {
@@ -1174,6 +1186,14 @@ __device__ __forceinline__ void body(const float* __restrict__ x, const float* _
           const bool xnan = xbad[2 * kg + i] != 0;  // g 0 x with x non-finite: NaN
           float* pw = dw + (size_t)k * N + n;
           float* pb = db + (size_t)k * N + n;
+          if (m_base > 0) {  // the earlier ranges' sums, which this thread wrote
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+              if (n + j < N) {
+                dwa[i][j] = __fadd_rn(pw[j], dwa[i][j]);
+                dba[i][j] = __fadd_rn(pb[j], dba[i][j]);
+              }
+          }
 #pragma unroll
           for (int j = 0; j < NT; ++j) dwa[i][j] = xnan ? nan : dwa[i][j];
           if (VEC) {

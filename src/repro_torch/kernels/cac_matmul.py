@@ -237,11 +237,15 @@ def cac_train_fwd_plain(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor) ->
 
 
 def _bwd_plain(x, w, beta, g, want_dx: bool, want_dw: bool):
+    """The STE backward a slice of rows at a time; dw and dbeta sum the
+    slices in float64 (one slice: the float32 sums themselves), so that at
+    a large M (CNV's im2col: 131,072 rows, hundreds of slices) the plain
+    version's own rounding stays below the bound the kernels are held to."""
     _check_train(x, w, beta, g)
     m, k = x.shape
     dx = torch.empty_like(x) if want_dx else None
-    dw = torch.zeros_like(w) if want_dw else None
-    db = torch.zeros_like(w) if want_dw else None
+    dw = torch.zeros_like(w, dtype=torch.float64) if want_dw else None
+    db = torch.zeros_like(w, dtype=torch.float64) if want_dw else None
     for a, b in _row_chunks(m, k, w.shape[1]):
         cdx, cdw, cdb = ref.cac_train_bwd_ref(x[a:b], w, beta, g[a:b])
         if want_dx:
@@ -249,6 +253,8 @@ def _bwd_plain(x, w, beta, g, want_dx: bool, want_dw: bool):
         if want_dw:
             dw += cdw
             db += cdb
+    if want_dw:
+        dw, db = dw.to(torch.float32), db.to(torch.float32)
     return dx, dw, db
 
 

@@ -46,6 +46,8 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 def _zeros_like_tree(tree):
     if isinstance(tree, dict):
         return {k: _zeros_like_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zeros_like_tree(v) for v in tree)
     return torch.zeros_like(tree, dtype=torch.float32)
 
 

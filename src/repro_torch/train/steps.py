@@ -1,4 +1,4 @@
-"""train_step builder (port of ``repro/train/steps.py``).
+"""train_step / eval_step builders (port of ``repro/train/steps.py``).
 
 ``make_train_step`` composes optional microbatch gradient accumulation
 (bounded activation memory), the aux-loss weighting, the skip of a
@@ -15,7 +15,7 @@ from repro_torch.models.base import ModelAPI
 from repro_torch.optim.adamw import global_norm, tree_leaves
 from .loss import softmax_xent
 
-__all__ = ["make_train_step", "loss_and_grads"]
+__all__ = ["make_eval_step", "make_train_step", "loss_and_grads"]
 
 
 def _unflatten(tree, leaves):
@@ -24,6 +24,8 @@ def _unflatten(tree, leaves):
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
         return next(it)
 
     return build(tree)
@@ -101,3 +103,15 @@ def make_train_step(
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_eval_step(api: ModelAPI, *, z_loss: float = 0.0):
+    """Returns eval_step(params, batch) -> metrics {"loss", "accuracy",
+    "tokens"} of ``api.apply`` on the batch, with no autograd graph."""
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        logits = api.apply(params, batch)
+        return softmax_xent(logits, batch["labels"], batch.get("mask"), z_loss=z_loss)[1]
+
+    return eval_step

@@ -154,9 +154,10 @@ def cac_train_split_order_model(x, w, beta, g, cluster):
     dbeta: over M ranges of 512 rows, each (k, n) sums two row groups apart,
     rows 16 p + (s ^ o) and 16 p + 8 + (s ^ o) for p in order and s = 0..7,
     o the octet of n in a 64-column frame (at kernel 4's 32-column tiles too:
-    tile t's lane h has o = 4 (t & 1) + h / 2), each term one fma; at a
-    range's end dw = group 0 + group 1, and group 0 goes on from it (NaN in
-    a k column where x holds a non-finite value). dx: per 64-column tile and
+    tile t's lane h has o = 4 (t & 1) + h / 2), each term one fma, both
+    groups from 0; at a range's end its sum is group 0 + group 1, and dw is
+    the earlier ranges' dw + that sum (NaN in a k column where x holds a
+    non-finite value). dx: per 64-column tile and
     row, each of 8 lanes sums its 8 columns (fma, from 0), the lanes meet in
     the butterfly ((P_r + P_r^1) + (P_r^2 + P_r^3)) + ((P_r^4 + P_r^5) +
     (P_r^6 + P_r^7)), r the row's index in its group of 8, which is added
@@ -174,7 +175,7 @@ def cac_train_split_order_model(x, w, beta, g, cluster):
     db = torch.zeros(k, n)
     for base in range(0, m, 512):
         end = min(m, base + 512)
-        sums = [[dw, db], [torch.zeros(k, n), torch.zeros(k, n)]]
+        sums = [[torch.zeros(k, n), torch.zeros(k, n)], [torch.zeros(k, n), torch.zeros(k, n)]]
         for p in range(base, end, 16):
             for s in range(8):
                 for half in (0, 1):
@@ -186,8 +187,8 @@ def cac_train_split_order_model(x, w, beta, g, cluster):
                     sw, sb = sums[half]
                     sums[half] = [_fma(sw, gv.expand(k, n), x[r].T, keep),
                                   torch.where(keep, sb + gv, sb)]
-        dw = sums[0][0] + sums[1][0]
-        db = sums[0][1] + sums[1][1]
+        part_w, part_b = sums[0][0] + sums[1][0], sums[0][1] + sums[1][1]
+        dw, db = (part_w, part_b) if base == 0 else (dw + part_w, db + part_b)
         bad = ~torch.isfinite(x[:end]).all(dim=0)
         dw = torch.where(bad[:, None], torch.nan, dw)
     tiles = -(-n // 64)

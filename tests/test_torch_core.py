@@ -180,7 +180,10 @@ def test_port_imports_neither_jax_nor_reference():
     for module in ("core/ste.py", "kernels/cac_matmul.py", "kernels/ops.py", "train/steps.py",
                    "train/trainer.py", "train/loss.py", "optim/adamw.py", "optim/schedule.py",
                    "data/lm.py", "launch/train.py", "core/bnn.py", "kernels/bnn_matmul.py",
-                   "core/qnn.py", "kernels/qnn_matmul.py", "serve/kv.py", "serve/spec.py"):
+                   "core/qnn.py", "kernels/qnn_matmul.py", "serve/kv.py", "serve/spec.py",
+                   "models/paper.py", "nn/conv.py", "nn/module.py", "core/thresholds.py",
+                   "core/kan.py", "data/vision.py", "train/paper.py", "launch/quickstart.py",
+                   "launch/table2.py", "launch/kan_to_bika.py"):
         assert module in rel, module
     for path in files:
         with open(path, encoding="utf-8") as fh:

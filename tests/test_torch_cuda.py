@@ -36,7 +36,11 @@ including tables split over clusters of 1 to 16 ranks whose ranks walk
 several blocks and chunks whose first queries see rank 0 alone, repeats
 bit for bit (its ranks meet in rank order), takes the plan that
 ``attn_plan`` computes, and is one device operation a call at decode and
-at a prefill chunk."""
+at a prefill chunk. At the paper models' ragged shapes (TFC's N = 10 and
+K = 32 head, CNV's first conv at K = 3 x 3 x 3 = 27 and a large im2col M)
+every kernel of their paths holds to its plain version the same way, and
+the bika serve path takes a contraction that is not a multiple of 8
+through kernel 1 (padded to K' = 32) to the plain integers."""
 import numpy as np
 import pytest
 import torch
@@ -400,3 +404,76 @@ def test_paged_attention_one_device_op_on_card(cuda, tmp_path, b, c):
     _, dev = _paged_operands(cuda, b, c, 15, 5, 64, 16, 8, False, "tail")
     ops = device_ops(lambda: paged_attn_kernel_call(*dev[:5]), tmp_path / "attn.json")
     assert len(ops) == 1 and "paged_attn_kernel" in ops[0], ops
+
+
+# the paper models' shapes (M, K, N): TFC's first layer and head, CNV's
+# first conv (K = 27) at 8 images' im2col rows, its second at 2 images'
+PAPER_SHAPES = [(128, 784, 64), (128, 32, 10), (8192, 27, 64), (2048, 576, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", PAPER_SHAPES)
+def test_paper_shape_kernels_on_card(cuda, m, k, n):
+    """Kernels 1, 2, 3-5, 6, 8, 9 and 10 at the paper models' shapes
+    against their plain versions: forwards bit-exact, the STE backwards
+    off the window edge and the SignSTE pair within 1e-4 (dx), and where
+    they sum over M > 512 rows (dw, dbeta) within an absolute 1e-4 x
+    sqrt(M / 512)."""
+    rng = np.random.default_rng(m + 3 * k + n)
+    x, w, beta, g = (torch.from_numpy(a).to(cuda) for a in cac_train_case(rng, m, k, n))
+    assert torch.equal(cac.cac_train_fwd_call(x, w, beta), cac.cac_train_fwd_plain(x, w, beta))
+    plain = cac.cac_train_bwd_fused_plain(x, w, beta, g)
+    dx_keep, dw_keep = window_clear(x, w, beta)
+    fused = cac.cac_train_bwd_fused_call(x, w, beta, g)
+    split = (cac.cac_train_bwd_dx_call(x, w, beta, g),) + cac.cac_train_bwd_dw_call(x, w, beta, g)
+    # dw and dbeta sum over M in 512-row ranges: above 512 rows an absolute
+    # 1e-4 for each range's sum, growing as the square root of their count,
+    # and no relative term (chip_smoke.py:_m_tol)
+    m_tol = (1e-4, 1e-4) if m <= 512 else (1e-4 * (-(-m // 512)) ** 0.5, 0.0)
+    for a, b, c, keep, (atol, rtol) in zip(fused, split, plain, (dx_keep, dw_keep, dw_keep),
+                                           ((1e-4, 1e-4), m_tol, m_tol)):
+        for got in (a, b):
+            torch.testing.assert_close(torch.where(keep, got, 0), torch.where(keep, c, 0),
+                                       atol=atol, rtol=rtol)
+    wb = sign(w).to(torch.int8)
+    assert torch.equal(bnn.bnn_matmul_kernel_call(x, w), bnn.bnn_matmul_plain(x, w))
+    assert torch.equal(bnn.bnn_matmul_kernel_call(x, wb), bnn.bnn_matmul_plain(x, wb))
+    torch.testing.assert_close(bnn.bnn_bwd_dx_call(x, w, g), bnn.bnn_bwd_dx_plain(x, w, g),
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(bnn.bnn_bwd_dw_call(x, w, g), bnn.bnn_bwd_dw_plain(x, w, g),
+                               atol=m_tol[0], rtol=m_tol[1])
+    xq, wq, ws = (torch.from_numpy(a).to(cuda) for a in qnn_case(rng, m, k, n))
+    assert torch.equal(qnn.qnn_matmul_kernel_call(xq, wq, ws, 0.05),
+                       qnn.qnn_matmul_plain(xq, wq, ws, 0.05))
+    if k % 8 == 0:
+        xi, tau, s = (torch.from_numpy(a).to(cuda) for a in cac_case(rng, m, k, n))
+        sp = pack_signs(s)
+        assert torch.equal(cac_matmul_kernel_call(xi, tau, sp), cac_matmul_plain(xi, tau, sp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m_sets", [(27, 1), (13, 2), (5, 3)])
+def test_bika_serve_at_any_contraction_length_on_card(cuda, k, m_sets):
+    """BikaBackend.apply_serve on an unpacked serve tree whose K is not a
+    multiple of 8 (CNV's first conv: 27), padded as to_serve pads it: one
+    kernel-1 launch, and the integers of the plain bika_matmul_hw, bit for
+    bit."""
+    from repro_torch.core import backend
+    from repro_torch.core.bika import bika_matmul_hw, tile_m_axis
+
+    rng = np.random.default_rng(k)
+    n = 64
+    tau = rng.integers(-128, 128, size=(m_sets, k, n)).astype(np.int8)
+    s = np.where(rng.random((m_sets, k, n)) < 0.5, 1, -1).astype(np.int8)
+    x = rng.normal(scale=3.0, size=(4096, k)).astype(np.float32)
+    tau_p, s_p = backend.pad_contraction(torch.from_numpy(tau), torch.from_numpy(s))
+    p = {"tau": tau_p.to(cuda), "s": s_p.to(cuda), "gamma": torch.ones(n, device=cuda)}
+    spec = backend.LinearSpec(mode="bika", m=m_sets, out_scale="none")
+    before = cac_matmul_kernel_call.launches
+    got = backend.get_backend("bika").apply_serve(p, torch.from_numpy(x).to(cuda), spec)
+    torch.cuda.synchronize()
+    assert cac_matmul_kernel_call.launches == before + 1
+    x_int = backend.quantize_activations(torch.from_numpy(x), 0.05)
+    want = bika_matmul_hw(tile_m_axis(x_int, m_sets), torch.from_numpy(tau).reshape(-1, n),
+                          torch.from_numpy(s).reshape(-1, n), clamp=False)
+    assert torch.equal(got.cpu(), want.to(torch.float32))
