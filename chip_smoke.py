@@ -44,6 +44,15 @@ Phases (each prints its own line; any failure exits non-zero):
    profile — one more fp-KV drain under torch.profiler: device busy time,
              idle share, the kernels that take the most time and kernel
              11's device ms and launches (as in every profiled drain).
+   obs     — the same drain traced (obs.Tracer), metered
+             (obs.MetricsRegistry) and phase-timed (profile_sample=4):
+             tokens equal the untraced drain's, 224 kernel-1 and 32
+             kernel-11 launches a tick, every request's queued / prefill /
+             decode spans equal to its RunMetrics stamps, the Prometheus
+             text parsed; traced and untraced wall seconds side by side; a
+             drain inside the --profile-dir torch.profiler window, whose
+             Chrome trace names kernels 1 and 11; and a replay_arrivals
+             drain at Poisson 20 req/s with the closed loop's tokens.
 5. parity  — the same weights cut to 2 layers at full width: the card's
              prefill and decode logits against a CPU run of the port (plain
              versions), with the activation codes held equal at half-way
@@ -60,6 +69,16 @@ Phases (each prints its own line; any failure exits non-zero):
              the two split a Sign at a near-zero pre-activation (see
              phase_train_parity); loss, gradients and updated parameters
              within the stated tolerances.
+   ckpt    — checkpoint and restart at full width and depth (bika, remat,
+             batch 4 x seq 128): run_with_restarts with a failure at step 2
+             of 4 (ckpt_every=1, keep=1) equals the uninterrupted 4-step run
+             bit for bit in every parameter and AdamW m / v leaf, each step
+             exactly 448 kernel-2 and 224 kernel-5 launches; the
+             checkpoint's bytes and its save (sync, async) and restore
+             seconds; a flipped byte in a leaf makes restore raise; then one
+             qnn8 step through launch/train.py --mode qnn8 (finite loss, no
+             kernel). Checkpoints go to a temporary directory under build/,
+             removed at the end of the phase.
 8. bnn-kernels — the BNN kernels (6: sign product, 7: its packed serve
              form, 8/9: the SignSTE dx and dw) against their plain versions
              at the decode shapes (M = 4), the unpacked serve's prefill
@@ -1228,11 +1247,12 @@ def _requests(np, vocab):
 
 
 def _serve(np, train, arch, quantized, dev, count_launches=False, label=None,
-           engine="paged", **spec):
+           engine="paged", held=None, **spec):
     """One drain of the 8 requests through ``ServeEngine.from_trained`` (the
     train -> serve conversion runs each time, outside the timed drain);
     ``label`` names the drain in a profile; ``spec`` passes ``spec_draft``
-    and ``spec_k``."""
+    and ``spec_k`` (or the tracer, registry and profile_sample);
+    ``held`` (a dict) gets the engine and the finished requests."""
     import contextlib
 
     import torch
@@ -1256,6 +1276,8 @@ def _serve(np, train, arch, quantized, dev, count_launches=False, label=None,
         sync()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts() if count_launches else None
+    if held is not None:
+        held.update(engine=eng, done=done)
     outs = {r.rid: [int(t) for t in r.output] for r in done}
     if sorted(outs) != list(range(8)) or any(len(o) != NEW_TOKENS for o in outs.values()):
         fail(f"serve int8={quantized}: not every request completed with {NEW_TOKENS} tokens")
@@ -1884,6 +1906,352 @@ def phase_train_path(torch, np, dev, mode, tag="train"):
               f"ms, idle share {split_share['idle_share']:.4f}; "
               + ", ".join(f"{name} {r['ms']:.3f} device ms in {r['count']} launches"
                           for name, r in split_share["groups"].items()))
+    return result
+
+
+# ---------------------------------------------------------------------------
+# ckpt: checkpoint and restart at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def _counted_trainer(torch, ops, cfg, dev, per_step, fail_at_step=None, io_times=None):
+    """A Trainer whose steps each zero the launch counters just before and
+    read them just after (``per_step`` gets (step, counts)); with
+    ``io_times`` (a dict) its checkpoint saves and restores are timed."""
+    from repro_torch.optim.adamw import OptimizerSpec
+    from repro_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, OptimizerSpec(total_steps=cfg.steps), device=dev,
+                      fail_at_step=fail_at_step)
+    inner = trainer.train_step
+
+    def counted(params, opt, step):
+        ops.reset_launches()
+        out = inner(params, opt, step)
+        per_step.append((step, ops.launch_counts()))
+        return out
+
+    trainer.train_step = counted
+    for name in ("save", "restore_latest") if io_times is not None and trainer.ckpt else ():
+        def timed(*args, _inner=getattr(trainer.ckpt, name), _name=name, **kw):
+            t0 = time.perf_counter()
+            out = _inner(*args, **kw)
+            torch.cuda.synchronize()
+            io_times.setdefault(_name, []).append(time.perf_counter() - t0)
+            return out
+
+        setattr(trainer.ckpt, name, timed)
+    return trainer
+
+
+def _state_equal(torch, a, b):
+    """(leaves compared, the paths whose bits differ) of two {"params",
+    "opt"} states."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        fail(f"checkpoint state: {len(la)} leaves against {len(lb)}")
+    bad = [i for i, (x, y) in enumerate(zip(la, lb))
+           if (torch.is_tensor(x) and not (x.dtype == y.dtype and torch.equal(x, y)))
+           or (not torch.is_tensor(x) and x != y)]
+    return len(la), bad
+
+
+def _flip_a_byte(path, member):
+    """Corrupt one leaf on disk: flip a byte of its array data inside the
+    uncompressed ``arrays.npz``."""
+    import struct
+    import zipfile
+
+    with zipfile.ZipFile(path) as zf:
+        info = zf.getinfo(member)
+    with open(path, "r+b") as fh:
+        fh.seek(info.header_offset + 26)
+        name_len, extra_len = struct.unpack("<HH", fh.read(4))
+        at = info.header_offset + 30 + name_len + extra_len + info.compress_size - 1
+        fh.seek(at)
+        byte = fh.read(1)
+        fh.seek(at)
+        fh.write(bytes([byte[0] ^ 0x40]))
+
+
+def phase_ckpt(torch, np, dev, tag="ckpt"):
+    """Checkpoint and restart of full-width, full-depth smollm-360m in bika
+    mode (remat, batch 4 x seq 128, random weights from seed 42): an
+    uninterrupted 4-step run against ``run_with_restarts`` with a failure
+    injected at step 2 (``ckpt_every=1``, ``keep=1``: the restart restores
+    step 2). Every parameter and every AdamW m / v leaf must be equal bit for
+    bit, and each step launch exactly 448 kernel-2 and 224 kernel-5 kernels
+    and nothing else; the restarted run's four (sync) saves and its restore
+    are timed. Then the checkpoint's bytes and an async save's seconds (until
+    ``save`` returns, and until ``wait``); a byte flipped in one leaf's data
+    must make restore raise on that leaf's hash; and one
+    qnn8 step through ``launch/train.py --mode qnn8``: a finite loss and no
+    kernel launched (fake quantization). The checkpoints live in a
+    temporary directory under build/ that the phase removes."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager, latest_step, restore
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.trainer import TrainConfig, run_with_restarts
+
+    arch = get_config("smollm-360m", compute_mode="bika")
+    n_proj = 7 * arch.n_layers
+    expect = dict(_NO_LAUNCHES, cac_train_fwd=2 * n_proj, cac_train_bwd_fused=n_proj)
+    steps, fail_at = 4, 2
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt-", dir=os.path.join(ROOT, "build"))
+    result = {"layers": arch.n_layers, "d_model": arch.d_model, "d_ff": arch.d_ff,
+              "steps": steps, "fail_at_step": fail_at}
+    try:
+        cfg = TrainConfig(arch=arch, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=steps,
+                          log_every=1)
+        full_steps = []
+        t0 = time.perf_counter()
+        full_p, full_o, full_log = _counted_trainer(torch, ops, cfg, dev, full_steps).run()
+        torch.cuda.synchronize()
+        result["uninterrupted_s"] = time.perf_counter() - t0
+        ck = os.path.join(tmp, "run")
+        rcfg = TrainConfig(arch=arch, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=steps,
+                           log_every=1, ckpt_dir=ck, ckpt_every=1, keep=1)
+        restart_steps, made, io_times = [], [], {}
+
+        def make():
+            made.append(1)
+            return _counted_trainer(torch, ops, rcfg, dev, restart_steps,
+                                    fail_at_step=fail_at if len(made) == 1 else None,
+                                    io_times=io_times)
+
+        t0 = time.perf_counter()
+        p, o, log, restarts = run_with_restarts(make)
+        torch.cuda.synchronize()
+        result["restarted_s"] = time.perf_counter() - t0
+        if restarts != 1 or [s for s, _ in restart_steps] != list(range(steps)):
+            fail(f"[{tag}] restarts {restarts}, steps run {[s for s, _ in restart_steps]}")
+        for name, rows in (("uninterrupted", full_steps), ("restarted", restart_steps)):
+            for step, counts in rows:
+                if counts != expect:
+                    fail(f"[{tag}] {name} step {step}: launches {counts}, expected "
+                         f"{2 * n_proj} cac_train_fwd + {n_proj} cac_train_bwd_fused")
+        n_leaves, bad = _state_equal(torch, {"params": full_p, "opt": full_o},
+                                     {"params": p, "opt": o})
+        if bad:
+            fail(f"[{tag}] the restarted run differs from the uninterrupted one in "
+                 f"{len(bad)} of {n_leaves} leaves")
+        result["save_sync_s"] = io_times["save"]
+        (result["restore_s"],) = io_times["restore_latest"]
+        losses = [m["loss"] for m in full_log]
+        if [m["loss"] for m in log] != losses[fail_at:] or not all(map(math.isfinite, losses)):
+            fail(f"[{tag}] losses {losses} against the restart's {[m['loss'] for m in log]}")
+        print(f"[{tag}] smollm-360m bika {arch.n_layers} layers d_model {arch.d_model}: "
+              f"restart at step {fail_at} of {steps} (ckpt_every=1, keep=1) equals the "
+              f"uninterrupted run bit for bit in all {n_leaves} leaves (params, m, v, step); "
+              f"launches {2 * n_proj} cac_train_fwd + {n_proj} cac_train_bwd_fused each of "
+              f"{len(full_steps)} + {len(restart_steps)} steps; losses {losses}; "
+              f"wall {result['uninterrupted_s']:.2f} s uninterrupted, "
+              f"{result['restarted_s']:.2f} s with 4 saves and a restore")
+        if latest_step(ck) != steps:
+            fail(f"[{tag}] the run's directory ends at step {latest_step(ck)}")
+        shutil.rmtree(ck)
+        del full_p, full_o
+        state = {"params": p, "opt": o}
+        mgr = CheckpointManager(os.path.join(tmp, "timed"), keep=1)
+        t0 = time.perf_counter()
+        mgr.save(steps, state, blocking=False)
+        result["save_async_return_s"] = time.perf_counter() - t0
+        mgr.wait()
+        result["save_async_s"] = time.perf_counter() - t0
+        path = os.path.join(tmp, "timed", f"step_{steps}")
+        result["checkpoint_bytes"] = sum(os.path.getsize(os.path.join(path, f))
+                                         for f in os.listdir(path))
+        with open(os.path.join(path, "manifest.json")) as fh:
+            first = sorted(json.load(fh)["arrays"])[0]
+        _flip_a_byte(os.path.join(path, "arrays.npz"), first + ".npy")
+        try:
+            restore(os.path.join(tmp, "timed"), None, state, device=dev)
+        except OSError as e:  # the manifest's hash must catch it
+            if "hash mismatch" not in str(e):
+                fail(f"[{tag}] a corrupted leaf ({first}) failed otherwise: {e}")
+            result["corrupted_restore_raised"] = f"{type(e).__name__}: {e}"
+        else:
+            fail(f"[{tag}] a corrupted leaf ({first}) restored without an error")
+        print(f"[{tag}] checkpoint {result['checkpoint_bytes']:,} B ({n_leaves} leaves): the "
+              f"restarted run's sync saves {[round(t, 2) for t in result['save_sync_s']]} s, "
+              f"its restore {result['restore_s']:.2f} s; an async save returns after "
+              f"{result['save_async_return_s']:.2f} s (the host copy), written after "
+              f"{result['save_async_s']:.2f} s; a flipped byte in {first}: "
+              f"{result['corrupted_restore_raised'][:120]}")
+        del p, o, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = launch_train.main(["--mode", "qnn8", "--steps", "1", "--seq-len", str(TRAIN_SEQ),
+                                "--batch", str(TRAIN_BATCH)])
+    counts = ops.launch_counts()
+    text = out.getvalue()
+    loss = re.search(r"step\s+0\s+loss (\S+)", text)
+    if rc != 0 or loss is None or not math.isfinite(float(loss.group(1))):
+        fail(f"[{tag}] launch.train --mode qnn8: rc {rc}, output {text!r}")
+    if counts != _NO_LAUNCHES:
+        fail(f"[{tag}] qnn8 training launched kernels: {counts}")
+    result["qnn8_step"] = {"loss": float(loss.group(1)), "s": time.perf_counter() - t0}
+    print(f"[{tag}] launch.train --mode qnn8 (full width and depth, 1 step): loss "
+          f"{float(loss.group(1)):.5f}, no kernel launched, {result['qnn8_step']['s']:.2f} s")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# obs: the traced, metered and profiled bika drain
+# ---------------------------------------------------------------------------
+
+
+def _reconcile(tag, tracer, done):
+    """Exact trace <-> RunMetrics reconciliation: one queued and one prefill
+    span per request, each with the request's own stamps, and one decode
+    span on the prefill's track. Returns the summed span seconds."""
+    spans = {}
+    for r in tracer.records:
+        if r.kind == "span" and r.track != "profiler" and r.name in ("queued", "prefill",
+                                                                     "decode"):
+            key = (r.args["rid"], r.name)
+            if key in spans:
+                fail(f"[{tag}] a second {r.name} span for request {key[0]}")
+            spans[key] = r
+    sums = {"queued": 0.0, "prefill": 0.0, "queue_wait": 0.0, "prefill_latency": 0.0}
+    for req in done:
+        rm = req.metrics
+        q, p, d = (spans.get((req.rid, n)) for n in ("queued", "prefill", "decode"))
+        if q is None or p is None or d is None:
+            fail(f"[{tag}] request {req.rid} lacks a lifecycle span")
+        if not (q.ts == rm.t_submit and q.dur == rm.queue_wait and p.ts == rm.t_admit
+                and p.dur == rm.prefill_latency and d.ts == rm.t_first_token
+                and d.dur == rm.t_done - rm.t_first_token and p.track == d.track):
+            fail(f"[{tag}] request {req.rid}: spans do not equal its metrics' stamps")
+        sums["queued"] += q.dur
+        sums["prefill"] += p.dur
+        sums["queue_wait"] += rm.queue_wait
+        sums["prefill_latency"] += rm.prefill_latency
+    if (sums["queued"], sums["prefill"]) != (sums["queue_wait"], sums["prefill_latency"]):
+        fail(f"[{tag}] summed spans {sums}")
+    if len(spans) != 3 * len(done):
+        fail(f"[{tag}] {len(spans)} lifecycle spans for {len(done)} requests")
+    return sums
+
+
+def phase_obs(torch, np, arch, train, dev, untraced, tag="obs"):
+    """The paged bika drain of phase path (the same weights and requests,
+    fp KV) with a Tracer, a MetricsRegistry and profile_sample=4: its tokens
+    must equal the untraced drain's (``untraced``), its launches stay 224
+    kernel-1 and 32 kernel-11 a tick, its trace reconciles exactly with
+    RunMetrics (``_reconcile``) and its Prometheus text parses. An untraced
+    drain just before gives the wall seconds to set beside the traced one.
+    Then request 0 alone, 3 tokens, served inside the torch.profiler window
+    of ``--profile-dir`` (``obs.profile.profile_trace``; a whole drain's
+    trace runs to ~390 MB): its Chrome trace must hold exactly 224 kernel-1
+    and 32 kernel-11 launches a tick, by kernel name. Last, an open-loop
+    ``replay_arrivals`` drain at a Poisson rate of 20 requests a second,
+    whose tokens must equal the closed-loop drain's."""
+    import shutil
+    import tempfile
+
+    from repro_torch.obs import MetricsRegistry, Tracer, parse_prometheus, profile_trace
+    from repro_torch.serve import ServeEngine, replay_arrivals
+
+    _, _, wall_plain, _ = _serve(np, train, arch, False, dev)
+    tracer, registry, held = Tracer(), MetricsRegistry(), {}
+    outs, counts, wall_traced, summ = _serve(np, train, arch, False, dev, count_launches=True,
+                                             held=held, tracer=tracer, registry=registry,
+                                             profile_sample=4)
+    if outs != untraced:
+        fail(f"[{tag}] the traced drain's tokens differ from the untraced drain's")
+    _check_serve_launches(arch, "cac_hw", counts, summ)
+    sums = _reconcile(tag, tracer, held["done"])
+    ticks = summ["decode_steps"] + summ["prefill_chunks"]
+    samples = parse_prometheus(registry.to_prometheus())
+    labels = (("engine", "paged"), ("mode", "bika"), ("route", "fused"))
+    for name in ("serve_requests_total", "serve_run_completed_requests"):
+        if samples.get((name, labels)) != 8.0:
+            fail(f"[{tag}] {name} = {samples.get((name, labels))}, expected 8")
+    names = {}
+    for r in tracer.records:
+        names[f"{r.track}:{r.name}"] = names.get(f"{r.track}:{r.name}", 0) + 1
+    prof = held["engine"].profiler.summary()
+    result = {"wall_untraced_s": wall_plain, "wall_traced_s": wall_traced, "ticks": ticks,
+              "launches": counts, "records": len(tracer), "dropped": tracer.dropped,
+              "record_counts": names, "span_sums_s": sums, "profile": prof,
+              "prometheus_samples": len(samples)}
+    print(f"[{tag}] traced drain (Tracer, MetricsRegistry, profile_sample=4): tokens equal the "
+          f"untraced drain's; launches {counts['cac_hw']} cac_hw + {counts['paged_attn']} "
+          f"paged_attn in {ticks} ticks (224 + 32 a tick); wall {wall_traced:.3f} s traced "
+          f"against {wall_plain:.3f} s untraced; {len(tracer)} records "
+          f"({tracer.dropped} dropped), {len(samples)} Prometheus samples parsed")
+    print(f"[{tag}] trace = RunMetrics exactly for all 8 requests: queued spans sum to "
+          f"{sums['queued']:.6f} s = queue waits, prefill spans {sums['prefill']:.6f} s = "
+          f"prefill latencies; records {names}")
+    print(f"[{tag}] step timer: {prof['sampled_ticks']}/{prof['ticks']} ticks sampled; "
+          + ", ".join(f"{k} {v['mean_s'] * 1e3:.2f} ms a tick ({v['fraction']:.0%})"
+                      for k, v in prof["phases"].items()))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    pdir = tempfile.mkdtemp(prefix="profile-", dir=os.path.join(ROOT, "build"))
+    eng = ServeEngine.from_trained(train, arch, engine="paged", n_slots=N_SLOTS, max_len=MAX_LEN,
+                                   kv_block_size=BLOCK, prefill_chunk=CHUNK, device=dev)
+    first = _requests(np, arch.vocab)[0]
+    first.max_new_tokens = 3
+    eng.submit(first)
+    torch.cuda.synchronize()
+    try:
+        window = profile_trace(pdir)
+        with window:
+            (one,) = eng.run()
+            torch.cuda.synchronize()
+        with open(window.path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        result["profile_trace_bytes"] = os.path.getsize(window.path)
+    finally:
+        shutil.rmtree(pdir, ignore_errors=True)
+    ps = eng.metrics.summary()
+    pticks = ps["decode_steps"] + ps["prefill_chunks"]
+    kernels = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    n1 = sum("stream_kernel<0," in e.get("name", "") for e in kernels)
+    n11 = sum("paged_attn_kernel" in e.get("name", "") for e in kernels)
+    if [int(t) for t in one.output] != untraced[0][:3] or (n1, n11) != (
+            7 * arch.n_layers * pticks, arch.n_layers * pticks):
+        fail(f"[{tag}] profile window: {n1} kernel-1 and {n11} kernel-11 events in {pticks} "
+             f"ticks, tokens {list(one.output)} against {untraced[0][:3]}")
+    result["profile_window"] = {"kernel_events": len(kernels), "cac_hw": n1, "paged_attn": n11,
+                                "ticks": pticks}
+    print(f"[{tag}] --profile-dir window (request 0, 3 tokens, {pticks} ticks): Chrome trace of "
+          f"{result['profile_trace_bytes']:,} B, {len(kernels)} kernel events: {n1} "
+          f"stream_kernel<0 (kernel 1) and {n11} paged_attn_kernel (kernel 11), 224 and 32 a "
+          f"tick; tokens equal the drain's")
+    eng = ServeEngine.from_trained(train, arch, engine="paged", n_slots=N_SLOTS, max_len=MAX_LEN,
+                                   kv_block_size=BLOCK, prefill_chunk=CHUNK, device=dev)
+    reqs = _requests(np, arch.vocab)
+    rate = 20.0
+    arrivals = np.cumsum(np.random.RandomState(SEED + 1).exponential(1.0 / rate, len(reqs)))
+    torch.cuda.synchronize()
+    done, makespan = replay_arrivals(eng.scheduler, list(zip(arrivals.tolist(), reqs)))
+    outs_r = {r.rid: [int(t) for t in r.output] for r in done}
+    if outs_r != untraced:
+        fail(f"[{tag}] replay_arrivals at {rate} req/s gave other tokens than the closed loop")
+    rs = eng.metrics.summary()
+    result["replay"] = {"rate": rate, "last_arrival_s": float(arrivals[-1]),
+                        "makespan_s": makespan, "ttft_p50_s": rs.get("ttft_p50_s"),
+                        "goodput_tok_s": rs["goodput_tok_s"]}
+    print(f"[{tag}] replay_arrivals, Poisson {rate} req/s (last arrival at "
+          f"{arrivals[-1]:.3f} s): tokens equal the closed loop's; makespan {makespan:.3f} s, "
+          f"goodput {rs['goodput_tok_s']:.1f} tok/s")
     return result
 
 
@@ -2565,12 +2933,18 @@ def main(argv=None) -> int:
                       paged_attn_route="fused")
     train, path = phase_path(torch, np, arch, dev, "cac_hw")
     path["profile"] = phase_profile(torch, np, arch, train, dev, groups=KERNEL11_GROUP)
+    t0 = time.perf_counter()
+    path["obs"] = phase_obs(torch, np, arch, train, dev, path["tokens"])
+    print(f"[obs] phase {time.perf_counter() - t0:.1f} s")
     serve_params = tree_to_serve(train, arch.linear_spec())
     del train
     path["parity"] = phase_parity(torch, np, arch, serve_params, dev, _code_hooks(torch))
     del serve_params
     training = phase_train_path(torch, np, dev, "bika")
     training["parity"] = phase_train_parity(torch, np, dev, "bika", _sign_hooks(torch))
+    t0 = time.perf_counter()
+    ckpt = phase_ckpt(torch, np, dev)
+    print(f"[ckpt] phase {time.perf_counter() - t0:.1f} s")
     bnn_path = phase_bnn_serve(torch, np, dev)
     bnn_training = phase_train_path(torch, np, dev, "bnn", tag="bnn-train")
     bnn_training["parity"] = phase_train_parity(torch, np, dev, "bnn", _bnn_train_hooks(torch),
@@ -2712,7 +3086,8 @@ def main(argv=None) -> int:
                    "bnn_training": bnn_training, "qnn_kernels": qnn_rows,
                    "qnn_route_sweep": qnn_route_sweep, "qnn_path": qnn_path,
                    "attn_sweep": attn_sweep,
-                   "spec": spec, "paper": paper}, fh, indent=1, sort_keys=True, default=str)
+                   "spec": spec, "paper": paper, "ckpt": ckpt}, fh, indent=1, sort_keys=True,
+                  default=str)
     print(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     print(smi)
     print(json.dumps({"kernels": kernels}, sort_keys=True))

@@ -12,9 +12,27 @@ decoding.
 Runs on CUDA unless ``--device cpu`` is given; without a GPU it raises.
 Weights are initialised from seed 0, as in the reference launcher; with
 ``--spec-draft`` the seed makes a train-form tree, from which both the
-target and the draft are converted (``ServeEngine.from_trained``). Flags
-not ported yet (the static engine, tensor parallelism, tracing, metrics
-export, profiling, arrival replay) are not accepted.
+target and the draft are converted (``ServeEngine.from_trained``).
+
+``--arrival-rate R`` (req/s) replays a Poisson arrival process instead of
+submitting everything up front: the launcher ticks the slot scheduler and
+submits each request when its arrival time elapses
+(``serve.scheduler.replay_arrivals``).
+
+Observability (``obs/``, all opt-in):
+
+- ``--trace-out trace.jsonl`` records the run's request-lifecycle spans and
+  events to JSONL (``--trace-capacity`` records in a ring buffer), with a
+  footer holding the run's metrics summary and per-request stamps, and
+  writes ``trace.perfetto.json`` beside it (ui.perfetto.dev);
+- ``--metrics-out metrics.prom`` dumps the metrics registry in Prometheus
+  text format (a ``.json`` suffix: a JSON snapshot);
+- ``--profile-sample N`` phase-times every Nth scheduler tick and prints the
+  split; ``--profile-dir DIR`` wraps the drain in a torch.profiler window
+  and writes its Chrome trace (kernel names and device times) into DIR.
+
+Flags not ported yet (the static engine, tensor parallelism) are not
+accepted.
 """
 from __future__ import annotations
 
@@ -25,7 +43,9 @@ import numpy as np
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
+from repro_torch.obs import MetricsRegistry, Tracer, profile_trace, set_tracer
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.scheduler import replay_arrivals
 
 
 def _param_bytes(tree) -> int:
@@ -70,10 +90,36 @@ def main(argv=None) -> int:
     ap.add_argument("--spec-k", type=int, default=4,
                     help="speculative window: the draft proposes k-1 tokens, the target "
                          "verifies k")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="Poisson arrival rate in req/s (0 = submit all up front)")
+    ap.add_argument("--trace-out", default="",
+                    help="write the request-lifecycle trace JSONL here (and "
+                         "<stem>.perfetto.json beside it)")
+    ap.add_argument("--trace-capacity", type=int, default=65536,
+                    help="trace ring-buffer capacity in records")
+    ap.add_argument("--metrics-out", default="",
+                    help="dump the metrics registry: Prometheus text, or a JSON snapshot "
+                         "when the path ends in .json")
+    ap.add_argument("--profile-dir", default="",
+                    help="wrap the drain in a torch.profiler window writing its Chrome "
+                         "trace here")
+    ap.add_argument("--profile-sample", type=int, default=0,
+                    help="phase-time every Nth scheduler tick (0 = off)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (default; raises without a GPU) or cpu (plain versions)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    tracer = Tracer(capacity=args.trace_capacity) if args.trace_out else None
+    prev_tracer = set_tracer(tracer) if tracer is not None else None
+    try:
+        return _serve(args, device, tracer)
+    finally:
+        if tracer is not None:
+            set_tracer(prev_tracer)
+
+
+def _serve(args, device, tracer) -> int:
+    registry = MetricsRegistry() if (args.metrics_out or args.trace_out) else None
 
     getter = get_smoke if args.smoke else get_config
     arch = getter(args.arch, compute_mode=args.mode, remat=False)
@@ -85,7 +131,8 @@ def main(argv=None) -> int:
                   quantized_kv=args.quantized_kv, engine=args.engine,
                   n_slots=args.n_slots or None, kv_block_size=args.kv_block_size,
                   kv_n_blocks=args.kv_n_blocks or None, prefix_cache=args.prefix_cache,
-                  prefill_chunk=args.prefill_chunk, device=device)
+                  prefill_chunk=args.prefill_chunk, device=device, tracer=tracer,
+                  registry=registry, profile_sample=args.profile_sample)
     if args.spec_draft:
         # the trained float tree, so that the SAME weights convert through
         # the target backend and the cheaper draft backend (serve/spec.py)
@@ -102,11 +149,20 @@ def main(argv=None) -> int:
         eng = ServeEngine(api, params, arch, **eng_kw)
     print(f"[serve] engine={eng.engine}")
     rng = np.random.RandomState(0)
+    reqs = []
     for i in range(args.requests):
         plen = int(rng.randint(3, 12))
-        eng.submit(Request(rid=i, prompt=rng.randint(0, arch.vocab, plen).astype(np.int32),
-                           max_new_tokens=args.new_tokens))
-    done = eng.run()
+        reqs.append(Request(rid=i, prompt=rng.randint(0, arch.vocab, plen).astype(np.int32),
+                            max_new_tokens=args.new_tokens))
+    window = profile_trace(args.profile_dir)
+    with window:
+        if args.arrival_rate > 0:
+            arrivals = np.cumsum(rng.exponential(1.0 / args.arrival_rate, len(reqs)))
+            done, _ = replay_arrivals(eng.scheduler, list(zip(arrivals, reqs)))
+        else:
+            for r in reqs:
+                eng.submit(r)
+            done = eng.run()
     for r in sorted(done, key=lambda q: q.rid)[:4]:
         print(f"  req {r.rid}: {[int(t) for t in r.output[:10]]}...")
     print(f"[serve] completed {len(done)} requests")
@@ -127,6 +183,25 @@ def main(argv=None) -> int:
           f"({m['kv_bytes_per_token']:.0f} B/token) "
           f"in-use peak={m['kv_bytes_in_use_peak']:,} B "
           f"decode HBM/token={m['decode_hbm_bytes_per_token']:.0f} B")
+    if eng.profiler is not None and eng.profiler.sampled_ticks:
+        ps = eng.profiler.summary()
+        split = " ".join(f"{k}={v['fraction']:.0%}" for k, v in ps["phases"].items())
+        print(f"[serve] profile: {ps['sampled_ticks']}/{ps['ticks']} ticks sampled; {split}")
+    if args.profile_dir:
+        print(f"[serve] torch.profiler trace -> {window.path}")
+    if tracer is not None:
+        requests = [r.metrics.to_dict() for r in done if r.metrics is not None] or None
+        tracer.write_jsonl(args.trace_out, summary=m, requests=requests)
+        stem = args.trace_out[:-6] if args.trace_out.endswith(".jsonl") else args.trace_out
+        tracer.write_perfetto(stem + ".perfetto.json")
+        print(f"[serve] trace: {len(tracer)} records ({tracer.dropped} dropped) -> "
+              f"{args.trace_out}")
+    if registry is not None and args.metrics_out:
+        if args.metrics_out.endswith(".json"):
+            registry.write_json(args.metrics_out)
+        else:
+            registry.write_prometheus(args.metrics_out)
+        print(f"[serve] metrics -> {args.metrics_out}")
     return 0
 
 

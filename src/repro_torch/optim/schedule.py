@@ -1,13 +1,18 @@
 """Learning-rate schedules (port of ``repro/optim/schedule.py``): functions
-of the step, evaluated in float32 as the reference does. Its ``constant``
-schedule has no caller here and is not ported."""
+of the step, evaluated in float32 as the reference does."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-__all__ = ["cosine_warmup"]
+__all__ = ["cosine_warmup", "constant"]
+
+
+def constant(lr: float):
+    """``fn(step) -> lr`` rounded to float32, as the reference's."""
+    value = float(torch.tensor(lr, dtype=torch.float32))
+    return lambda step: value
 
 
 def cosine_warmup(peak: float, warmup: int, total: int, floor: float = 0.1):

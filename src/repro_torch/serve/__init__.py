@@ -1,11 +1,11 @@
 """repro_torch.serve — the serving runtime: continuous and paged slot
-engines, speculative decoding."""
+engines, speculative decoding, open-loop arrival replay."""
 from .compile_cache import BucketedPrefill, ChunkedPrefill, bucket_for
 from .engine import Request, ServeEngine, serve_params_from_train
 from .kv import KVSlotManager
 from .metrics import RequestMetrics, RunMetrics
 from .paged_kv import PagedKVManager, hash_prompt_blocks
-from .scheduler import PagedSlotScheduler, SlotScheduler
+from .scheduler import PagedSlotScheduler, SlotScheduler, replay_arrivals
 from .spec import DRAFT_PRESETS, build_draft_from_train, draft_arch
 
 __all__ = [
@@ -24,5 +24,6 @@ __all__ = [
     "build_draft_from_train",
     "draft_arch",
     "hash_prompt_blocks",
+    "replay_arrivals",
     "serve_params_from_train",
 ]

@@ -12,10 +12,12 @@ slice).
 """
 from __future__ import annotations
 
-from typing import Set
+from typing import Optional, Set
 
 import numpy as np
 import torch
+
+from repro_torch.obs.trace import NULL_TRACER
 
 __all__ = ["BucketedPrefill", "ChunkedPrefill", "bucket_for"]
 
@@ -37,10 +39,11 @@ class BucketedPrefill:
     cache covers the pool's full ``max_len`` (leaves ``(L, 1, max_len,
     ...)``), so the slot splice has one shape."""
 
-    def __init__(self, api, *, max_len: int, quantized: bool = False):
+    def __init__(self, api, *, max_len: int, quantized: bool = False, tracer=None):
         self.api = api
         self.max_len = max_len
         self.quantized = quantized
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self._buckets: Set[int] = set()
 
     @property
@@ -59,15 +62,21 @@ class BucketedPrefill:
         if plen < 1:
             raise ValueError("empty prompt")
         bucket = self.bucket_for(plen)
+        first = bucket not in self._buckets
         self._buckets.add(bucket)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :plen] = prompt  # right-pad: exact under causal attention
         dev = params["embed"]["table"].device
-        return self.api.prefill(
+        t0 = self.tracer.clock() if self.tracer.enabled else 0.0
+        out = self.api.prefill(
             params, {"tokens": torch.from_numpy(toks).to(dev)}, max_len=self.max_len,
             quantized=self.quantized,
             last_index=torch.tensor([plen - 1], dtype=torch.int32, device=dev),
         )
+        if self.tracer.enabled and first:
+            self.tracer.add_span("compile", "scheduler", t0, self.tracer.clock(),
+                                 kind="prefill_bucket", bucket=bucket, batch=1)
+        return out
 
 
 class ChunkedPrefill:
@@ -76,18 +85,23 @@ class ChunkedPrefill:
     chunks see earlier chunks' (and any shared prefix's) cached KV; the
     final chunk is right-padded, exact under causal attention."""
 
-    def __init__(self, api, *, chunk: int, max_len: int):
+    def __init__(self, api, *, chunk: int, max_len: int, tracer=None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.api = api
         self.chunk = chunk
         self.max_len = max_len
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.misses = 0  # programs compiled: none, the chunk loop runs eagerly
+        self._ran = False  # the first chunk ever run (the trace's compile span)
 
     def __call__(self, params, cache, table_row: np.ndarray, prompt: np.ndarray,
-                 cached_len: int = 0):
+                 cached_len: int = 0, *, trace_track: Optional[str] = None,
+                 rid: Optional[int] = None):
         """Append ``prompt[cached_len:]``; returns ``(last_logits (1,1,V),
-        cache, n_chunks)`` with the logits after the prompt's final token."""
+        cache, n_chunks)`` with the logits after the prompt's final token.
+        With ``trace_track`` (the admitting slot's track) each chunk becomes
+        a ``prefill_chunk`` span there."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         plen = len(prompt)
         if plen < 1:
@@ -96,6 +110,8 @@ class ChunkedPrefill:
             raise ValueError(f"cached_len {cached_len} outside [0, {plen - 1}]")
         dev = cache["k"].device
         table = torch.from_numpy(np.ascontiguousarray(table_row, np.int32).reshape(1, -1)).to(dev)
+        tracer = self.tracer
+        trace = tracer.enabled and trace_track is not None
         logits = None
         n_chunks = 0
         start = cached_len
@@ -104,11 +120,20 @@ class ChunkedPrefill:
             toks = np.zeros((1, self.chunk), np.int32)
             toks[0, : end - start] = prompt[start:end]
             last = (plen - 1 - start) if end == plen else (self.chunk - 1)
+            t0 = tracer.clock() if trace else 0.0
             logits, cache = self.api.prefill_chunk(
                 params, torch.from_numpy(toks).to(dev), cache, table,
                 torch.tensor([start], dtype=torch.int32, device=dev),
                 torch.tensor([last], dtype=torch.int32, device=dev),
             )
+            if trace:
+                t1 = tracer.clock()
+                tracer.add_span("prefill_chunk", trace_track, t0, t1,
+                                rid=rid, chunk=n_chunks, start=start, end=end)
+                if not self._ran:
+                    tracer.add_span("compile", "scheduler", t0, t1,
+                                    kind="prefill_chunk", chunk_size=self.chunk)
+            self._ran = True
             n_chunks += 1
             start = end
         return logits, cache, n_chunks

@@ -24,6 +24,11 @@ of a trained tree converts through its backend's ``to_serve``
 (``core.convert.tree_to_serve``) and the serve-phase model is built around
 the result.
 
+Observability, as in the reference: ``tracer`` and ``registry`` go to the
+scheduler (``obs/trace.py``, ``obs/registry.py``), and ``profile_sample >
+0`` builds ``obs.profile.StepTimer(profile_sample, tracer=tracer)``, which
+phase-times every Nth tick (``engine.profiler``; None when off).
+
 The engine runs on CUDA unless ``device="cpu"`` is passed; without a GPU
 and without that request it raises.
 """
@@ -38,6 +43,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.base import ArchConfig, ModelAPI
 from repro_torch.models.lm import split_layers
+from repro_torch.obs.profile import StepTimer
 from repro_torch.serve.scheduler import (
     PagedSlotScheduler,
     Request,
@@ -77,6 +83,9 @@ class ServeEngine:
         kv_n_blocks: Optional[int] = None,
         prefix_cache: bool = True,
         prefill_chunk: int = 32,
+        tracer=None,
+        registry=None,
+        profile_sample: int = 0,
         spec_draft=None,
         spec_k: int = 1,
         device=None,
@@ -101,13 +110,18 @@ class ServeEngine:
         self.max_len = max_len
         self.quantized_kv = quantized_kv
         self.engine = engine
+        # the opt-in sampled step timer (0 = off: the scheduler keeps the
+        # shared NULL_TIMER)
+        self.profiler = (StepTimer(profile_sample, tracer=tracer)
+                         if profile_sample and profile_sample > 0 else None)
         self.params = split_layers(_to_device(params, self.device))
         if spec_draft is not None:
             dapi, dparams, darch = spec_draft
             spec_draft = (dapi, split_layers(_to_device(dparams, self.device)), darch)
         common = dict(n_slots=n_slots or batch_size, max_len=max_len,
-                      quantized_kv=quantized_kv, device=self.device,
-                      spec_draft=spec_draft, spec_k=spec_k)
+                      quantized_kv=quantized_kv, device=self.device, tracer=tracer,
+                      registry=registry, profiler=self.profiler, spec_draft=spec_draft,
+                      spec_k=spec_k)
         if engine == "paged":
             self.scheduler = PagedSlotScheduler(
                 api, self.params, arch, block_size=kv_block_size, n_blocks=kv_n_blocks,

@@ -20,6 +20,9 @@ positions ``[0, max_len)``:
   repointed;
 - LRU eviction over refcount-zero cached blocks.
 
+With an enabled ``tracer`` an eviction emits a ``prefix_eviction`` event
+and a copy-on-write a ``cow_copy`` event, as in the reference.
+
 Physical block ``n_phys - 1`` is the reserved parking block that inactive
 decode rows write junk into.
 """
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.base import PagedKVLayout, paged_kv_layout
+from repro_torch.obs.trace import NULL_TRACER
 
 __all__ = ["PagedKVManager", "hash_prompt_blocks"]
 
@@ -69,6 +73,7 @@ class PagedKVManager:
         prefix_cache: bool = True,
         quantized: bool = False,
         device=None,
+        tracer=None,
     ):
         if max_len % block_size:
             raise ValueError(f"max_len {max_len} must be a multiple of block_size {block_size}")
@@ -84,6 +89,7 @@ class PagedKVManager:
             )
         self.prefix_cache = prefix_cache
         self.quantized = quantized
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         # +1 physical row: the reserved parking block for inactive decode rows
         self.parking_block = self.n_blocks
         self.cache = api.init_cache(self.n_blocks + 1, block_size, quantized=quantized,
@@ -187,6 +193,8 @@ class PagedKVManager:
             b, _ = self._lru.popitem(last=False)
             self._unregister(b)
             self.evictions += 1
+            if self.tracer.enabled:
+                self.tracer.event("prefix_eviction", block=b, blocks_cached=len(self._lru))
         self._ref[b] = 1
         return b
 
@@ -267,6 +275,8 @@ class PagedKVManager:
             self._slot_blocks[slot][index] = nb
             self.tables[slot, index] = nb
             self.cow_copies += 1
+            if self.tracer.enabled:
+                self.tracer.event("cow_copy", slot=slot, index=index, src_block=b, dst_block=nb)
             return nb
         if b in self._block_hash:
             self._unregister(b)

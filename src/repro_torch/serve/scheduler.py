@@ -25,8 +25,24 @@ makes a rejected window's writes unattendable, and the next round's
 consecutive writes overwrite them before any query reaches them.
 ``spec_k == 1`` is the plain tick (no draft is built).
 
-Left for later slices: meshes, tracing, the step profiler and arrival
-replay.
+Observability, as the reference's (``obs/``): a ``tracer`` (default the
+process-global one, ``NULL_TRACER`` unless a launcher installed one)
+receives the ``submit``, ``admission_deferral``, ``prefix_hit`` /
+``prefix_miss`` and ``spec_round`` events, each request's ``queued`` and
+``request`` async spans and ``prefill`` / ``decode`` spans on its slot's
+track — stamped with the same clock reads as ``RequestMetrics``, so
+``queued + prefill`` is TTFT exactly — and a ``compile`` span for the first
+tick. A ``registry`` is fed by ``RunMetrics.bind_registry`` with the labels
+mode / engine / route. A ``profiler`` (``obs.profile.StepTimer``) splits
+every Nth tick into ``admit`` / ``decode`` / ``host`` phases. All of it is
+host-side: with the defaults (``NULL_TRACER``, no registry, ``NULL_TIMER``)
+a tick pays a few attribute checks and adds no device operation and no
+synchronise; the tick's one barrier stays the ``.tolist()`` of its tokens.
+Spans are host-clock, so a ``decode`` phase or span holds the device time
+of the tick because it ends after that barrier. ``replay_arrivals`` drives
+a scheduler open-loop from timed arrivals.
+
+Left for later slices: meshes.
 
 Like the engine, a scheduler runs on CUDA unless ``device="cpu"`` is
 passed, and raises without a GPU.
@@ -35,19 +51,22 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.base import ArchConfig, ModelAPI
+from repro_torch.obs.profile import NULL_TIMER, StepTimer
+from repro_torch.obs.trace import Tracer, get_tracer
 from repro_torch.serve.compile_cache import BucketedPrefill, ChunkedPrefill
 from repro_torch.serve.kv import KVSlotManager
 from repro_torch.serve.metrics import RequestMetrics, RunMetrics
 from repro_torch.serve.paged_kv import PagedKVManager
 
-__all__ = ["PagedSlotScheduler", "Request", "SlotScheduler", "scheduler_supports"]
+__all__ = ["PagedSlotScheduler", "Request", "SlotScheduler", "replay_arrivals",
+           "scheduler_supports"]
 
 
 @dataclasses.dataclass
@@ -92,6 +111,9 @@ class SlotScheduler:
         quantized_kv: bool = False,
         device=None,
         clock: Callable[[], float] = time.monotonic,
+        tracer: Optional[Tracer] = None,
+        registry=None,
+        profiler: Optional[StepTimer] = None,
         spec_draft=None,
         spec_k: int = 1,
     ):
@@ -107,10 +129,18 @@ class SlotScheduler:
         self.n_slots = n_slots
         self.max_len = max_len
         self.clock = clock
+        # an explicit tracer wins, else the process-global hook; the profiler
+        # stays NULL_TIMER unless the caller opts in
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self.profiler = profiler if profiler is not None else NULL_TIMER
+        self._tick_ran = False  # the first tick carries the trace's compile span
         self.device = resolve_device(device)
         self.params = params
         self._init_kv_prefill(api, quantized_kv)
         self.metrics = RunMetrics(n_slots=n_slots)
+        if registry is not None:
+            self.metrics.bind_registry(registry, mode=arch.compute_mode, engine=self.engine_name,
+                                       route=arch.paged_attn_route)
         self._stamp_kv_gauges()
         self._prefill_miss_base = self.prefill.misses
         self.queue: List[Request] = []
@@ -128,7 +158,8 @@ class SlotScheduler:
     def _init_kv_prefill(self, api, quantized_kv: bool) -> None:
         self.kv = KVSlotManager(api, n_slots=self.n_slots, max_len=self.max_len,
                                 quantized=quantized_kv, device=self.device)
-        self.prefill = BucketedPrefill(api, max_len=self.max_len, quantized=quantized_kv)
+        self.prefill = BucketedPrefill(api, max_len=self.max_len, quantized=quantized_kv,
+                                       tracer=self.tracer)
 
     @property
     def _slots_available(self) -> int:
@@ -182,7 +213,9 @@ class SlotScheduler:
         # decode writes go to plen .. plen+n-2; keep them inside the cache
         budget = min(req.max_new_tokens, self.max_len - plen + 1)
         st = _SlotState(req=req, remaining=budget, emitted=[])
-        if self._emit(st, t0):
+        done = self._emit(st, t0)
+        self._trace_admission(req, slot, bucket=self.prefill.bucket_for(plen))
+        if done:
             self._finish(req, st, slot)
             self.kv.free(slot)
             return True
@@ -221,7 +254,8 @@ class SlotScheduler:
         self._spec_arch = darch
         self._spec_kv = KVSlotManager(dapi, n_slots=self.n_slots, max_len=self.max_len,
                                       quantized=False, device=self.device)
-        self._spec_prefill = BucketedPrefill(dapi, max_len=self.max_len, quantized=False)
+        self._spec_prefill = BucketedPrefill(dapi, max_len=self.max_len, quantized=False,
+                                             tracer=self.tracer)
 
     def _run_spec_tick(self):
         """One round on the device: ``spec_k`` draft decode steps — consuming
@@ -260,41 +294,57 @@ class SlotScheduler:
         """One speculative round over the slot batch: emit each row's
         accepted prefix plus the target's correction. Per row the advance
         ``e`` is 1..spec_k tokens; ``_pos += e`` IS the rollback."""
-        self._admit()
+        prof = self.profiler
+        prof.tick()
+        with prof.phase("admit"):
+            self._admit()
         active = [i for i, s in enumerate(self._slots) if s is not None]
         if not active:
             return False
-        window, nxt = self._run_spec_tick()
-        self.metrics.record_step(len(active), kv_bytes_read=self._decode_kv_bytes(active))
-        c = self.spec_k
-        drafted = accepted = 0
-        for i in active:
-            st = self._slots[i]
-            w, g = window[i], nxt[i]
-            # accept rule: the longest prefix of proposals equal to the
-            # target's greedy choices (w[j] proposal j, g[j-1] the target's
-            # token after window slot j-1), then always the target's g[a-1]
-            a = 1
-            while a < c and w[a] == g[a - 1]:
-                a += 1
-            e = 0
-            done = False
-            for j in range(a):
-                e += 1
-                done = self._emit(st, int(g[j]))
+        with prof.phase("decode"):
+            if not self._tick_ran and self.tracer.enabled:
+                with self.tracer.span("compile", "scheduler", kind="spec_round",
+                                      n_slots=self.n_slots, spec_k=self.spec_k):
+                    window, nxt = self._run_spec_tick()
+            else:
+                window, nxt = self._run_spec_tick()
+            prof.sync(nxt)
+            self._tick_ran = True
+        with prof.phase("host"):
+            self.metrics.record_step(len(active), kv_bytes_read=self._decode_kv_bytes(active))
+            c = self.spec_k
+            drafted = accepted = 0
+            for i in active:
+                st = self._slots[i]
+                w, g = window[i], nxt[i]
+                # accept rule: the longest prefix of proposals equal to the
+                # target's greedy choices (w[j] proposal j, g[j-1] the target's
+                # token after window slot j-1), then always the target's g[a-1]
+                a = 1
+                while a < c and w[a] == g[a - 1]:
+                    a += 1
+                e = 0
+                done = False
+                for j in range(a):
+                    e += 1
+                    done = self._emit(st, int(g[j]))
+                    if done:
+                        break  # budget/EOS truncation: e <= a tokens used
+                self._tok[i] = g[e - 1]
+                self._pos[i] += e
+                drafted += c - 1
+                accepted += e - 1
                 if done:
-                    break  # budget/EOS truncation: e <= a tokens used
-            self._tok[i] = g[e - 1]
-            self._pos[i] += e
-            drafted += c - 1
-            accepted += e - 1
-            if done:
-                self._finish(st.req, st, i)
-                self._slots[i] = None
-                self._release_slot(i)
-                self._tok[i] = 0
-                self._pos[i] = 0
-        self.metrics.record_spec_round(len(active), drafted, accepted)
+                    self._finish(st.req, st, i)
+                    self._slots[i] = None
+                    self._release_slot(i)
+                    self._tok[i] = 0
+                    self._pos[i] = 0
+            self.metrics.record_spec_round(len(active), drafted, accepted)
+            if self.tracer.enabled:
+                # the same counts the metrics accumulate, one event a round
+                self.tracer.event("spec_round", track="scheduler", rows=len(active),
+                                  drafted=drafted, accepted=accepted)
         return True
 
     # -- queue --------------------------------------------------------------
@@ -322,6 +372,8 @@ class SlotScheduler:
                 f"leaves no room to generate"
             )
         req.metrics = RequestMetrics(rid=req.rid, prompt_len=plen, t_submit=self.clock())
+        if self.tracer.enabled:
+            self.tracer.event("submit", track="scheduler", rid=req.rid, prompt_len=plen)
         self.queue.append(req)
 
     # -- lifecycle ----------------------------------------------------------
@@ -333,6 +385,15 @@ class SlotScheduler:
         rm.n_tokens = len(st.emitted)
         self.metrics.finish_request(rm)
         self.completed.append(req)
+        if self.tracer.enabled:
+            # first token -> done on the slot's track: duration / (n_tokens
+            # - 1) is this request's TPOT (the same stamps)
+            self.tracer.add_span("decode", f"slot{slot}", rm.t_first_token, rm.t_done,
+                                 rid=req.rid, n_tokens=rm.n_tokens, tpot_s=rm.tpot)
+            # the whole lifecycle, async (requests overlap freely)
+            self.tracer.add_span("request", "requests", rm.t_submit, rm.t_done,
+                                 async_id=req.rid, rid=req.rid, prompt_len=rm.prompt_len,
+                                 n_tokens=rm.n_tokens, ttft_s=rm.ttft)
 
     def _emit(self, st: _SlotState, token: int) -> bool:
         """Record one generated token; returns True when the request is done."""
@@ -345,6 +406,17 @@ class SlotScheduler:
             req.on_token(token)
         return st.remaining <= 0 or (req.eos_id is not None and token == req.eos_id)
 
+    def _trace_admission(self, req: Request, slot: int, **extra) -> None:
+        """Queued + prefill spans from the request's own clock stamps:
+        queued.dur + prefill.dur == TTFT exactly (the same floats)."""
+        if not self.tracer.enabled:
+            return
+        rm = req.metrics
+        self.tracer.add_span("queued", "requests", rm.t_submit, rm.t_admit,
+                             async_id=req.rid, rid=req.rid)
+        self.tracer.add_span("prefill", f"slot{slot}", rm.t_admit, rm.t_first_token,
+                             rid=req.rid, prompt_len=rm.prompt_len, **extra)
+
     def _admit(self) -> None:
         """FIFO admission: the queue head admits or defers; a deferral blocks
         everything behind it (deadlock-free: completions free blocks)."""
@@ -356,26 +428,39 @@ class SlotScheduler:
     def tick(self) -> bool:
         """Admit waiting requests, then run one decode step (or one
         speculative round) over the slot batch. Returns False when there was
-        nothing to do."""
+        nothing to do. The profiler samples every Nth tick into admit (queue
+        + prefill), decode (the device step, up to its barrier) and host
+        (emit + EOS bookkeeping) phases."""
         if self._spec_api is not None:
             return self._spec_tick()
-        self._admit()
+        prof = self.profiler
+        prof.tick()
+        with prof.phase("admit"):
+            self._admit()
         active = [i for i, s in enumerate(self._slots) if s is not None]
         if not active:
             return False
-        nxt = self._run_tick()
-        self.metrics.record_step(len(active), kv_bytes_read=self._decode_kv_bytes(active))
-        for i in active:
-            st = self._slots[i]
-            self._tok[i] = nxt[i]
-            self._pos[i] += 1
-            if self._emit(st, int(nxt[i])):
-                self._finish(st.req, st, i)
-                self._slots[i] = None
-                self._release_slot(i)
-                # park the freed row: its junk writes land in the parking block
-                self._tok[i] = 0
-                self._pos[i] = 0
+        with prof.phase("decode"):
+            if not self._tick_ran and self.tracer.enabled:
+                with self.tracer.span("compile", "scheduler", kind="decode_tick",
+                                      n_slots=self.n_slots):
+                    nxt = prof.sync(self._run_tick())
+            else:
+                nxt = prof.sync(self._run_tick())
+            self._tick_ran = True
+        with prof.phase("host"):
+            self.metrics.record_step(len(active), kv_bytes_read=self._decode_kv_bytes(active))
+            for i in active:
+                st = self._slots[i]
+                self._tok[i] = nxt[i]
+                self._pos[i] += 1
+                if self._emit(st, int(nxt[i])):
+                    self._finish(st.req, st, i)
+                    self._slots[i] = None
+                    self._release_slot(i)
+                    # park the freed row: its junk writes land in the parking block
+                    self._tok[i] = 0
+                    self._pos[i] = 0
         return True
 
     def run(self) -> List[Request]:
@@ -386,6 +471,7 @@ class SlotScheduler:
             self.tick()
         self.metrics.t_end = self.clock()
         self.metrics.prefill_compiles = self.window_prefill_compiles()
+        self.metrics.publish()
         done, self.completed = self.completed, []
         return done
 
@@ -421,8 +507,10 @@ class PagedSlotScheduler(SlotScheduler):
             api, n_slots=self.n_slots, max_len=self.max_len,
             block_size=self.block_size, n_blocks=self._n_blocks_arg,
             prefix_cache=self.prefix_enabled, quantized=quantized_kv, device=self.device,
+            tracer=self.tracer,
         )
-        self.prefill = ChunkedPrefill(api, chunk=self.chunk, max_len=self.max_len)
+        self.prefill = ChunkedPrefill(api, chunk=self.chunk, max_len=self.max_len,
+                                      tracer=self.tracer)
 
     @property
     def _slots_available(self) -> int:
@@ -467,10 +555,17 @@ class PagedSlotScheduler(SlotScheduler):
         if cached is None:
             self.kv.free_slot(slot)  # owns no blocks yet; just re-parks
             self.metrics.admission_deferrals += 1
+            if self.tracer.enabled:
+                self.tracer.event("admission_deferral", track="scheduler", rid=req.rid,
+                                  prompt_len=plen, blocks_free=self.kv.blocks_free)
             return False
         req.metrics.t_admit = self.clock()
+        if self.tracer.enabled:
+            self.tracer.event("prefix_hit" if cached else "prefix_miss", track="scheduler",
+                              rid=req.rid, prompt_len=plen, cached_tokens=cached)
         logits, self.kv.cache, n_chunks = self.prefill(
-            self.params, self.kv.cache, self.kv.tables[slot], req.prompt, cached
+            self.params, self.kv.cache, self.kv.tables[slot], req.prompt, cached,
+            trace_track=f"slot{slot}", rid=req.rid,
         )
         self.metrics.prefills += 1
         self.metrics.prefill_chunks += n_chunks
@@ -484,6 +579,7 @@ class PagedSlotScheduler(SlotScheduler):
         t0 = int(torch.argmax(logits[0, -1]).item())
         st = _SlotState(req=req, remaining=budget, emitted=[])
         done = self._emit(st, t0)
+        self._trace_admission(req, slot, cached_tokens=cached, n_chunks=n_chunks)
         if done:
             self._finish(req, st, slot)
             self.kv.free_slot(slot)
@@ -504,3 +600,45 @@ class PagedSlotScheduler(SlotScheduler):
         # rounds repoint rows, and a window overhanging a row's reserved span
         # lands in the parking block (tables default to it)
         return (self.kv.tables_tensor(),)
+
+
+@torch.inference_mode()
+def replay_arrivals(
+    sched: SlotScheduler,
+    timed_requests,
+    *,
+    submit: Optional[Callable[[Request, float], None]] = None,
+    sleep: Callable[[float], None] = time.sleep,
+) -> Tuple[List[Request], float]:
+    """Open-loop arrival replay: tick the scheduler, submitting each request
+    the moment its arrival offset elapses (``launch/serve.py
+    --arrival-rate``).
+
+    ``timed_requests`` is ``[(arrival_offset_s, Request), ...]`` sorted by
+    offset. ``submit(req, t_abs)`` (default ``sched.submit``) lets a caller
+    stamp its own taps with the absolute arrival time before submission.
+    When the scheduler is idle the loop sleeps until the next arrival.
+    Returns ``(completed_requests, makespan_s)`` and stamps the scheduler's
+    run metrics (t_start / t_end / prefill_compiles), as ``run`` does.
+    """
+    clock = sched.clock
+    pending = list(timed_requests)
+    t0 = clock()
+    if sched.metrics.t_start is None:
+        sched.metrics.t_start = t0
+    while pending or sched.has_work:
+        now = clock() - t0
+        while pending and pending[0][0] <= now:
+            t_arr, req = pending.pop(0)
+            if submit is not None:
+                submit(req, t0 + t_arr)
+            else:
+                sched.submit(req)
+        if not sched.tick() and pending:
+            sleep(max(0.0, pending[0][0] - (clock() - t0)))
+    t_end = clock()
+    sched.metrics.t_end = t_end
+    sched.metrics.prefill_compiles = sched.window_prefill_compiles()
+    sched.metrics.publish()
+    done, sched.completed = sched.completed, []
+    return done, t_end - t0

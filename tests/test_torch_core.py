@@ -183,7 +183,8 @@ def test_port_imports_neither_jax_nor_reference():
                    "core/qnn.py", "kernels/qnn_matmul.py", "serve/kv.py", "serve/spec.py",
                    "models/paper.py", "nn/conv.py", "nn/module.py", "core/thresholds.py",
                    "core/kan.py", "data/vision.py", "train/paper.py", "launch/quickstart.py",
-                   "launch/table2.py", "launch/kan_to_bika.py"):
+                   "launch/table2.py", "launch/kan_to_bika.py", "checkpoint/manager.py",
+                   "obs/trace.py", "obs/registry.py", "obs/profile.py"):
         assert module in rel, module
     for path in files:
         with open(path, encoding="utf-8") as fh:

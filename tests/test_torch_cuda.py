@@ -477,3 +477,46 @@ def test_bika_serve_at_any_contraction_length_on_card(cuda, k, m_sets):
     want = bika_matmul_hw(tile_m_axis(x_int, m_sets), torch.from_numpy(tau).reshape(-1, n),
                           torch.from_numpy(s).reshape(-1, n), clamp=False)
     assert torch.equal(got.cpu(), want.to(torch.float32))
+
+
+@pytest.mark.cuda
+def test_restart_bit_equal_under_deterministic_algorithms_on_card(cuda, tmp_path, monkeypatch):
+    """smollm-360m bika at full width (d_model 960, d_ff 2560, vocab 49152),
+    cut to 2 layers, batch 2 x seq 64, remat: a run that fails at step 2 of
+    4 and restarts from its checkpoint equals the uninterrupted run bit for
+    bit (every parameter, AdamW's m and v, the step), with PyTorch's
+    deterministic algorithms on, which raise on an op that has no
+    deterministic CUDA route (cuBLAS asks for its workspace setting)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import OptimizerSpec, tree_leaves
+    from repro_torch.train.trainer import TrainConfig, Trainer, run_with_restarts
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    arch = get_config("smollm-360m", compute_mode="bika").replace(n_layers=2)
+    base = dict(arch=arch, seq_len=64, global_batch=2, steps=4, log_every=1)
+    spec = OptimizerSpec(peak_lr=1e-3, warmup=1, total_steps=4)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        ops.reset_launches()
+        full_p, full_o, _ = Trainer(TrainConfig(**base), spec, device=cuda).run()
+        counts = ops.launch_counts()
+        made = []
+
+        def make():
+            made.append(1)
+            cfg = TrainConfig(**base, ckpt_dir=str(tmp_path / "ck"), ckpt_every=1, keep=1)
+            return Trainer(cfg, spec, device=cuda, fail_at_step=2 if len(made) == 1 else None)
+
+        p, o, _, restarts = run_with_restarts(make)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert restarts == 1
+    assert counts["cac_train_fwd"] == 4 * 2 * 7 * 2 and counts["cac_train_bwd_fused"] == 4 * 7 * 2
+    for a, b in zip(tree_leaves({"p": full_p, "o": full_o}), tree_leaves({"p": p, "o": o})):
+        if torch.is_tensor(a):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        else:
+            assert a == b == 4
