@@ -155,6 +155,32 @@ Phases (each prints its own line; any failure exits non-zero):
              quickstart at 200 steps (check (a) >= 99 % of units, (b)
              bit-equal). ``python3 chip_smoke.py --only paper`` builds and
              runs this phase alone (a partial run: no result line).
+15. moe    — the rest of the lm family (phase_moe_kernels, phase_moe): kernel
+             1 at mixtral-8x22b's (M, K, N) (an expert's gate/up and down at
+             decode capacity 1 and at the short and long prefills' queues,
+             q/o and k/v at 4, 44 and 4,200 rows) bit-exact, repeatable,
+             timed beside its bound; kernel 11 at the new GQA groups (G = 6,
+             1, 1, 8 at D = 128, 128, 96, 128: nemotron, qwen, phi3,
+             chameleon), decode and a chunk, fp32 and int8, within 2e-5.
+             Then mixtral-8x22b in bika (packed) at full width cut to 2
+             layers through ServeEngine.from_trained(engine="auto"), which
+             takes the static engine: a short drain (the 8 requests, batch 4,
+             max_len 128) and a long drain (prompts of 4,090 and 4,200 tokens,
+             one a batch, max_len 4,352: the ring wraps in decode, and folds
+             the longer prompt at prefill), each twice with equal tokens,
+             every forward exactly 56 kernel-1 launches and no other kernel;
+             the ring oracle (the attention layer alone, each decode step
+             within 2e-5 of windowed dot_attention over every position so
+             far, fp32 and int8 rings); card-vs-CPU parity of the short
+             drain's first batch (prefill + 4 decode steps) with activation
+             codes and expert choices held at genuine ties, each printed;
+             one layer in qnn8 (kernel 10) and bnn (kernel 7) from one
+             train-form tree, a drain each twice; nemotron-4-15b (LayerNorm,
+             squared ReLU, G = 6) at full width, 2 layers, bika on the paged
+             engine: a drain twice (12 kernel-1 and 2 kernel-11 launches a
+             tick) and its 2-layer parity. Wall seconds and peak memory of
+             every drain. ``python3 chip_smoke.py --only moe`` runs the two
+             alone (a partial run: no result line).
 
 Before the last line come the card's name and power limit as nvidia-smi
 prints them, then the kernels JSON; the last line is
@@ -1327,14 +1353,22 @@ def phase_path(torch, np, arch, dev, route, tag="path"):
     return train, result
 
 
+def _projections(arch):
+    """Projection launches a layer makes a forward: q, k, v, o and the MLP's
+    up, down (and gate), or each of the E experts' two or three."""
+    mlp = 3 if arch.gated_mlp else 2
+    return 4 + mlp * (arch.n_experts or 1)
+
+
 def _check_serve_launches(arch, route, counts, summ):
     if min(counts[route], counts["paged_attn"]) <= 0:
         fail(f"a kernel of the path was never launched: {counts}")
     ticks = summ["decode_steps"] + summ["prefill_chunks"]
-    expect = dict(_NO_LAUNCHES, **{route: 7 * arch.n_layers * ticks,
+    per = _projections(arch)
+    expect = dict(_NO_LAUNCHES, **{route: per * arch.n_layers * ticks,
                                    "paged_attn": arch.n_layers * ticks})
     if counts != expect:
-        fail(f"launch counts {counts} != 7 {route} + 1 attention per layer per tick "
+        fail(f"launch counts {counts} != {per} {route} + 1 attention per layer per tick "
              f"({expect[route]}, {expect['paged_attn']}) and 0 elsewhere")
 
 
@@ -1619,6 +1653,10 @@ def _code_hooks(torch):
                      f"(a tie is within {PARITY_TIE})")
             stats["ties"] += int(diff.sum())
             stats["worst_tie"] = max(stats["worst_tie"], dist)
+            for u_, c_, g_ in list(zip(u.tolist(), codes[diff].tolist(),
+                                       card[diff].tolist()))[:8]:
+                print(f"[parity]   held an activation code tie: x / scale = {u_:.9f}, "
+                      f"CPU code {c_}, card code {g_}")
             codes = torch.where(diff, card, codes)
         return codes
 
@@ -2849,11 +2887,552 @@ def phase_paper(torch, np, dev, flush):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the moe phase: the rest of the lm family (mixtral-8x22b on the static
+# engine, nemotron-4-15b on the paged engine) at full width
+# ---------------------------------------------------------------------------
+
+MOE_LAYERS = 2  # mixtral-8x22b and nemotron-4-15b cut from 56 / 32 layers
+MOE_LONG_LEN = 4352  # past mixtral's 4,096-position window
+MOE_LONG_PROMPTS = (4090, 4200)  # wraps the ring during decode; folds at prefill
+MOE_PARITY_STEPS = 4
+ROUTE_TIE = 1e-6  # gates this close: an expert choice the two devices may order either way
+# mixtral-8x22b's kernel-1 shapes, (where, M, K, N): an expert's gate/up and
+# down at decode (capacity 1), at the short drain's first prefill (4 rows of
+# 11 tokens: capacity 13) and at the long drain's 4,200-token prefill
+# (capacity 1,312); the attention's q/o and k/v at the same M
+MIXTRAL_CAC = [("decode expert gate/up", 1, 6144, 16384), ("decode expert down", 1, 16384, 6144),
+               ("decode q/o", 4, 6144, 6144), ("decode k/v", 4, 6144, 1024),
+               ("prefill expert gate/up", 13, 6144, 16384),
+               ("prefill expert down", 13, 16384, 6144),
+               ("prefill q/o", 44, 6144, 6144), ("prefill k/v", 44, 6144, 1024),
+               ("long prefill expert gate/up", 1312, 6144, 16384),
+               ("long prefill q/o", 4200, 6144, 6144)]
+# kernel 11 at the lm family's new GQA groups (config, Hq, Hkv, D)
+NEW_GROUPS = [("nemotron-4-15b", 48, 8, 128), ("qwen1.5-32b", 40, 40, 128),
+              ("phi3-mini-3.8b", 32, 32, 96), ("chameleon-34b", 64, 8, 128)]
+
+
+def phase_moe_kernels(torch, np, dev, flush):
+    """Kernel 1 at mixtral's (M, K, N) (``MIXTRAL_CAC``) bit-exact against
+    its plain version and repeatable, timed beside its bound; kernel 11 at
+    the four new (G, D) (``NEW_GROUPS``), decode (B = 4, T = 8) and a
+    prefill chunk (C = 32), fp32 and int8 pools, within ATTN_TOL and
+    repeatable on attn_plan's plan, timed beside its bound."""
+    from repro_torch.core.backend import pack_signs
+    from repro_torch.kernels import paged_attn as pa
+    from repro_torch.kernels.cac_matmul import (cac_matmul_kernel_call, cac_matmul_plain,
+                                                card_stream_plan)
+    from repro_torch.kernels.paged_attn import paged_attn_kernel_call
+    from repro_torch.kernels.ref import paged_attention_ref
+
+    rng = np.random.default_rng(SEED + 11)
+    cac_rows = []
+    for where, m, k, n in MIXTRAL_CAC:
+        x = torch.from_numpy(rng.integers(-128, 128, size=(m, k)).astype(np.int8)).to(dev)
+        tau = torch.from_numpy(rng.integers(-128, 128, size=(k, n)).astype(np.int8)).to(dev)
+        s = np.where(rng.random((k, n)) < 0.5, 1, -1).astype(np.int8)
+        sp = pack_signs(torch.from_numpy(s)).to(dev)
+        got = cac_matmul_kernel_call(x, tau, sp)
+        again = cac_matmul_kernel_call(x, tau, sp)
+        want = cac_matmul_plain(x, tau, sp)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if err != 0.0 or not torch.equal(got, again):
+            fail(f"moe cac_matmul {where} M={m} K={k} N={n}: max |kernel - plain| = {err}, "
+                 f"repeatable {torch.equal(got, again)}")
+        big = m > 64  # the plain version takes seconds there: timed once
+        row = {"moe": f"mixtral-8x22b {where}", "M": m, "K": k, "N": n, "max_abs_err": err,
+               "plan": list(card_stream_plan(x.device.index, m, k, n)),
+               "ms": time_ms(torch, lambda: cac_matmul_kernel_call(x, tau, sp),
+                             iters=5 if big else 20, flush=flush),
+               "plain_ms": time_ms(torch, lambda: cac_matmul_plain(x, tau, sp),
+                                   iters=1 if big else 5, warmup=0 if big else 1, flush=flush)}
+        nbytes = m * k + k * n + k * n // 8 + 4 * m * n
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, 2.0 * m * k * n, CUDA_CORE_OPS_S)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        cac_rows.append(row)
+        print(f"[moe-kernels] cac_matmul {where} M={m} K={k} N={n} bit-exact, repeatable; "
+              f"plan {row['plan']} ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+              f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}, "
+              f"{100 * row['bound_share']:.1f}%)")
+        del x, tau, sp, got, again, want
+    attn_rows = []
+    for config, hq, hkv, d in NEW_GROUPS:
+        for name, b, c, t in (("decode", N_SLOTS, 1, MAX_LEN // BLOCK),
+                              ("chunk", 1, CHUNK, MAX_LEN // BLOCK)):
+            for quantized in (False, True):
+                q, k, v, tables, q_pos, ks, vs = _paged_case(torch, np, rng, dev, b, c, t,
+                                                             quantized, hq=hq, hkv=hkv, d=d)
+                got = paged_attn_kernel_call(q, k, v, tables, q_pos, k_scale=ks, v_scale=vs)
+                again = paged_attn_kernel_call(q, k, v, tables, q_pos, k_scale=ks, v_scale=vs)
+                torch.cuda.synchronize()
+                want = paged_attention_ref(q, k, v, tables, q_pos, ks, vs)
+                err = float((got - want).abs().max())
+                plan = pa.card_plan(b, c, hq, hkv, d, BLOCK, t)
+                if not err <= ATTN_TOL or not _bits_equal(torch, got, again):
+                    fail(f"moe paged_attn {config} {name} int8={quantized}: max |kernel - "
+                         f"plain| = {err}, repeatable {_bits_equal(torch, got, again)}")
+                if plan is None or plan[:2] != pa.attn_plan(b, c, hq, hkv, d, BLOCK, t):
+                    fail(f"moe paged_attn {config} {name}: the kernel's plan {plan} is not "
+                         f"attn_plan's")
+                row = {"moe": config, "case": name, "B": b, "C": c, "T": t, "Hq": hq,
+                       "Hkv": hkv, "G": hq // hkv, "D": d, "int8": quantized,
+                       "max_abs_err": err, "plan": {"q_tile": plan[0], "splits": plan[1]},
+                       "ms": time_ms(torch, lambda: paged_attn_kernel_call(
+                           q, k, v, tables, q_pos, k_scale=ks, v_scale=vs), flush=flush),
+                       "plain_ms": time_ms(torch, lambda: paged_attention_ref(
+                           q, k, v, tables, q_pos, ks, vs), iters=5, flush=flush)}
+                row["bound_ms"], row["bound_by"] = _attn_bound(q, k, tables, q_pos, quantized)
+                attn_rows.append(row)
+                print(f"[moe-kernels] paged_attn {config} G={hq // hkv} D={d} {name} B={b} "
+                      f"C={c} T={t} int8={quantized} plan q_tile={plan[0]} "
+                      f"splits={plan[1]} max_abs_err={err:.3e} repeatable "
+                      f"ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+                      f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']})")
+    return cac_rows, attn_rows
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _gb(nbytes):
+    return nbytes / 1e9
+
+
+def _counted_forwards(ops, eng, log):
+    """Wrap the engine's prefill and decode_step so that each call logs the
+    kernel launches it made (host counters: no synchronise)."""
+    def wrap(kind, fn):
+        def run(*a, **kw):
+            before = ops.launch_counts()
+            out = fn(*a, **kw)
+            after = ops.launch_counts()
+            log.append((kind, {name: after[name] - before[name] for name in after}))
+            return out
+        return run
+
+    api = eng.api
+    eng.api = api._replace(prefill=wrap("prefill", api.prefill),
+                           decode_step=wrap("decode", api.decode_step))
+    return api
+
+
+def _static_drain(torch, np, ops, eng, reqs, route, tag):
+    """Drain ``reqs`` through a static engine with the launch counters zeroed
+    just before and read just after; every forward (a batch's prefill or a
+    decode step) must launch exactly ``_projections`` x layers of ``route``
+    and nothing else. -> (tokens by rid, counts, forwards, wall s, peak GB)."""
+    log = []
+    api = _counted_forwards(ops, eng, log)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    eng.api = api
+    peak = _gb(torch.cuda.max_memory_allocated())
+    per = _projections(eng.arch) * eng.arch.n_layers
+    want = dict(_NO_LAUNCHES, **{route: per})
+    for i, (kind, delta) in enumerate(log):
+        if delta != want:
+            fail(f"[{tag}] forward {i} ({kind}): launches {delta} != {per} {route} and 0 "
+                 f"elsewhere")
+    if counts != dict(_NO_LAUNCHES, **{route: per * len(log)}) or counts[route] <= 0:
+        fail(f"[{tag}] drain launches {counts} != {per} x {len(log)} forwards")
+    outs = {r.rid: [int(t) for t in r.output] for r in done}
+    if sorted(outs) != sorted(r.rid for r in reqs) or any(
+            len(outs[r.rid]) != r.max_new_tokens for r in reqs):
+        fail(f"[{tag}] not every request completed with its tokens")
+    return outs, counts, len(log), sum(k == "decode" for k, _ in log), wall, peak
+
+
+def _long_requests(np, vocab):
+    from repro_torch.serve import Request
+
+    rng = np.random.RandomState(SEED + 3)
+    return [Request(rid=i, prompt=rng.randint(0, vocab, n).astype(np.int32),
+                    max_new_tokens=NEW_TOKENS) for i, n in enumerate(MOE_LONG_PROMPTS)]
+
+
+def _route_hooks(torch):
+    """Hooks on ``nn.moe._top_k`` for the MoE parity run: the card's records
+    each routing's expert choices; the CPU's compares its own and, where
+    they differ, the gates at the two choices must lie within ROUTE_TIE of
+    each other (a near tie float noise may order either way); the CPU then
+    takes the card's choice. Any other difference fails."""
+    from repro_torch.nn import moe
+
+    plain = moe._top_k
+    queue = []
+    stats = {"routings": 0, "choices": 0, "ties": 0, "worst": 0.0}
+
+    def record(gates, k):
+        vals, idx = plain(gates, k)
+        queue.append(idx.cpu())
+        return vals, idx
+
+    def follow(gates, k):
+        vals, idx = plain(gates, k)
+        card = queue.pop(0).to(idx.device)
+        stats["routings"] += 1
+        stats["choices"] += idx.numel()
+        diff = idx != card
+        if bool(diff.any()):
+            gap = (gates.gather(1, idx) - gates.gather(1, card)).abs()[diff]
+            worst = float(gap.max())
+            if worst > ROUTE_TIE:
+                fail(f"moe parity: {int(diff.sum())} expert choices differ between card and "
+                     f"CPU at gate gaps up to {worst:.3e} (a tie is within {ROUTE_TIE})")
+            stats["ties"] += int(diff.sum())
+            stats["worst"] = max(stats["worst"], worst)
+            for row in diff.any(1).nonzero()[:, 0].tolist():
+                print(f"[moe-parity]   held an expert-choice tie: token {row}, CPU "
+                      f"{idx[row].tolist()}, card {card[row].tolist()}, gates "
+                      f"{gates[row].tolist()}")
+            idx, vals = card, gates.gather(1, card)
+        return vals, idx
+
+    def install(side):
+        moe._top_k = record if side == "card" else follow
+
+    def restore():
+        moe._top_k = plain
+
+    def report():
+        if queue:
+            fail(f"moe parity: the CPU side left {len(queue)} card routings untaken")
+        return (f"{stats['ties']} of {stats['choices']} expert choices in "
+                f"{stats['routings']} routings were near ties (worst gap "
+                f"{stats['worst']:.2e}, limit {ROUTE_TIE})")
+
+    return install, restore, report
+
+
+def _both(*hooks):
+    def install(side):
+        for h in hooks:
+            h[0](side)
+
+    def restore():
+        for h in hooks:
+            h[1]()
+
+    return install, restore, lambda: "; ".join(h[2]() for h in hooks)
+
+
+def phase_moe_parity(torch, np, arch, params, dev, tag="moe-parity"):
+    """The short drain's first batch (requests 0-3, left-padded to 11
+    tokens) on the card and on the CPU (plain versions), the same serve
+    weights: the prefill's and 4 decode steps' logits, the CPU fed its own
+    greedy tokens on both sides, activation codes held at half-way ties
+    (``_code_hooks``) and expert choices at near-tie gates
+    (``_route_hooks``); then within PARITY_ATOL and greedy tokens equal but
+    where the CPU's top two are closer than the two sides' difference."""
+    from repro_torch.models import build_model
+
+    api = build_model(arch, phase="serve")
+    prompts = [r.prompt for r in _requests(np, arch.vocab)[:N_SLOTS]]
+    s = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), s), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, s - len(p):] = p
+    install, restore, report = _both(_code_hooks(torch), _route_hooks(torch))
+    sides = (("card", dev), ("cpu", torch.device("cpu")))
+    logs, runs, secs = {}, {}, {"card": 0.0, "cpu": 0.0}
+
+    def step(side, fn):
+        install(side)
+        t0 = time.perf_counter()
+        try:
+            with torch.inference_mode():
+                lg, cache = fn()
+        finally:
+            restore()
+        secs[side] += time.perf_counter() - t0
+        logs.setdefault(side, []).append(lg[:, -1].float().cpu())
+        return cache
+
+    for side, where in sides:
+        p = params if side == "card" else _tree_to(params, where)
+        runs[side] = (p, step(side, lambda: api.prefill(
+            p, {"tokens": torch.from_numpy(toks).to(where)}, max_len=MAX_LEN)))
+    for t in range(1, MOE_PARITY_STEPS + 1):
+        tok = logs["cpu"][-1].argmax(-1).to(torch.int32)[:, None]
+        for side, where in sides:
+            p, cache = runs[side]
+            runs[side] = (p, step(side, lambda: api.decode_step(p, tok.to(where), cache,
+                                                                s + t - 1)))
+    worst, compared, ties = 0.0, 0, 0
+    for i, (g, c) in enumerate(zip(logs["card"], logs["cpu"])):
+        for r in range(g.shape[0]):
+            d = float((g[r] - c[r]).abs().max())
+            worst = max(worst, d)
+            if not np.isfinite(d) or d > PARITY_ATOL:
+                fail(f"{tag} step {i} row {r}: max |card - cpu| logits = {d} > {PARITY_ATOL}")
+            top2 = torch.topk(c[r], 2).values
+            if float(top2[0] - top2[1]) <= 2 * d:
+                ties += 1
+                continue
+            compared += 1
+            if int(g[r].argmax()) != int(c[r].argmax()):
+                fail(f"{tag} step {i} row {r}: greedy tokens differ between card and CPU")
+    held = report()
+    print(f"[{tag}] {arch.name} {arch.compute_mode}, {arch.n_layers} layers at full width: "
+          f"prefill of 4 x {s} tokens + {MOE_PARITY_STEPS} decode steps, card vs CPU plain "
+          f"path: max |dlogit| = {worst:.3e} (tolerance {PARITY_ATOL}); greedy tokens equal "
+          f"on {compared} of {compared + ties} rows ({ties} within-tolerance ties); {held}; "
+          f"card {secs['card']:.1f} s, CPU {secs['cpu']:.1f} s")
+    return {"max_abs_dlogit": worst, "held": held, "cpu_s": secs["cpu"],
+            "card_s": secs["card"]}
+
+
+def phase_moe_ring(torch, np, arch, params, dev, tag="moe-ring"):
+    """Mixtral's attention layer alone at full width (layer 0 of the served
+    tree) and its published window: ``attn_prefill`` of each long prompt
+    (4,090 tokens: the ring wraps during decode; 4,200: folded in at
+    prefill), then 16 ``attn_decode_step``s, fp32 and int8 rings. Each
+    step's attention output (the wo projection's input) must lie within
+    ATTN_TOL of ``dot_attention`` over every K/V so far under the window
+    mask (for the int8 ring, over the K/V quantized and dequantized as the
+    ring stores them)."""
+    from repro_torch.models.lm import _attn_cfg
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn.rotary import apply_rope
+
+    acfg = _attn_cfg(arch)
+    spec = arch.linear_spec()
+    p = params["layers"][0]["attn"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    plain_apply = attn.linear_apply
+    out = {}
+    for s in MOE_LONG_PROMPTS:
+        total = s + NEW_TOKENS
+        x = torch.randn((1, total, arch.d_model), generator=gen, device=dev)
+        with torch.inference_mode():
+            q, k, v = attn._project_qkv(p, x, acfg, spec, "serve")
+            pos = torch.arange(total, dtype=torch.int32, device=dev)
+            q = apply_rope(q, pos, acfg.rope_theta)
+            k = apply_rope(k, pos, acfg.rope_theta)
+        for quantized in (False, True):
+            seen = []
+
+            def record(params_, x_, spec_, *, phase="serve"):
+                if params_ is p["wo"]:
+                    seen.append(x_)
+                return plain_apply(params_, x_, spec_, phase=phase)
+
+            kk, vv = k, v
+            if quantized:
+                kk = attn._dequantize_kv(*attn._quantize_kv(k), k.dtype)
+                vv = attn._dequantize_kv(*attn._quantize_kv(v), v.dtype)
+            attn.linear_apply = record
+            try:
+                with torch.inference_mode():
+                    _, cache = attn.attn_prefill(p, x[:, :s], acfg, spec, max_len=MOE_LONG_LEN,
+                                                 quantized=quantized)
+                    seen.clear()
+                    for i in range(NEW_TOKENS):
+                        attn.attn_decode_step(p, x[:, s + i:s + i + 1], cache, s + i, acfg,
+                                              spec)
+            finally:
+                attn.linear_apply = plain_apply
+            worst = 0.0
+            with torch.inference_mode():
+                for i, got in enumerate(seen):
+                    at = s + i
+                    want = attn.dot_attention(q[:, at:at + 1], kk[:, :at + 1], vv[:, :at + 1],
+                                              q_positions=pos[at:at + 1],
+                                              kv_positions=pos[:at + 1], window=arch.window)
+                    worst = max(worst, float((got - want.reshape(got.shape)).abs().max()))
+            ring = cache["k"].shape[1]
+            if len(seen) != NEW_TOKENS or not worst <= ATTN_TOL:
+                fail(f"[{tag}] prompt {s} int8={quantized}: {len(seen)} steps, max |ring - "
+                     f"windowed dot_attention| = {worst} > {ATTN_TOL}")
+            out[f"{s}{'_int8' if quantized else ''}"] = worst
+            print(f"[{tag}] window {arch.window}, ring of {ring} slots, prompt {s} "
+                  f"({'folded into the ring at prefill' if s > ring else 'wraps in decode'}), "
+                  f"positions {s}..{s + NEW_TOKENS - 1}, int8={quantized}: max |decode - "
+                  f"windowed dot_attention| = {worst:.3e} (tolerance {ATTN_TOL})")
+    return out
+
+
+def _bnn_train_from(tree):
+    """A qnn8 train-form tree ({w, amax} leaves) -> the bnn train form of the
+    same weights ({w, gamma = mean |w| over K}, the draft adaptation of
+    serve/spec.py); the dense {w} router passes through."""
+    import torch
+
+    if isinstance(tree, dict):
+        if set(tree) == {"w", "amax"}:
+            return {"w": tree["w"], "gamma": torch.mean(torch.abs(tree["w"]), dim=-2)}
+        return {k: _bnn_train_from(v) for k, v in tree.items()}
+    return tree
+
+
+def phase_moe(torch, np, dev):
+    """mixtral-8x22b at full width cut to MOE_LAYERS layers in bika (packed
+    signs) through ServeEngine.from_trained(engine="auto") -> static: the
+    short drain (8 requests x 16 tokens, batch 4, max_len 128) twice, the
+    long drain (the two MOE_LONG_PROMPTS, one a batch, max_len 4,352) twice,
+    each forward exactly 2 x (4 + 8 x 3) = 56 kernel-1 launches and 0 of
+    kernel 11, tokens equal run to run; the ring oracle; card-vs-CPU parity;
+    then one layer in qnn8 (kernel 10) and bnn packed (kernel 7) from one
+    train-form tree, a short drain each twice; then nemotron-4-15b at full
+    width, MOE_LAYERS layers, bika on the paged engine: the short drain twice
+    (2 x 6 kernel-1 and 2 kernel-11 launches a tick) and its 2-layer parity."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.convert import tree_to_serve
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    out = {"cut": f"mixtral-8x22b and nemotron-4-15b: {MOE_LAYERS} layers (published 56 and "
+                  f"32); bnn / qnn8 mixtral: 1 layer; every width as published"}
+    print(f"[moe] {smi_line()}; depth cut: {out['cut']}")
+    arch = get_config("mixtral-8x22b", n_layers=MOE_LAYERS, compute_mode="bika",
+                      pack_signs=True, remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    train = build_model(arch, phase="train").init(gen, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    train_gb = _gb(torch.cuda.memory_allocated())
+    t0 = time.perf_counter()
+    eng = ServeEngine.from_trained(train, arch, batch_size=N_SLOTS, max_len=MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    t_conv = time.perf_counter() - t0
+    del train
+    gc.collect()
+    torch.cuda.empty_cache()
+    build_peak = _gb(torch.cuda.max_memory_allocated())
+    serve_gb = _gb(torch.cuda.memory_allocated())
+    if eng.engine != "static":
+        fail(f"[moe] engine='auto' resolved to {eng.engine!r} for MoE + SWA, not 'static'")
+    print(f"[moe] mixtral-8x22b bika packed, {arch.n_layers} layers, d_model {arch.d_model}, "
+          f"{arch.n_heads}/{arch.n_kv_heads} heads of {arch.hd}, {arch.n_experts} experts "
+          f"top-{arch.top_k}, d_ff {arch.d_ff}, window {arch.window}, vocab {arch.vocab}: "
+          f"train-form init {t_init:.2f} s ({train_gb:.2f} GB), from_trained {t_conv:.2f} s, "
+          f"peak {build_peak:.2f} GB, served tree {serve_gb:.2f} GB; engine={eng.engine}")
+    out["mixtral"] = {"init_s": t_init, "convert_s": t_conv, "train_gb": train_gb,
+                      "build_peak_gb": build_peak, "serve_gb": serve_gb}
+    per_fwd = _projections(arch) * arch.n_layers
+    short = []
+    for run in range(2):
+        outs, counts, fwds, decodes, wall, peak = _static_drain(
+            torch, np, ops, eng, _requests(np, arch.vocab), "cac_hw", "moe-short")
+        short.append(outs)
+        print(f"[moe] short drain {run + 1}: 8 requests x {NEW_TOKENS} tokens, batch "
+              f"{N_SLOTS}, max_len {MAX_LEN}: {fwds} forwards ({decodes} decode steps), each "
+              f"{per_fwd} kernel-1 and 0 kernel-11 launches; launches {counts}; wall "
+              f"{wall:.3f} s, peak {peak:.2f} GB")
+        out.setdefault("short", []).append({"wall_s": wall, "peak_gb": peak, "launches": counts,
+                                            "forwards": fwds, "decode_steps": decodes})
+    if short[0] != short[1]:
+        fail("[moe] short drain: a second run gave other tokens")
+    out["launches"] = out["short"][0]["launches"]
+    print(f"[moe] short drain tokens repeat; req0={short[0][0]}")
+    long_eng = ServeEngine(eng.api, eng.params, arch, batch_size=1, max_len=MOE_LONG_LEN,
+                           device=dev)
+    longs = []
+    for run in range(2):
+        outs, counts, fwds, decodes, wall, peak = _static_drain(
+            torch, np, ops, long_eng, _long_requests(np, arch.vocab), "cac_hw", "moe-long")
+        longs.append(outs)
+        print(f"[moe] long drain {run + 1}: prompts {MOE_LONG_PROMPTS} x {NEW_TOKENS} tokens, "
+              f"one a batch, max_len {MOE_LONG_LEN}: {fwds} forwards, each {per_fwd} kernel-1 "
+              f"launches; launches {counts}; wall {wall:.3f} s, peak {peak:.2f} GB")
+        out.setdefault("long", []).append({"wall_s": wall, "peak_gb": peak, "launches": counts,
+                                           "forwards": fwds})
+    if longs[0] != longs[1]:
+        fail("[moe] long drain: a second run gave other tokens")
+    print(f"[moe] long drain tokens repeat; {longs[0]}")
+    del long_eng
+    out["ring"] = phase_moe_ring(torch, np, arch, eng.params, dev)
+    out["parity"] = phase_moe_parity(torch, np, arch, eng.params, dev)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bnn (kernel 7) and qnn8 (kernel 10): one layer, from one train-form tree
+    arch1 = get_config("mixtral-8x22b", n_layers=1, compute_mode="qnn8", remat=False)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    train = build_model(arch1, phase="train").init(gen, device=dev)
+    for mode, route, a in (("qnn8", "qnn8", arch1),
+                           ("bnn", "bnn_packed", arch1.replace(compute_mode="bnn",
+                                                               pack_signs=True))):
+        tree = train if mode == "qnn8" else _bnn_train_from(train)
+        e = ServeEngine.from_trained(tree, a, batch_size=N_SLOTS, max_len=MAX_LEN, device=dev)
+        runs = []
+        for _ in range(2):
+            outs, counts, fwds, decodes, wall, peak = _static_drain(
+                torch, np, ops, e, _requests(np, a.vocab), route, f"moe-{mode}")
+            runs.append(outs)
+        if runs[0] != runs[1]:
+            fail(f"[moe-{mode}] a second drain gave other tokens")
+        per = _projections(a) * a.n_layers
+        print(f"[moe-{mode}] mixtral-8x22b {mode}, 1 layer: short drain twice, tokens repeat; "
+              f"{fwds} forwards, each {per} {route} launches; launches {counts}; wall "
+              f"{wall:.3f} s, peak {peak:.2f} GB")
+        out[mode] = {"launches": counts, "forwards": fwds, "wall_s": wall, "peak_gb": peak}
+        del e
+    del train
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # nemotron-4-15b: LayerNorm, squared ReLU (ungated), G = 6 at D = 128, on the paged engine
+    narch = get_config("nemotron-4-15b", n_layers=MOE_LAYERS, compute_mode="bika",
+                       pack_signs=True, remat=False, paged_attn_route="fused")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    torch.cuda.reset_peak_memory_stats()
+    train = build_model(narch, phase="train").init(gen, device=dev)
+    nem = []
+    for run in range(2):
+        outs, counts, wall, summ = _serve(np, train, narch, False, dev, count_launches=True)
+        _check_serve_launches(narch, "cac_hw", counts, summ)
+        nem.append(outs)
+        ticks = summ["decode_steps"] + summ["prefill_chunks"]
+        print(f"[moe-nemotron] nemotron-4-15b bika packed, {narch.n_layers} layers, paged: "
+              f"8 requests x {NEW_TOKENS} tokens, {ticks} ticks, each "
+              f"{_projections(narch) * narch.n_layers} kernel-1 and {narch.n_layers} "
+              f"kernel-11 launches; launches {counts}; wall {wall:.3f} s, peak "
+              f"{_gb(torch.cuda.max_memory_allocated()):.2f} GB")
+        out.setdefault("nemotron", []).append({"launches": counts, "wall_s": wall,
+                                               "ticks": ticks})
+    if nem[0] != nem[1]:
+        fail("[moe-nemotron] a second drain gave other tokens")
+    serve_params = tree_to_serve(train, narch.linear_spec())
+    del train
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["nemotron_parity"] = phase_parity(torch, np, narch, serve_params, dev,
+                                          _code_hooks(torch), tag="moe-nemotron-parity")
+    del serve_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    only_paper = argv == ["--only", "paper"]
-    if argv and not only_paper:
-        fail(f"unknown arguments {argv}; the one option is --only paper")
+    only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
+    if argv and only not in ("paper", "moe"):
+        fail(f"unknown arguments {argv}; the one option is --only paper|moe")
+    only_paper = only == "paper"
     try:
         import numpy as np
         import torch
@@ -2915,6 +3494,21 @@ def main(argv=None) -> int:
         print(smi)
         print("partial run (--only paper): no result line")
         return 0
+    if only == "moe":  # a partial run: no kernels line, no last line
+        flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+        moe_cac, moe_attn = phase_moe_kernels(torch, np, dev, flush)
+        del flush
+        t0 = time.perf_counter()
+        moe = phase_moe(torch, np, dev)
+        print(f"[moe] phase {time.perf_counter() - t0:.1f} s")
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_moe.json"), "w") as fh:
+            json.dump({"device": smi, "moe": moe, "moe_cac": moe_cac, "moe_attn": moe_attn}, fh,
+                      indent=1, sort_keys=True, default=str)
+        print(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
+        print(smi)
+        print("partial run (--only moe): no result line")
+        return 0
     device_ops = phase_device_ops(torch, np, dev)
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
     cac_rows, timing_floor = phase_cac(torch, np, dev, flush)
@@ -2953,7 +3547,11 @@ def main(argv=None) -> int:
     spec = phase_spec(torch, np, dev)
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
     paper = phase_paper(torch, np, dev, flush)
+    moe_cac, moe_attn = phase_moe_kernels(torch, np, dev, flush)
     del flush
+    t0 = time.perf_counter()
+    moe = phase_moe(torch, np, dev)
+    print(f"[moe] phase {time.perf_counter() - t0:.1f} s")
 
     main_cac = next(r for r in cac_rows if (r["M"], r["K"], r["N"]) == (4, 960, 2560))
     main_attn = next(r for r in attn_rows if r["case"] == "decode" and not r["int8"])
@@ -3077,6 +3675,21 @@ def main(argv=None) -> int:
         entry["shapes"] = entry["shapes"] + [
             dict({"paper": r["where"], "M": r["M"], "K": r["K"], "N": r["N"]},
                  **{key: r[key] for key in row_keys}) for r in paper["kernels"]]
+    # the seventh slice: kernel 1's launches on mixtral's static path and
+    # kernels 1 and 11 on nemotron's paged path, and their rows at the lm
+    # family's new shapes
+    kernels[0]["moe_launches"] = {"mixtral_short_drain": moe["launches"]["cac_hw"],
+                                  "nemotron_drain": moe["nemotron"][0]["launches"]["cac_hw"]}
+    kernels[0]["shapes"] = kernels[0]["shapes"] + moe_cac
+    kernels[1]["moe_launches"] = {"mixtral_short_drain": moe["launches"]["paged_attn"],
+                                  "nemotron_drain": moe["nemotron"][0]["launches"]["paged_attn"]}
+    kernels[1]["shapes"] = kernels[1]["shapes"] + moe_attn
+    for entry in kernels:
+        if entry["name"] == "qnn_matmul":
+            entry["moe_launches"] = {"mixtral_1_layer_drain": moe["qnn8"]["launches"]["qnn8"]}
+        if entry["name"] == "bnn_packed_matmul":
+            entry["moe_launches"] = {"mixtral_1_layer_drain":
+                                     moe["bnn"]["launches"]["bnn_packed"]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump({"device": smi, "kernels": kernels, "timing_floor_ms": timing_floor,
@@ -3086,7 +3699,8 @@ def main(argv=None) -> int:
                    "bnn_training": bnn_training, "qnn_kernels": qnn_rows,
                    "qnn_route_sweep": qnn_route_sweep, "qnn_path": qnn_path,
                    "attn_sweep": attn_sweep,
-                   "spec": spec, "paper": paper, "ckpt": ckpt}, fh, indent=1, sort_keys=True,
+                   "spec": spec, "paper": paper, "ckpt": ckpt, "moe": moe},
+                  fh, indent=1, sort_keys=True,
                   default=str)
     print(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     print(smi)

@@ -1,15 +1,36 @@
-"""Config registry: only the architecture this slice serves.
+"""Config registry: every architecture of the ``lm`` family.
 
 ``get_config(name, **overrides)`` returns the public ArchConfig,
-``get_smoke(name)`` the reduced config for CPU tests.
+``get_smoke(name)`` the reduced same-family config for CPU tests. The
+reference's three other families (zamba2, xlstm, seamless) are not ported
+yet, so their configs are not registered.
 """
 from __future__ import annotations
 
 from repro_torch.models.base import ArchConfig
 
-from . import smollm_360m
+from . import (
+    chameleon_34b,
+    grok1_314b,
+    mixtral_8x22b,
+    nemotron4_15b,
+    phi3_mini_38b,
+    qwen15_32b,
+    smollm_360m,
+)
+from .shapes import SHAPES, ShapeSpec, applicable_shapes
 
-REGISTRY = {smollm_360m.CONFIG.name: smollm_360m}
+_MODULES = (
+    smollm_360m,
+    qwen15_32b,
+    nemotron4_15b,
+    phi3_mini_38b,
+    grok1_314b,
+    mixtral_8x22b,
+    chameleon_34b,
+)
+
+REGISTRY = {m.CONFIG.name: m for m in _MODULES}
 ARCH_NAMES = tuple(REGISTRY)
 
 
@@ -23,4 +44,12 @@ def get_smoke(name: str, **overrides) -> ArchConfig:
     return cfg.replace(**overrides) if overrides else cfg
 
 
-__all__ = ["ARCH_NAMES", "REGISTRY", "get_config", "get_smoke"]
+__all__ = [
+    "ARCH_NAMES",
+    "REGISTRY",
+    "SHAPES",
+    "ShapeSpec",
+    "applicable_shapes",
+    "get_config",
+    "get_smoke",
+]

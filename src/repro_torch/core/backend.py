@@ -233,7 +233,14 @@ class BikaBackend(QuantBackend):
     def to_serve(self, params, spec):
         """(w, beta) -> int8 (tau, s), K padded to a multiple of 8 once here
         (``pad_contraction``: CNV's first conv has K = 27), so that a served
-        forward pads only its activations."""
+        forward pads only its activations. A stacked leaf (layers, experts:
+        more than the (m, K, N) dims) converts one leading slice at a time,
+        which bounds the float temporaries to one slice's (the conversion is
+        elementwise over leading dims, so the result is the same)."""
+        if params["w"].dim() > 3:
+            parts = [self.to_serve({k: v[i] for k, v in params.items()}, spec)
+                     for i in range(params["w"].shape[0])]
+            return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
         tau, s = bika_core.to_hardware(params["w"], params["beta"])
         tau_int, _ = bika_core.quantize_thresholds(tau, spec.act_scale)
         tau_int, s = pad_contraction(tau_int, s.to(torch.int8))

@@ -65,6 +65,7 @@ __all__ = [
 ]
 
 _M_CHUNK = 8  # rows per slice of the plain version's (M, K, N) broadcast
+_CPU_COLS, _CPU_ELEMS = 64, 1 << 20  # the CPU plain version's slices: columns, elements
 # the streaming template's tiling (csrc/stream_matmul.cuh): 128 columns a
 # block, 8-row groups of K, at most 8 splits (one cluster); row tiles of 4
 # at decode, 8 otherwise; two blocks an SM on the H100's 132
@@ -97,13 +98,38 @@ def _check(x_int: torch.Tensor, tau: torch.Tensor, s_packed: torch.Tensor) -> No
         )
 
 
+def _cac_plain_cpu(x_int: torch.Tensor, tau: torch.Tensor, s_packed: torch.Tensor
+                   ) -> torch.Tensor:
+    """The CAC's integers on the CPU: with every s = +-1, y[m, n] = 2 #{k :
+    (x[m, k] >= tau[k, n]) == (s[k, n] = +1)} - K. Walked in slices of
+    ``_CPU_COLS`` columns (each slice's sign bits unpacked there) and a few
+    rows, so that the (rows, K, cols) compare stays in cache: ~10x the
+    broadcast's rate on a CPU, which a full-width model's CPU run needs."""
+    m, k = x_int.shape
+    n = tau.shape[1]
+    y = torch.empty((m, n), dtype=torch.int32)
+    shifts = torch.arange(8, dtype=torch.uint8)
+    rows = max(1, _CPU_ELEMS // (k * _CPU_COLS))
+    for j in range(0, n, _CPU_COLS):
+        t = tau[:, j:j + _CPU_COLS]
+        pos = ((s_packed[:, None, j:j + _CPU_COLS] >> shifts[:, None]) & 1).bool()
+        pos = pos.reshape(k, t.shape[1])
+        for i in range(0, m, rows):
+            agree = torch.eq(torch.ge(x_int[i:i + rows, :, None], t), pos)
+            y[i:i + rows, j:j + _CPU_COLS] = agree.sum(1, dtype=torch.int32)
+    return (2 * y - k).to(torch.float32)
+
+
 def cac_matmul_plain(x_int: torch.Tensor, tau: torch.Tensor, s_packed: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch CAC with the kernel's signature: unpack the sign
-    planes, then ``ref.cac_matmul_ref``'s broadcast compare, a few rows at a
-    time so the (M, K, N) intermediate stays bounded."""
+    """Plain PyTorch CAC with the kernel's signature. On the CPU
+    ``_cac_plain_cpu``; elsewhere unpack the sign planes, then
+    ``ref.cac_matmul_ref``'s broadcast compare, a few rows at a time so the
+    (M, K, N) intermediate stays bounded. Both give the same integers."""
     from repro_torch.core.backend import unpack_signs
 
     _check(x_int, tau, s_packed)
+    if x_int.device.type == "cpu":
+        return _cac_plain_cpu(x_int, tau, s_packed)
     s = unpack_signs(s_packed, tau.shape[0])
     return torch.cat(
         [ref.cac_matmul_ref(x_int[i:i + _M_CHUNK], tau, s)

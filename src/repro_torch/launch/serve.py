@@ -1,13 +1,16 @@
 """Serving launcher CLI (port of ``repro/launch/serve.py``): bring up a
-hardware-form (serve-phase) model and drain a synthetic request stream
-through a slot engine (continuous or paged), optionally with speculative
-decoding.
+hardware-form (serve-phase) model of any registered ``lm`` config and
+drain a synthetic request stream through a slot engine (continuous or
+paged, optionally with speculative decoding) or the static packed-batch
+engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
         --requests 8 --new-tokens 16
     PYTHONPATH=src python -m repro_torch.launch.serve --mode qnn8
     PYTHONPATH=src python -m repro_torch.launch.serve --mode dense \
         --spec-draft qnn8 --spec-k 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --arch mixtral-8x22b \
+        --device cpu            # MoE + SWA: engine auto -> static
 
 Runs on CUDA unless ``--device cpu`` is given; without a GPU it raises.
 Weights are initialised from seed 0, as in the reference launcher; with
@@ -31,8 +34,11 @@ Observability (``obs/``, all opt-in):
   split; ``--profile-dir DIR`` wraps the drain in a torch.profiler window
   and writes its Chrome trace (kernel names and device times) into DIR.
 
-Flags not ported yet (the static engine, tensor parallelism) are not
-accepted.
+``--engine auto`` takes the continuous engine where the architecture
+supports it and the static engine otherwise (mixture of experts, sliding
+windows: mixtral, grok). The static engine has no scheduler: no metrics,
+and ``--arrival-rate`` drains closed loop instead, as in the reference.
+Tensor parallelism's flags are not ported yet and are not accepted.
 """
 from __future__ import annotations
 
@@ -66,8 +72,9 @@ def main(argv=None) -> int:
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--quantized-kv", action="store_true")
-    ap.add_argument("--engine", default="auto", choices=("auto", "continuous", "paged"),
-                    help="auto: continuous where the architecture supports it")
+    ap.add_argument("--engine", default="auto",
+                    choices=("auto", "static", "continuous", "paged"),
+                    help="auto: continuous where the architecture supports it, else static")
     ap.add_argument("--n-slots", type=int, default=0,
                     help="decode slots (0 -> batch-size)")
     ap.add_argument("--kv-block-size", type=int, default=16,
@@ -154,9 +161,12 @@ def _serve(args, device, tracer) -> int:
         plen = int(rng.randint(3, 12))
         reqs.append(Request(rid=i, prompt=rng.randint(0, arch.vocab, plen).astype(np.int32),
                             max_new_tokens=args.new_tokens))
+    if args.arrival_rate > 0 and eng.scheduler is None:
+        print("[serve] WARNING: --arrival-rate needs a slot-scheduler engine "
+              f"(continuous/paged); engine={eng.engine} drains closed-loop instead")
     window = profile_trace(args.profile_dir)
     with window:
-        if args.arrival_rate > 0:
+        if args.arrival_rate > 0 and eng.scheduler is not None:
             arrivals = np.cumsum(rng.exponential(1.0 / args.arrival_rate, len(reqs)))
             done, _ = replay_arrivals(eng.scheduler, list(zip(arrivals, reqs)))
         else:
@@ -166,23 +176,24 @@ def _serve(args, device, tracer) -> int:
     for r in sorted(done, key=lambda q: q.rid)[:4]:
         print(f"  req {r.rid}: {[int(t) for t in r.output[:10]]}...")
     print(f"[serve] completed {len(done)} requests")
-    m = eng.metrics.summary()
-    print(f"[serve] goodput={m['goodput_tok_s']:.1f} tok/s "
-          f"occupancy={m['slot_occupancy']:.2f} "
-          f"prefill compiles={m['prefill_compiles']}")
-    if eng.engine == "paged":
-        print(f"[serve] prefix hit rate={m['prefix_hit_rate']:.2f} "
-              f"blocks peak={m['blocks_in_use_peak']} "
-              f"chunks={m['prefill_chunks']} "
-              f"deferrals={m['admission_deferrals']}")
-    if m.get("spec_rounds"):
-        print(f"[serve] spec: rounds={m['spec_rounds']} "
-              f"accept rate={m['spec_accept_rate']:.2f} "
-              f"tokens/round={m['spec_tokens_per_round']:.2f}")
-    print(f"[serve] kv pool={m['kv_pool_bytes']:,} B "
-          f"({m['kv_bytes_per_token']:.0f} B/token) "
-          f"in-use peak={m['kv_bytes_in_use_peak']:,} B "
-          f"decode HBM/token={m['decode_hbm_bytes_per_token']:.0f} B")
+    m = eng.metrics.summary() if eng.metrics is not None else None
+    if m is not None:
+        print(f"[serve] goodput={m['goodput_tok_s']:.1f} tok/s "
+              f"occupancy={m['slot_occupancy']:.2f} "
+              f"prefill compiles={m['prefill_compiles']}")
+        if eng.engine == "paged":
+            print(f"[serve] prefix hit rate={m['prefix_hit_rate']:.2f} "
+                  f"blocks peak={m['blocks_in_use_peak']} "
+                  f"chunks={m['prefill_chunks']} "
+                  f"deferrals={m['admission_deferrals']}")
+        if m.get("spec_rounds"):
+            print(f"[serve] spec: rounds={m['spec_rounds']} "
+                  f"accept rate={m['spec_accept_rate']:.2f} "
+                  f"tokens/round={m['spec_tokens_per_round']:.2f}")
+        print(f"[serve] kv pool={m['kv_pool_bytes']:,} B "
+              f"({m['kv_bytes_per_token']:.0f} B/token) "
+              f"in-use peak={m['kv_bytes_in_use_peak']:,} B "
+              f"decode HBM/token={m['decode_hbm_bytes_per_token']:.0f} B")
     if eng.profiler is not None and eng.profiler.sampled_ticks:
         ps = eng.profiler.summary()
         split = " ".join(f"{k}={v['fraction']:.0%}" for k, v in ps["phases"].items())

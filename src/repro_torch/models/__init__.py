@@ -1,6 +1,7 @@
-"""repro_torch.models — the lm family and the build_model dispatcher."""
+"""repro_torch.models — the lm family (every registered config) and the
+build_model dispatcher."""
 from .base import (ArchConfig, KVCacheLayout, ModelAPI, PagedKVLayout, kv_cache_layout,
-                   paged_kv_layout)
+                   make_norm, paged_kv_layout)
 from .lm import build_lm
 
 _FAMILIES = {"lm": build_lm}
@@ -15,4 +16,4 @@ def build_model(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
 
 
 __all__ = ["ArchConfig", "KVCacheLayout", "ModelAPI", "PagedKVLayout", "build_lm",
-           "build_model", "kv_cache_layout", "paged_kv_layout"]
+           "build_model", "kv_cache_layout", "make_norm", "paged_kv_layout"]

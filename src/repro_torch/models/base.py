@@ -1,7 +1,7 @@
 """Architecture config, the KV layout contracts and the training layer loop
 (port of ``repro/models/base.py``: ``ArchConfig``, ``KVCacheLayout``,
 ``kv_cache_layout``, ``PagedKVLayout``, ``paged_kv_layout``,
-``scan_blocks_aux``). Layers run as a Python loop; ``scan_blocks_aux`` is
+``scan_blocks_aux``, ``make_norm``). Layers run as a Python loop; ``scan_blocks_aux`` is
 the training forward's, with ``torch.utils.checkpoint`` around each layer
 when ``remat`` is set."""
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch.utils.checkpoint
 from repro_torch.core.backend import LinearSpec
 
 __all__ = ["ArchConfig", "KVCacheLayout", "ModelAPI", "PagedKVLayout", "kv_cache_layout",
-           "paged_kv_layout", "scan_blocks_aux"]
+           "make_norm", "paged_kv_layout", "scan_blocks_aux"]
 
 
 class KVCacheLayout(NamedTuple):
@@ -70,8 +70,8 @@ def paged_kv_layout(cache) -> PagedKVLayout:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The reference's ArchConfig, cut to the fields the paged lm serve path
-    reads (same names and defaults)."""
+    """The reference's ArchConfig, cut to the fields the lm family reads
+    (same names and defaults)."""
 
     name: str
     family: str
@@ -87,8 +87,13 @@ class ArchConfig:
     norm: str = "rmsnorm"
     qkv_bias: bool = False
     rope_theta: float = 10000.0
-    window: Optional[int] = None
+    window: Optional[int] = None  # sliding-window attention (SWA)
+    # MoE
     n_experts: int = 0
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    # frontend: tokens (the lm family's; frames belong to encdec)
+    frontend: str = "tokens"
     compute_mode: str = "dense"  # dense | bika | bnn | qnn8
     bika_m: int = 1
     bika_impl: str = "cvjp"
@@ -99,6 +104,7 @@ class ArchConfig:
     remat: bool = True
     # paged serving attention: "fused" block-table kernel | "gather" oracle
     paged_attn_route: str = "fused"
+    full_attention: bool = True  # False: sub-quadratic (SWA), runs long_500k
 
     @property
     def hd(self) -> int:
@@ -121,6 +127,15 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+def make_norm(cfg: ArchConfig):
+    """(init, apply) of the config's norm: RMSNorm or LayerNorm."""
+    from repro_torch.nn import norms
+
+    if cfg.norm == "rmsnorm":
+        return norms.rmsnorm_init, norms.rmsnorm_apply
+    return norms.layernorm_init, norms.layernorm_apply
 
 
 def scan_blocks_aux(layers: Sequence[Any], x: torch.Tensor, body: Callable, *,

@@ -1,8 +1,14 @@
-"""Decoder-only LM (port of ``repro/models/lm.py``: ``init``, the
-training forward ``apply`` / ``apply_aux``, the dense-slot serve path of
-the continuous engine — ``init_cache``, ``prefill``, ``decode_step`` and
-the speculative ``decode_verify`` — and the paged serve path:
-``decode_paged``, ``prefill_chunk`` and ``decode_verify_paged``).
+"""Decoder-only LM family (port of ``repro/models/lm.py``): smollm, qwen
+(q/k/v bias), nemotron (LayerNorm, squared ReLU), phi3, grok (MoE), mixtral
+(MoE + sliding-window attention) and chameleon (LayerNorm; its VQ image
+tokens are ordinary vocabulary ids). ``init``, the training forward
+``apply`` / ``apply_aux`` (the MoE aux loss averaged over layers), the
+dense-cache serve path of the continuous and static engines —
+``init_cache``, ``prefill``, ``decode_step`` (over the SWA ring cache where
+the config has a window) and the speculative ``decode_verify`` — and the
+paged serve path: ``decode_paged``, ``prefill_chunk`` and
+``decode_verify_paged``. A layer's FFN is the MLP, or with ``n_experts``
+the mixture of experts (``p["moe"]`` in place of ``p["mlp"]``).
 
 Parameters keep the reference's tree: ``{"embed", "layers", "ln_f"}`` with
 every ``layers`` leaf stacked ``(L, ...)``. The layer loop is a Python loop
@@ -29,9 +35,10 @@ from repro_torch.nn.attention import (
     init_kv_cache,
 )
 from repro_torch.nn.mlp import mlp_apply, mlp_init
-from repro_torch.nn.norms import rmsnorm_apply, rmsnorm_init
+from repro_torch.nn.module import stack_trees
+from repro_torch.nn.moe import MoEConfig, moe_apply, moe_init
 
-from .base import ArchConfig, ModelAPI, scan_blocks_aux
+from .base import ArchConfig, ModelAPI, make_norm, scan_blocks_aux
 
 __all__ = ["build_lm", "split_layers"]
 
@@ -52,17 +59,20 @@ def _attn_cfg(cfg: ArchConfig) -> AttnConfig:
     )
 
 
+def _moe_cfg(cfg: ArchConfig) -> MoEConfig:
+    return MoEConfig(
+        n_experts=cfg.n_experts,
+        top_k=cfg.top_k,
+        capacity_factor=cfg.capacity_factor,
+        gated=cfg.gated_mlp,
+        activation=cfg.activation,
+    )
+
+
 def _tree_map(fn, node):
     if isinstance(node, dict):
         return {k: _tree_map(fn, v) for k, v in node.items()}
     return fn(node)
-
-
-def _stack(trees: List[Dict]) -> Dict:
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
 
 
 def split_layers(params) -> Dict[str, Any]:
@@ -91,20 +101,38 @@ def _layer_list(params) -> List[Dict]:
 
 def _layer_init(gen, cfg: ArchConfig, phase: str, device):
     spec = cfg.linear_spec()
-    if cfg.norm != "rmsnorm" or cfg.n_experts:
-        raise NotImplementedError("the port's lm serves rmsnorm, non-MoE configs")
-    return {
-        "ln1": rmsnorm_init(cfg.d_model, device=device),
-        "ln2": rmsnorm_init(cfg.d_model, device=device),
+    norm_init, _ = make_norm(cfg)
+    p = {
+        "ln1": norm_init(cfg.d_model, device=device),
+        "ln2": norm_init(cfg.d_model, device=device),
         "attn": attn_init(gen, _attn_cfg(cfg), spec, phase=phase, device=device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, spec, gated=cfg.gated_mlp,
-                        phase=phase, device=device),
     }
+    if cfg.n_experts:
+        p["moe"] = moe_init(gen, cfg.d_model, cfg.d_ff, _moe_cfg(cfg), spec, phase=phase,
+                            device=device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, spec, gated=cfg.gated_mlp,
+                            phase=phase, device=device)
+    return p
+
+
+def _layer_ffn_aux(p, x: torch.Tensor, cfg: ArchConfig, phase: str):
+    """The residual MLP / MoE half of a layer: (x + FFN(norm(x)), aux)."""
+    _, norm_apply = make_norm(cfg)
+    h = norm_apply(p["ln2"], x)
+    spec = cfg.linear_spec()
+    if cfg.n_experts:
+        y, aux = moe_apply(p["moe"], h, _moe_cfg(cfg), spec, phase=phase)
+    else:
+        y = mlp_apply(p["mlp"], h, spec, activation=cfg.activation, phase=phase)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def _layer_ffn(p, x: torch.Tensor, cfg: ArchConfig, phase: str) -> torch.Tensor:
-    h = rmsnorm_apply(p["ln2"], x)
-    return x + mlp_apply(p["mlp"], h, cfg.linear_spec(), activation=cfg.activation, phase=phase)
+    """The FFN half of every cached-attention step (the MoE aux loss is the
+    training forward's and is dropped here)."""
+    return _layer_ffn_aux(p, x, cfg, phase)[0]
 
 
 def _unbind_layers(layers) -> List[Dict]:
@@ -126,9 +154,10 @@ def _unbind_layers(layers) -> List[Dict]:
 
 
 def _layer_apply(p, x: torch.Tensor, cfg: ArchConfig, phase: str):
-    x = x + attn_apply(p["attn"], rmsnorm_apply(p["ln1"], x), _attn_cfg(cfg),
+    _, norm_apply = make_norm(cfg)
+    x = x + attn_apply(p["attn"], norm_apply(p["ln1"], x), _attn_cfg(cfg),
                        cfg.linear_spec(), phase=phase)
-    return _layer_ffn(p, x, cfg, phase), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _layer_ffn_aux(p, x, cfg, phase)
 
 
 def _pool_layer(cache, i: int):
@@ -138,6 +167,7 @@ def _pool_layer(cache, i: int):
 def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
     cdtype = _DTYPES[cfg.compute_dtype]
     acfg = _attn_cfg(cfg)
+    norm_init, norm = make_norm(cfg)
 
     def init(seed: Union[int, torch.Generator] = 0, device=None):
         """Parameters in ``phase`` form from a seed (or a generator on
@@ -150,19 +180,20 @@ def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
         return {
             "embed": embedding.embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                           _DTYPES[cfg.param_dtype], device=device),
-            "layers": _stack([_layer_init(gen, cfg, phase, device)
-                              for _ in range(cfg.n_layers)]),
-            "ln_f": rmsnorm_init(cfg.d_model, device=device),
+            "layers": stack_trees([_layer_init(gen, cfg, phase, device)
+                                   for _ in range(cfg.n_layers)]),
+            "ln_f": norm_init(cfg.d_model, device=device),
         }
 
     def apply_aux(params, batch: Dict[str, Any]):
         """Training forward: batch["tokens"] (B, S) -> (logits (B, S, V')
         float32, aux loss / n_layers). V' is the padded vocab, as in the
-        reference; the aux loss of a model without experts is 0."""
+        reference; the aux loss is the MoE layers' load-balance loss (0
+        without experts)."""
         x = embedding.embed_apply(params["embed"], batch["tokens"], cdtype)
         x, aux = scan_blocks_aux(_unbind_layers(params["layers"]), x,
                                  lambda p, h: _layer_apply(p, h, cfg, phase), remat=cfg.remat)
-        x = rmsnorm_apply(params["ln_f"], x)
+        x = norm(params["ln_f"], x)
         return embedding.unembed_apply(params["embed"], x), aux / max(cfg.n_layers, 1)
 
     def apply(params, batch: Dict[str, Any]) -> torch.Tensor:
@@ -171,7 +202,8 @@ def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
     def init_cache(batch: int, max_len: int, *, quantized: bool = False,
                    dtype=None, device=None):
         """``init_kv_cache`` stacked over the layers: leaves (L, batch,
-        max_len, Hkv, hd), the dense slot cache, or with (n_phys_blocks,
+        max_len, Hkv, hd), the dense slot cache (with a window, max_len is
+        the ring's min(window, max_len)), or with (n_phys_blocks,
         block_size) the paged pool (the same function serves both, as in the
         reference). On CUDA unless ``device="cpu"``; raises without a GPU."""
         return init_kv_cache(batch, acfg, max_len, dtype=dtype or cdtype, quantized=quantized,
@@ -184,23 +216,24 @@ def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
         spec = cfg.linear_spec()
         for i, p in enumerate(_layer_list(params)):
             a, _ = attn_decode_step_paged(
-                p["attn"], rmsnorm_apply(p["ln1"], x), _pool_layer(cache, i), position,
+                p["attn"], norm(p["ln1"], x), _pool_layer(cache, i), position,
                 tables, acfg, spec, phase=phase,
             )
             x = _layer_ffn(p, x + a, cfg, phase)
-        x = rmsnorm_apply(params["ln_f"], x)
+        x = norm(params["ln_f"], x)
         return embedding.unembed_apply(params["embed"], x), cache
 
     def _head(params, x):
-        return embedding.unembed_apply(params["embed"], rmsnorm_apply(params["ln_f"], x))
+        return embedding.unembed_apply(params["embed"], norm(params["ln_f"], x))
 
     def decode_step(params, tokens, cache, position):
         """Dense one-token decode: tokens (B, 1), position scalar or (B,) ->
-        (logits (B, 1, V), cache updated in place)."""
+        (logits (B, 1, V), cache updated in place; a ring cache where the
+        config has a window)."""
         x = embedding.embed_apply(params["embed"], tokens, cdtype)
         spec = cfg.linear_spec()
         for i, p in enumerate(_layer_list(params)):
-            a, _ = attn_decode_step(p["attn"], rmsnorm_apply(p["ln1"], x), _pool_layer(cache, i),
+            a, _ = attn_decode_step(p["attn"], norm(p["ln1"], x), _pool_layer(cache, i),
                                     position, acfg, spec, phase=phase)
             x = _layer_ffn(p, x + a, cfg, phase)
         return _head(params, x), cache
@@ -213,7 +246,7 @@ def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
         x = embedding.embed_apply(params["embed"], tokens, cdtype)
         spec = cfg.linear_spec()
         for i, p in enumerate(_layer_list(params)):
-            a, _ = attn_verify_step(p["attn"], rmsnorm_apply(p["ln1"], x), _pool_layer(cache, i),
+            a, _ = attn_verify_step(p["attn"], norm(p["ln1"], x), _pool_layer(cache, i),
                                     position, acfg, spec, phase=phase)
             x = _layer_ffn(p, x + a, cfg, phase)
         return _head(params, x), cache
@@ -225,7 +258,7 @@ def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
         x = embedding.embed_apply(params["embed"], tokens, cdtype)
         spec = cfg.linear_spec()
         for i, p in enumerate(_layer_list(params)):
-            a, _ = attn_prefill_chunk(p["attn"], rmsnorm_apply(p["ln1"], x),
+            a, _ = attn_prefill_chunk(p["attn"], norm(p["ln1"], x),
                                       _pool_layer(cache, i), tables, position, acfg, spec,
                                       phase=phase)
             x = _layer_ffn(p, x + a, cfg, phase)
@@ -233,16 +266,17 @@ def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
 
     def prefill(params, batch, *, max_len=None, quantized: bool = False, last_index=None):
         """Prompt pass: (logits (B, 1, V), stacked dense cache of max_len
-        positions). ``last_index`` ((B,) int32) selects the position whose
-        logits are returned (the last real token of a right-padded bucket),
-        else the last column."""
+        positions, or with a window the ring holding the prompt's last
+        min(window, max_len) positions). ``last_index`` ((B,) int32) selects
+        the position whose logits are returned (the last real token of a
+        right-padded bucket), else the last column."""
         tokens = batch["tokens"]
         ml = max_len or tokens.shape[1]
         x = embedding.embed_apply(params["embed"], tokens, cdtype)
         spec = cfg.linear_spec()
         caches = []
         for p in _layer_list(params):
-            a, c = attn_prefill(p["attn"], rmsnorm_apply(p["ln1"], x), acfg, spec, max_len=ml,
+            a, c = attn_prefill(p["attn"], norm(p["ln1"], x), acfg, spec, max_len=ml,
                                 phase=phase, quantized=quantized, cache_dtype=cdtype)
             caches.append(c)
             x = _layer_ffn(p, x + a, cfg, phase)
@@ -251,7 +285,7 @@ def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
         else:
             idx = torch.as_tensor(last_index, device=x.device).to(torch.long).reshape(-1)
             x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
-        return _head(params, x), _stack(caches)
+        return _head(params, x), stack_trees(caches)
 
     def prefill_chunk(params, tokens, cache, tables, start, last_in_chunk):
         """One fixed-size prompt chunk through every layer, appending its KV
@@ -261,13 +295,13 @@ def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
         spec = cfg.linear_spec()
         for i, p in enumerate(_layer_list(params)):
             a, _ = attn_prefill_chunk(
-                p["attn"], rmsnorm_apply(p["ln1"], x), _pool_layer(cache, i), tables, start,
+                p["attn"], norm(p["ln1"], x), _pool_layer(cache, i), tables, start,
                 acfg, spec, phase=phase,
             )
             x = _layer_ffn(p, x + a, cfg, phase)
         idx = last_in_chunk.to(torch.long).reshape(-1)
         x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
-        x = rmsnorm_apply(params["ln_f"], x)
+        x = norm(params["ln_f"], x)
         return embedding.unembed_apply(params["embed"], x), cache
 
     return ModelAPI(init=init, init_cache=init_cache, decode_paged=decode_paged,

@@ -1,8 +1,9 @@
 """Grouped-query attention (port of ``repro/nn/attention.py``): the
 full-sequence training forward ``attn_apply`` over ``dot_attention`` /
 ``blockwise_attention``; the dense per-slot KV path of the continuous
-engine and speculative decoding: ``init_kv_cache``, ``attn_prefill``,
-``attn_decode_step`` and ``attn_verify_step``; and the paged serve path:
+engine, the static engine and speculative decoding: ``init_kv_cache``,
+``attn_prefill``, ``attn_decode_step`` and ``attn_verify_step``, with the
+sliding-window (SWA) ring cache; and the paged serve path:
 int8 KV quantization, ``paged_gather``, ``attn_decode_step_paged`` and
 ``attn_prefill_chunk``.
 The score math is plain PyTorch (einsum and softmax), as the reference
@@ -39,6 +40,7 @@ __all__ = [
     "dot_attention",
     "init_kv_cache",
     "paged_gather",
+    "ring_length",
 ]
 
 NEG_INF = -1e30
@@ -116,14 +118,15 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         block_q: int = 256) -> torch.Tensor:
     """Self-attention over aligned positions 0..S-1 with bounded memory:
     query tiles of ``block_q`` rows, each recomputed in the backward
-    (``torch.utils.checkpoint``) instead of keeping its score tile."""
+    (``torch.utils.checkpoint``) instead of keeping its score tile. Each
+    query row's softmax is its own, so a ragged last tile (S not a multiple
+    of ``block_q``, a long prompt the reference asserts against) gives the
+    rows of one whole ``dot_attention``."""
     b, s, hq, d = q.shape
     pos = torch.arange(s, dtype=torch.int32, device=q.device)
     if s <= block_q:
         return dot_attention(q, k, v, q_positions=pos, kv_positions=pos, causal=causal,
                              window=window)
-    if s % block_q:
-        raise ValueError(f"sequence {s} is not a multiple of block_q {block_q}")
 
     def tile(qblk, qpos):
         return dot_attention(qblk, k, v, q_positions=qpos, kv_positions=pos, causal=causal,
@@ -177,15 +180,20 @@ def _cache_kv(cache, dtype):
     return cache["k"].to(dtype), cache["v"].to(dtype)
 
 
+def ring_length(cfg: AttnConfig, max_len: int) -> int:
+    """Positions a cache row holds: max_len, or with a sliding window the
+    ring's L = min(window, max_len)."""
+    return min(max_len, cfg.window) if cfg.window is not None else max_len
+
+
 def init_kv_cache(batch: int, cfg: AttnConfig, max_len: int, dtype=torch.float32,
                   quantized: bool = False, *, layers: Optional[int] = None, device=None):
-    """Dense per-slot cache of one layer: leaves (batch, max_len, Hkv, hd);
-    with ``quantized`` int8 keys/values plus (batch, max_len, Hkv, 1)
-    float32 scales. ``layers`` stacks that many layers on a leading axis."""
-    if cfg.window is not None:
-        raise ValueError("the port's dense KV cache does not support sliding windows")
+    """Dense per-slot cache of one layer: leaves (batch, L, Hkv, hd) with L
+    = ``ring_length`` (max_len, or the SWA ring); with ``quantized`` int8
+    keys/values plus (batch, L, Hkv, 1) float32 scales. ``layers`` stacks
+    that many layers on a leading axis."""
     lead = () if layers is None else (layers,)
-    shape = lead + (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = lead + (batch, ring_length(cfg, max_len), cfg.n_kv_heads, cfg.head_dim)
     if quantized:
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -202,9 +210,11 @@ def attn_prefill(params, x: torch.Tensor, cfg: AttnConfig, spec: LinearSpec, *,
                  cache_dtype=torch.float32):
     """Whole-prompt attention that also emits the dense cache: (y, cache)
     with the post-RoPE K/V at positions [0, S) of a max_len-long cache
-    (zeros after)."""
-    if cfg.window is not None:
-        raise ValueError("the port's dense KV cache does not support sliding windows")
+    (zeros after). With a sliding window the cache is the ring of L =
+    min(window, max_len) slots, position p at slot p % L: a prompt longer
+    than L is folded in, its last L positions kept (the reference asserts S
+    % L == 0, where the fold is the identity; the port rolls the slots for
+    any S, and equals it there)."""
     b, s, _ = x.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
@@ -215,8 +225,13 @@ def attn_prefill(params, x: torch.Tensor, cfg: AttnConfig, spec: LinearSpec, *,
     out = blockwise_attention(q, k, v, causal=cfg.causal, window=cfg.window,
                               block_q=cfg.block_q)
     y = linear_apply(params["wo"], out.reshape(b, s, -1), spec, phase=phase)
-    pad = (0, 0, 0, 0, 0, max_len - s)
-    kc, vc = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+    length = ring_length(cfg, max_len)
+    if s > length:  # a window's ring: slot j holds position s - L + ((j - s) mod L)
+        kc = torch.roll(k[:, -length:], s % length, dims=1)
+        vc = torch.roll(v[:, -length:], s % length, dims=1)
+    else:
+        pad = (0, 0, 0, 0, 0, length - s)
+        kc, vc = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
     return y, _kv_leaves(kc, vc, quantized, cache_dtype)
 
 
@@ -247,9 +262,11 @@ def attn_decode_step(params, x: torch.Tensor, cache, position: torch.Tensor,
     (the continuous engine's slots). Writes K/V at ``position`` in place
     and attends positions <= it. A position >= max_len (a speculative
     draft step past the end of a row's budget) writes nothing, as the
-    reference's scatter drops it (``_write_dense``)."""
-    if cfg.window is not None:
-        raise ValueError("the port's dense KV cache does not support sliding windows")
+    reference's scatter drops it (``_write_dense``). With a sliding window
+    the cache is the ring of L slots: the write goes to slot ``position %
+    L``, and slot j is read as position ``p - ((p - j) mod L)``, the latest
+    position <= p that lands there (negative, hence masked, while
+    unwritten), under the window mask."""
     b = x.shape[0]
     q, k, v = _project_qkv(params, x, cfg, spec, phase)
     position = torch.as_tensor(position, dtype=torch.int32, device=x.device)
@@ -257,13 +274,22 @@ def attn_decode_step(params, x: torch.Tensor, cache, position: torch.Tensor,
     pos = position[:, None]  # (B, 1) per-row RoPE / mask positions
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    _write_dense(cache, pos, k, v)
     cache_len = cache["k"].shape[1]
+    slots = torch.arange(cache_len, dtype=torch.int32, device=x.device)
+    if cfg.window is not None:
+        rows = torch.arange(b, device=x.device)
+        at = (position % cache_len).long()
+        for name, val in _kv_leaves(k, v, "k_scale" in cache, cache["k"].dtype).items():
+            cache[name][rows, at] = val[:, 0]
+        kv_positions = pos - torch.remainder(pos - slots[None], cache_len)  # (B, L)
+        valid_len = None
+    else:
+        _write_dense(cache, pos, k, v)
+        kv_positions, valid_len = slots, position + 1
     k_all, v_all = _cache_kv(cache, x.dtype)
     out = dot_attention(
-        q, k_all, v_all, q_positions=pos,
-        kv_positions=torch.arange(cache_len, dtype=torch.int32, device=x.device),
-        causal=True, kv_valid_len=position + 1,
+        q, k_all, v_all, q_positions=pos, kv_positions=kv_positions, causal=True,
+        window=cfg.window, kv_valid_len=valid_len,
     )
     y = linear_apply(params["wo"], out.reshape(b, 1, -1), spec, phase=phase)
     return y, cache

@@ -1,5 +1,7 @@
-"""Gated feed-forward block (SwiGLU) over the switchable linear layer
-(port of ``repro/nn/mlp.py``)."""
+"""Feed-forward blocks over the switchable linear layer (port of
+``repro/nn/mlp.py``): SwiGLU (llama family), gated and ungated variants,
+squared ReLU (nemotron). ``"gelu"`` is the tanh approximation, which is
+``jax.nn.gelu``'s default (grok-1)."""
 from __future__ import annotations
 
 import torch
@@ -14,8 +16,8 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "silu":
         return F.silu(x)
     if name == "gelu":
-        return F.gelu(x)
-    if name == "relu2":
+        return F.gelu(x, approximate="tanh")
+    if name == "relu2":  # squared ReLU (nemotron-4)
         r = F.relu(x)
         return r * r
     raise ValueError(name)

@@ -1,7 +1,8 @@
 """repro_torch.serve — the serving runtime: continuous and paged slot
-engines, speculative decoding, open-loop arrival replay."""
+engines, the static packed-batch engine, speculative decoding, open-loop
+arrival replay."""
 from .compile_cache import BucketedPrefill, ChunkedPrefill, bucket_for
-from .engine import Request, ServeEngine, serve_params_from_train
+from .engine import Request, ServeEngine, serve_batch, serve_params_from_train
 from .kv import KVSlotManager
 from .metrics import RequestMetrics, RunMetrics
 from .paged_kv import PagedKVManager, hash_prompt_blocks
@@ -25,5 +26,6 @@ __all__ = [
     "draft_arch",
     "hash_prompt_blocks",
     "replay_arrivals",
+    "serve_batch",
     "serve_params_from_train",
 ]

@@ -1,7 +1,8 @@
-"""Serving engine (port of ``repro/serve/engine.py``, slot engines).
+"""Serving engines (port of ``repro/serve/engine.py``): the slot engines
+and the static packed-batch engine.
 
-``ServeEngine`` fronts the slot schedulers (serve/scheduler.py) with one
-queue/submit/run API:
+``ServeEngine`` fronts three scheduling policies with one queue/submit/run
+API:
 
 - ``engine="continuous"``: a fixed decode batch of ``n_slots`` rows over a
   dense per-slot KV pool, bucketed whole-prompt prefill spliced into a
@@ -9,9 +10,15 @@ queue/submit/run API:
 - ``engine="paged"``: the same loop over a paged KV block pool with
   shared-prefix reuse and chunked prefill. With fp KV it emits the same
   tokens as ``continuous`` (the reference's claim, checked by the tests).
+- ``engine="static"``: the packed-batch drainer. Up to ``batch_size``
+  requests are left-padded to a shared length, prefilled together and
+  decoded greedily to completion before the next group is admitted. It
+  serves what the slot schedulers cannot: mixture of experts (capacity
+  routing couples the rows of a batch) and sliding windows (a ring cache
+  shorter than max_len). Its decode loop stops once every row is done and
+  never writes past the cache's end. Speculation is rejected.
 - ``engine="auto"`` resolves as the reference does: ``continuous`` when the
-  architecture supports the slot scheduler. ``"static"`` (the reference's
-  packed-batch drainer) is not ported and raises.
+  architecture supports the slot scheduler, else ``static``.
 
 ``spec_draft=(draft_api, draft_params, draft_arch)`` with ``spec_k > 1``
 turns on speculative decoding on either slot engine: greedy outputs stay
@@ -27,15 +34,20 @@ the result.
 Observability, as in the reference: ``tracer`` and ``registry`` go to the
 scheduler (``obs/trace.py``, ``obs/registry.py``), and ``profile_sample >
 0`` builds ``obs.profile.StepTimer(profile_sample, tracer=tracer)``, which
-phase-times every Nth tick (``engine.profiler``; None when off).
+phase-times every Nth tick (``engine.profiler``; None when off). The
+static engine has no scheduler, so no tracer events and no RunMetrics
+(``engine.metrics`` is None), as in the reference. Its packed-batch extra
+inputs (``run(extra_batch=...)``, the encdec family's frames) wait for that
+family and raise.
 
 The engine runs on CUDA unless ``device="cpu"`` is passed; without a GPU
 and without that request it raises.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.convert import tree_to_serve
@@ -51,7 +63,7 @@ from repro_torch.serve.scheduler import (
     scheduler_supports,
 )
 
-__all__ = ["Request", "ServeEngine", "serve_params_from_train"]
+__all__ = ["Request", "ServeEngine", "serve_batch", "serve_params_from_train"]
 
 
 def serve_params_from_train(train_params, spec):
@@ -99,10 +111,6 @@ class ServeEngine:
                 f"spec_draft needs a slot-scheduler engine (continuous/paged); "
                 f"got engine={engine!r}"
             )
-        if engine == "static":
-            raise NotImplementedError(
-                "engine='static' is not ported; the port serves engine='continuous' or 'paged'"
-            )
         self.device = resolve_device(device)
         self.api = api
         self.arch = arch
@@ -115,6 +123,7 @@ class ServeEngine:
         self.profiler = (StepTimer(profile_sample, tracer=tracer)
                          if profile_sample and profile_sample > 0 else None)
         self.params = split_layers(_to_device(params, self.device))
+        self.queue: List[Request] = []  # the static engine's
         if spec_draft is not None:
             dapi, dparams, darch = spec_draft
             spec_draft = (dapi, split_layers(_to_device(dparams, self.device)), darch)
@@ -122,11 +131,12 @@ class ServeEngine:
                       quantized_kv=quantized_kv, device=self.device, tracer=tracer,
                       registry=registry, profiler=self.profiler, spec_draft=spec_draft,
                       spec_k=spec_k)
+        self.scheduler = None
         if engine == "paged":
             self.scheduler = PagedSlotScheduler(
                 api, self.params, arch, block_size=kv_block_size, n_blocks=kv_n_blocks,
                 prefix_cache=prefix_cache, chunk=prefill_chunk, **common)
-        else:
+        elif engine == "continuous":
             self.scheduler = SlotScheduler(api, self.params, arch, **common)
 
     @classmethod
@@ -149,12 +159,123 @@ class ServeEngine:
 
     @property
     def metrics(self):
-        return self.scheduler.metrics
+        """RunMetrics of the slot scheduler (None for static)."""
+        return self.scheduler.metrics if self.scheduler is not None else None
 
     def submit(self, req: Request) -> None:
-        self.scheduler.submit(req)
+        if self.scheduler is not None:
+            self.scheduler.submit(req)
+            return
+        if req.max_new_tokens < 1:
+            raise ValueError(f"req {req.rid}: max_new_tokens must be >= 1")
+        if len(req.prompt) >= self.max_len:
+            raise ValueError(
+                f"req {req.rid}: prompt length {len(req.prompt)} >= max_len "
+                f"{self.max_len} leaves no room to generate"
+            )
+        self.queue.append(req)
+
+    # -- static path --------------------------------------------------------
+
+    def _pack(self, reqs: Sequence[Request]):
+        """(B, S) tokens, each prompt left-padded with 0 to the longest (S
+        >= 1): causal, so a pad only adds keys before the prompt, which its
+        queries attend as the reference's do."""
+        s = max(1, max(len(r.prompt) for r in reqs))
+        toks = np.zeros((len(reqs), s), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, s - len(r.prompt):] = r.prompt
+        return torch.from_numpy(toks).to(self.device), s
+
+    @staticmethod
+    def _slice_extra(extra_batch: Dict, n: int) -> Dict:
+        """Trim batched extra inputs to the packed batch (the last group of
+        a drain is smaller than batch_size)."""
+        out = {}
+        for k, v in extra_batch.items():
+            if hasattr(v, "ndim") and v.ndim >= 1 and v.shape[0] > n:
+                v = v[:n]
+            out[k] = v
+        return out
 
     @torch.inference_mode()
-    def run(self) -> List[Request]:
-        """Drain every submitted request through the slot scheduler."""
-        return self.scheduler.run()
+    def step_batch(self, reqs: Sequence[Request], extra_batch: Optional[Dict] = None):
+        """Static path: prefill and greedily decode one packed batch to
+        completion; fills ``req.output``. The host loop stops as soon as
+        every row is finished (EOS or its budget), and decoding stops at the
+        cache end (positions s .. max_len - 1) instead of overwriting its
+        last row."""
+        if extra_batch:
+            raise NotImplementedError(
+                "extra_batch (the encdec family's frames) waits for that family's port")
+        tokens, s = self._pack(reqs)
+        logits, cache = self.api.prefill(self.params, {"tokens": tokens},
+                                         max_len=self.max_len, quantized=self.quantized_kv)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        n_steps = max(r.max_new_tokens for r in reqs)
+        n_steps = max(1, min(n_steps, self.max_len - s + 1))
+        need = np.array([r.max_new_tokens for r in reqs])
+        eos = np.array([-1 if r.eos_id is None else r.eos_id for r in reqs])
+        cur = tok[:, 0].cpu().numpy()  # the host streams token ids: one sync a step
+        outs = [cur]
+        finished = (cur == eos) | (need <= 1)
+        self._stream(reqs, cur, np.zeros(len(reqs), bool), 0, need)
+        for t in range(1, n_steps):
+            if finished.all():
+                break
+            logits, cache = self.api.decode_step(self.params, tok, cache, s + t - 1)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            cur = tok[:, 0].cpu().numpy()
+            self._stream(reqs, cur, finished, t, need)
+            outs.append(cur)
+            finished = finished | (cur == eos) | (t + 1 >= need)
+        gen = np.stack(outs, axis=1)  # (B, <= n_steps)
+        for i, r in enumerate(reqs):
+            g = gen[i, : r.max_new_tokens]
+            if r.eos_id is not None:
+                hits = np.where(g == r.eos_id)[0]
+                if hits.size:
+                    g = g[: hits[0] + 1]
+            r.output = g
+        return reqs
+
+    @staticmethod
+    def _stream(reqs, cur, already_finished, t, need):
+        for i, r in enumerate(reqs):
+            if r.on_token is not None and not already_finished[i] and t < need[i]:
+                r.on_token(int(cur[i]))
+
+    @torch.inference_mode()
+    def run(self, extra_batch: Optional[Dict] = None) -> List[Request]:
+        """Drain every submitted request: through the slot scheduler, or
+        (static) in groups of batch_size run to completion."""
+        if self.scheduler is not None:
+            if extra_batch is not None:
+                raise ValueError(
+                    "extra_batch is packed-batch-shaped and only supported by "
+                    "the static engine (pass engine='static')"
+                )
+            return self.scheduler.run()
+        done: List[Request] = []
+        while self.queue:
+            batch, self.queue = self.queue[: self.batch_size], self.queue[self.batch_size:]
+            done.extend(self.step_batch(batch, extra_batch))
+        return done
+
+
+@torch.inference_mode()
+def serve_batch(api: ModelAPI, params, prompts: torch.Tensor, *, max_new_tokens: int = 8,
+                max_len: Optional[int] = None) -> torch.Tensor:
+    """One-shot greedy decode of a (B, S) prompt batch (no padding, no
+    early stop): (B, max_new_tokens) int32 tokens."""
+    b, s = prompts.shape
+    ml = max_len or (s + max_new_tokens)
+    params = split_layers(params)
+    logits, cache = api.prefill(params, {"tokens": prompts}, max_len=ml)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    toks = [tok]
+    for t in range(1, max_new_tokens):
+        logits, cache = api.decode_step(params, tok, cache, s + t - 1)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        toks.append(tok)
+    return torch.cat(toks, dim=1)

@@ -82,7 +82,10 @@ class Request:
 
 
 def scheduler_supports(arch: ArchConfig) -> bool:
-    """Non-MoE, non-SWA 'lm' models (as the reference)."""
+    """Non-MoE, non-SWA 'lm' models, as the reference: MoE capacity routing
+    couples the rows of a batch (a junk row would take an expert's place),
+    and a ring cache is shorter than the max_len rows the slot pool holds.
+    Both go to the static engine."""
     return arch.family == "lm" and arch.n_experts == 0 and arch.window is None
 
 
@@ -120,7 +123,8 @@ class SlotScheduler:
         if not scheduler_supports(arch):
             raise ValueError(
                 f"SlotScheduler supports non-MoE, non-SWA 'lm' models; got family="
-                f"{arch.family!r} n_experts={arch.n_experts} window={arch.window}"
+                f"{arch.family!r} n_experts={arch.n_experts} window={arch.window} "
+                f"(use the static engine)"
             )
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")

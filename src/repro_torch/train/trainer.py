@@ -57,6 +57,11 @@ class TrainConfig:
 class Trainer:
     def __init__(self, cfg: TrainConfig, opt: Optional[OptimizerSpec] = None, *,
                  device=None, fail_at_step: Optional[int] = None):
+        if cfg.arch.n_experts:
+            raise NotImplementedError(
+                f"{cfg.arch.name}: training a mixture of experts is not ported yet (the "
+                f"load-balance aux loss in the step and the training kernels under the "
+                f"expert loop); the port serves MoE models")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.fail_at_step = fail_at_step

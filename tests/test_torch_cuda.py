@@ -36,7 +36,10 @@ including tables split over clusters of 1 to 16 ranks whose ranks walk
 several blocks and chunks whose first queries see rank 0 alone, repeats
 bit for bit (its ranks meet in rank order), takes the plan that
 ``attn_plan`` computes, and is one device operation a call at decode and
-at a prefill chunk. At the paper models' ragged shapes (TFC's N = 10 and
+at a prefill chunk, also at the lm family's other GQA groups and head
+dims (G = 6, 1 and 8 at D = 128; G = 1 at D = 96), and kernel 1 at
+mixtral's expert and attention shapes (K = 6144 and 16384, M down to 1).
+At the paper models' ragged shapes (TFC's N = 10 and
 K = 32 head, CNV's first conv at K = 3 x 3 x 3 = 27 and a large im2col M)
 every kernel of their paths holds to its plain version the same way, and
 the bika serve path takes a contraction that is not a multiple of 8
@@ -144,6 +147,53 @@ def test_paged_attention_kernel_on_card(cuda, b, c, hq, hkv, d, bs, t, quantized
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
     assert torch.equal(got, again)
+
+
+# the lm family's new (Hq, Hkv, D) on the paged path: nemotron-4-15b (G = 6),
+# qwen1.5-32b (G = 1), phi3-mini-3.8b (G = 1, D = 96), chameleon-34b (G = 8)
+GROUP_HEADS = [(48, 8, 128), (40, 40, 128), (32, 32, 96), (64, 8, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("b,c,t", [(4, 1, 8), (1, 32, 8), (2, 8, 20)],
+                         ids=["decode", "chunk", "chunk-T20"])
+@pytest.mark.parametrize("hq,hkv,d", GROUP_HEADS, ids=["G6-D128", "G1-D128", "G1-D96",
+                                                        "G8-D128"])
+def test_paged_attention_new_groups_on_card(cuda, hq, hkv, d, b, c, t, quantized):
+    """Kernel 11 at the new configs' GQA groups and head dims, decode and
+    prefill chunks: within 2e-5 of its plain version, repeatable bit for
+    bit, on attn_plan's plan (the compiled kernel's own)."""
+    host, dev = _paged_operands(cuda, b, c, hq, hkv, d, 16, t, quantized, "tail")
+    plan = pa.attn_plan(b, c, hq, hkv, d, 16, t)
+    assert pa.card_plan(b, c, hq, hkv, d, 16, t)[:2] == plan
+    want = ref.paged_attention_ref(*host)
+    got = paged_attn_kernel_call(*dev[:5], k_scale=dev[5], v_scale=dev[6])
+    again = paged_attn_kernel_call(*dev[:5], k_scale=dev[5], v_scale=dev[6])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
+    assert torch.equal(got, again)
+
+
+# mixtral-8x22b's kernel-1 shapes: an expert's gate/up and down at decode
+# (capacity 1) and at a short prefill's capacity (13), the attention
+# projections at decode (4 rows) and at a prefill of 4 x 11 tokens
+MIXTRAL_CAC = [(1, 6144, 16384), (1, 16384, 6144), (13, 6144, 16384), (13, 16384, 6144),
+               (4, 6144, 6144), (4, 6144, 1024), (44, 6144, 6144), (44, 6144, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", MIXTRAL_CAC)
+def test_cac_kernel_at_mixtral_shapes_on_card(cuda, m, k, n):
+    """Kernel 1 at mixtral's expert and attention shapes, K up to 16384
+    and M down to 1: bit-exact against its plain version and repeatable."""
+    rng = np.random.default_rng(m + k + n)
+    x, tau, s = (torch.from_numpy(a).to(cuda) for a in cac_case(rng, m, k, n))
+    sp = pack_signs(s)
+    got, again = cac_matmul_kernel_call(x, tau, sp), cac_matmul_kernel_call(x, tau, sp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, cac_matmul_plain(x, tau, sp))
 
 
 # (case for _paged_operands, plan): tiles that cut a chunk unevenly and

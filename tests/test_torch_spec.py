@@ -293,8 +293,9 @@ def test_spec_rejects_static_engine_and_bad_k(lm):
     with pytest.raises(ValueError, match="spec_k"):
         ServeEngine.from_trained(ttrain, tcfg, engine="continuous", spec_draft="qnn8",
                                  spec_k=0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServeEngine.from_trained(ttrain, tcfg, engine="static", device="cpu")
+    # without a draft the static engine serves (it is ported)
+    assert ServeEngine.from_trained(ttrain, tcfg, engine="static",
+                                    device="cpu").engine == "static"
 
 
 def test_bika_target_rejects_matmul_draft():
