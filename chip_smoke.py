@@ -181,6 +181,27 @@ Phases (each prints its own line; any failure exits non-zero):
              tick) and its 2-layer parity. Wall seconds and peak memory of
              every drain. ``python3 chip_smoke.py --only moe`` runs the two
              alone (a partial run: no result line).
+16. recurrent — the hybrid and xLSTM families (phase_recurrent_kernels,
+             phase_recurrent): kernels 1, 7 and 10 at the ten (K, N) of
+             zamba2-2.7b's and xlstm-125m's projections (``RECURRENT_KN``;
+             the in_proj's N = 10448 leaves a ragged last 128-column tile),
+             M = 4 and 84, bit-exact, repeatable, timed beside their plain
+             versions, a library call and the bound. Then zamba2-2.7b in
+             bika (packed) at full width and all 54 layers and xlstm-125m
+             whole, each through ServeEngine.from_trained(engine="auto"),
+             which takes the static engine: the 8 requests x 16 tokens
+             (batch 4, max_len 128) twice, every forward exactly 171 (51)
+             kernel-1 launches and no other kernel, tokens equal run to
+             run, build and drain peaks; one drain under torch.profiler
+             (device busy, idle share, kernel 1's device ms); the
+             prefill's host-loop cost at 64 and 512 tokens; card-vs-CPU
+             parity of the drain's first batch (prefill + 4 decode steps;
+             zamba2 cut to 12 layers, so the shared block runs on two KV
+             streams) with activation codes held at half-way ties; then
+             qnn8 (kernel 10) and bnn packed (kernel 7) from one train-form
+             tree each (zamba2 at 6 layers: 19 launches a forward; xlstm
+             whole: 51), a drain each twice. ``python3 chip_smoke.py --only
+             recurrent`` runs the two alone (a partial run: no result line).
 
 Before the last line come the card's name and power limit as nvidia-smi
 prints them, then the kernels JSON; the last line is
@@ -3026,7 +3047,7 @@ def _counted_forwards(ops, eng, log):
 def _static_drain(torch, np, ops, eng, reqs, route, tag):
     """Drain ``reqs`` through a static engine with the launch counters zeroed
     just before and read just after; every forward (a batch's prefill or a
-    decode step) must launch exactly ``_projections`` x layers of ``route``
+    decode step) must launch exactly ``_forward_launches`` of ``route``
     and nothing else. -> (tokens by rid, counts, forwards, wall s, peak GB)."""
     log = []
     api = _counted_forwards(ops, eng, log)
@@ -3042,7 +3063,7 @@ def _static_drain(torch, np, ops, eng, reqs, route, tag):
     counts = ops.launch_counts()
     eng.api = api
     peak = _gb(torch.cuda.max_memory_allocated())
-    per = _projections(eng.arch) * eng.arch.n_layers
+    per = _forward_launches(eng.arch)
     want = dict(_NO_LAUNCHES, **{route: per})
     for i, (kind, delta) in enumerate(log):
         if delta != want:
@@ -3131,13 +3152,15 @@ def _both(*hooks):
     return install, restore, lambda: "; ".join(h[2]() for h in hooks)
 
 
-def phase_moe_parity(torch, np, arch, params, dev, tag="moe-parity"):
-    """The short drain's first batch (requests 0-3, left-padded to 11
-    tokens) on the card and on the CPU (plain versions), the same serve
-    weights: the prefill's and 4 decode steps' logits, the CPU fed its own
-    greedy tokens on both sides, activation codes held at half-way ties
-    (``_code_hooks``) and expert choices at near-tie gates
-    (``_route_hooks``); then within PARITY_ATOL and greedy tokens equal but
+def phase_moe_parity(torch, np, arch, params, dev, tag="moe-parity", hooks=None):
+    """The short drain's first batch (requests 0-3, left-padded to the
+    longest: 11 tokens at mixtral's vocab) on the card and on the CPU
+    (plain versions), the same serve weights, through the model's
+    ``prefill`` and ``decode_step`` (any static-engine family): the
+    prefill's and 4 decode steps' logits, the CPU fed its own greedy tokens
+    on both sides, activation codes held at half-way ties (``_code_hooks``)
+    and expert choices at near-tie gates (``_route_hooks``), or what
+    ``hooks`` holds; then within PARITY_ATOL and greedy tokens equal but
     where the CPU's top two are closer than the two sides' difference."""
     from repro_torch.models import build_model
 
@@ -3147,7 +3170,7 @@ def phase_moe_parity(torch, np, arch, params, dev, tag="moe-parity"):
     toks = np.zeros((len(prompts), s), np.int32)
     for i, p in enumerate(prompts):
         toks[i, s - len(p):] = p
-    install, restore, report = _both(_code_hooks(torch), _route_hooks(torch))
+    install, restore, report = hooks or _both(_code_hooks(torch), _route_hooks(torch))
     sides = (("card", dev), ("cpu", torch.device("cpu")))
     logs, runs, secs = {}, {}, {"card": 0.0, "cpu": 0.0}
 
@@ -3277,6 +3300,8 @@ def _bnn_train_from(tree):
         if set(tree) == {"w", "amax"}:
             return {"w": tree["w"], "gamma": torch.mean(torch.abs(tree["w"]), dim=-2)}
         return {k: _bnn_train_from(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_bnn_train_from(v) for v in tree]
     return tree
 
 
@@ -3427,11 +3452,287 @@ def phase_moe(torch, np, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the recurrent families (zamba2-2.7b hybrid, xlstm-125m)
+# ---------------------------------------------------------------------------
+
+RECURRENT_PREFILL_M = 84  # the drains' second prefill: 4 prompts left-padded to 21 tokens
+# the new (K, N) of kernels 1, 7 and 10 on the recurrent paths; zamba2's
+# in_proj N = 10448 leaves a ragged last 128-column tile (columns 10368-10447:
+# the dt columns that feed softplus)
+RECURRENT_KN = [("zamba2 in_proj", 2560, 10448), ("zamba2 out_proj", 5120, 2560),
+                ("zamba2 shared q/k/v/o", 2560, 2560), ("zamba2 shared gate/up", 2560, 10240),
+                ("zamba2 shared down", 10240, 2560), ("xlstm mLSTM up", 768, 3072),
+                ("xlstm mLSTM q/k/v", 1536, 1536), ("xlstm mLSTM down", 1536, 768),
+                ("xlstm sLSTM wx", 768, 3072), ("xlstm sLSTM down", 768, 768)]
+ZAMBA_PARITY_LAYERS = 12  # two groups: the shared block runs twice, on two KV streams
+ZAMBA_LOWBIT_LAYERS = 6  # bnn and qnn8: one group, 6 x 2 + 7 = 19 launches a forward
+LONG_PROMPTS = (64, 512)  # the host-side time loop's prefill cost per token
+KERNEL1_GROUP = {"cac_matmul": ("stream_kernel<0,",)}
+
+
+def _forward_launches(arch):
+    """Projection launches of one forward (a prefill or a decode step): the
+    lm family's ``_projections`` a layer; the hybrid's 2 a Mamba layer
+    (in_proj, out_proj) and 7 a shared-block application; xLSTM's 2 an
+    sLSTM layer (wx, down) and 5 an mLSTM layer (up, q, k, v, down)."""
+    if arch.family == "hybrid":
+        return 2 * arch.n_layers + _projections(arch) * (arch.n_layers // arch.attn_every)
+    if arch.family == "xlstm":
+        n_s = sum(1 for i in range(arch.n_layers) if i % arch.slstm_every == 0)
+        return 2 * n_s + 5 * (arch.n_layers - n_s)
+    return _projections(arch) * arch.n_layers
+
+
+def phase_recurrent_kernels(torch, np, dev, flush):
+    """Kernels 1, 7 and 10 at the ten (K, N) of the recurrent paths
+    (``RECURRENT_KN``), M = 4 (decode) and M = 84 (the drains' second
+    prefill): bit-exact against their plain versions and repeatable, timed
+    (L2 flushed) beside the plain version, a library call where one exists
+    (kernel 7: torch.matmul on +-1 float32; kernel 10: torch._int_mm) and
+    the bound."""
+    from repro_torch.core.backend import pack_signs
+    from repro_torch.kernels import bnn_matmul as bnn
+    from repro_torch.kernels import qnn_matmul as qnn
+    from repro_torch.kernels.cac_matmul import cac_matmul_kernel_call, cac_matmul_plain
+
+    rng = np.random.default_rng(SEED + 25)
+    rows = []
+    for where, k, n in RECURRENT_KN:
+        for m in (N_SLOTS, RECURRENT_PREFILL_M):
+            x = torch.from_numpy(rng.integers(-128, 128, size=(m, k)).astype(np.int8)).to(dev)
+            tau = torch.from_numpy(rng.integers(-128, 128, size=(k, n)).astype(np.int8)).to(dev)
+            signs = torch.from_numpy(np.where(rng.random((k, n)) < 0.5, 1, -1).astype(np.int8))
+            sp = pack_signs(signs).to(dev)
+            xf = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
+            w = torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8)).to(dev)
+            ws = torch.from_numpy(rng.uniform(1e-3, 1e-2, size=(n,)).astype(np.float32)).to(dev)
+            xs, wsf = torch.where(xf >= 0, 1.0, -1.0), signs.to(dev).float()
+            int_mm, int_mm_shape = _int_mm_yardstick(torch, x, w, ws)
+            ops2 = 2.0 * m * k * n
+            cases = (
+                ("cac_matmul", lambda: cac_matmul_kernel_call(x, tau, sp),
+                 lambda: cac_matmul_plain(x, tau, sp), None,
+                 _bound(m * k + k * n + k * n // 8 + 4 * m * n, ops2, CUDA_CORE_OPS_S)),
+                ("bnn_packed_matmul", lambda: bnn.bnn_packed_matmul_kernel_call(xf, sp),
+                 lambda: bnn.bnn_packed_matmul_plain(xf, sp), lambda: torch.matmul(xs, wsf),
+                 _bound(4 * m * k + k * n // 8 + 4 * m * n, ops2, TENSOR_CORE_OPS_S)),
+                ("qnn_matmul", lambda: qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE),
+                 lambda: qnn.qnn_matmul_plain(x, w, ws, ACT_SCALE), int_mm,
+                 _bound(m * k + k * n + 4 * n + 4 * m * n, ops2, INT8_TENSOR_OPS_S)))
+            for name, kern, plain, lib, (bound, by) in cases:
+                got, again, want = kern(), kern(), plain()
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if err != 0.0 or not torch.equal(got, again):
+                    fail(f"recurrent {name} {where} M={m} K={k} N={n}: max |kernel - plain| = "
+                         f"{err}, repeatable {torch.equal(got, again)}")
+                row = {"recurrent": where, "kernel": name, "M": m, "K": k, "N": n,
+                       "max_abs_err": err, "ms": time_ms(torch, kern, flush=flush),
+                       "plain_ms": time_ms(torch, plain, iters=2, warmup=1, flush=flush),
+                       "library_ms": time_ms(torch, lib, flush=flush) if lib else None,
+                       "bound_ms": bound, "bound_by": by}
+                if name == "qnn_matmul":
+                    row["library_shape"] = int_mm_shape
+                row["bound_share"] = bound / row["ms"]
+                rows.append(row)
+                lib_ms = "none" if lib is None else f"{row['library_ms']:.5f}"
+                print(f"[recurrent-kernels] {name} {where} M={m} K={k} N={n} bit-exact, "
+                      f"repeatable; ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+                      f"library_ms={lib_ms} bound_ms={bound:.6f} ({by}, "
+                      f"{100 * row['bound_share']:.1f}%)")
+            del x, tau, sp, xf, w, ws, xs, wsf
+    return rows
+
+
+def _long_prefill(torch, np, eng, per, tag):
+    """The host-side time loop: one prompt of each of LONG_PROMPTS tokens
+    (batch 1) through the engine's prefill, launch counts exact, wall ms
+    per token; the slope between the two lengths is the loop's cost per
+    token."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.RandomState(SEED + 7)
+    out = {}
+    for s in LONG_PROMPTS:
+        tokens = torch.from_numpy(rng.randint(0, eng.arch.vocab, (1, s)).astype(np.int32))
+        tokens = tokens.to(eng.device)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, _ = eng.api.prefill(eng.params, {"tokens": tokens}, max_len=s + 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if counts != dict(_NO_LAUNCHES, cac_hw=per) or not bool(torch.isfinite(logits).all()):
+            fail(f"[{tag}] prefill of {s} tokens: launches {counts} != {per} kernel-1, or "
+                 f"non-finite logits")
+        out[f"{s}_tokens"] = {"wall_s": wall, "ms_per_token": wall / s * 1e3}
+    a, b = LONG_PROMPTS
+    ra, rb = out[f"{a}_tokens"], out[f"{b}_tokens"]
+    out["slope_ms_per_token"] = (rb["wall_s"] - ra["wall_s"]) / (b - a) * 1e3
+    print(f"[{tag}] prefill, batch 1: {a} tokens {ra['wall_s']:.3f} s, {b} tokens "
+          f"{rb['wall_s']:.3f} s ({rb['ms_per_token']:.3f} ms a token; "
+          f"{out['slope_ms_per_token']:.3f} ms a token between them), {per} kernel-1 "
+          f"launches each")
+    return out
+
+
+def _profiled_drain(torch, np, eng, tag):
+    """One more drain of the 8 requests under torch.profiler: device busy,
+    idle share, the top kernels and kernel 1's device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    label = f"{eng.arch.name}_static_drain"
+    for r in _requests(np, eng.arch.vocab):
+        eng.submit(r)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function(label):
+            eng.run()
+            torch.cuda.synchronize()
+    share = _device_share(prof, label, KERNEL1_GROUP)
+    if share is None:
+        print(f"[{tag}] device busy share: not measured (the trace holds no drain window or "
+              f"no device events)")
+        return None
+    print(f"[{tag}] drain under torch.profiler: window {share['window_ms']:.1f} ms, device "
+          f"busy {share['device_busy_ms']:.2f} ms, idle share {share['idle_share']:.4f}; "
+          f"kernel 1 {share['groups']['cac_matmul']['ms']:.3f} ms in "
+          f"{share['groups']['cac_matmul']['count']} launches")
+    for row in share["top_kernels"]:
+        print(f"[{tag}]   {row['ms']:9.3f} ms {row['count']:6d}x {row['name']}")
+    return share
+
+
+def phase_recurrent(torch, np, dev):
+    """zamba2-2.7b (full width, all 54 layers) and xlstm-125m (whole) in bika
+    (packed signs) through ServeEngine.from_trained(engine="auto") -> static:
+    the 8 requests x 16 tokens (batch 4, max_len 128) twice, every forward
+    exactly ``_forward_launches`` kernel-1 launches (171 and 51) and no
+    other kernel, tokens equal run to run, build and drain peaks; one
+    drain profiled; the prefill's cost per token at LONG_PROMPTS; card-vs-
+    CPU parity (zamba2 cut to 12 layers, xlstm whole) with activation codes
+    held at half-way ties; then qnn8 (kernel 10) and bnn packed (kernel 7)
+    from one train-form tree each (zamba2 at 6 layers, xlstm whole), a
+    drain each twice."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    out = {"cut": f"zamba2-2.7b: all 54 layers in bika; the parity at {ZAMBA_PARITY_LAYERS} "
+                  f"layers, bnn / qnn8 at {ZAMBA_LOWBIT_LAYERS}; xlstm-125m whole; every "
+                  f"width as published"}
+    print(f"[recurrent] {smi_line()}; {out['cut']}")
+    for name, seed in (("zamba2-2.7b", SEED + 21), ("xlstm-125m", SEED + 22)):
+        tag = f"recurrent-{name}"
+        arch = get_config(name, compute_mode="bika", pack_signs=True, remat=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        train = build_model(arch, phase="train").init(gen, device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        train_gb = _gb(torch.cuda.memory_allocated() - base)
+        t0 = time.perf_counter()
+        eng = ServeEngine.from_trained(train, arch, batch_size=N_SLOTS, max_len=MAX_LEN,
+                                       device=dev)
+        torch.cuda.synchronize()
+        t_conv = time.perf_counter() - t0
+        del train
+        gc.collect()
+        torch.cuda.empty_cache()
+        build_peak = _gb(torch.cuda.max_memory_allocated() - base)
+        serve_gb = _gb(torch.cuda.memory_allocated() - base)
+        if eng.engine != "static":
+            fail(f"[{tag}] engine='auto' resolved to {eng.engine!r}, not 'static'")
+        per = _forward_launches(arch)
+        print(f"[{tag}] bika packed, {arch.n_layers} layers, d_model {arch.d_model}, vocab "
+              f"{arch.vocab}: train-form init {t_init:.2f} s ({train_gb:.2f} GB), built "
+              f"through ServeEngine.from_trained in {t_conv:.2f} s, build peak "
+              f"{build_peak:.2f} GB, served tree {serve_gb:.2f} GB; engine={eng.engine}; "
+              f"{per} kernel-1 launches a forward")
+        res = {"layers": arch.n_layers, "init_s": t_init, "convert_s": t_conv,
+               "train_gb": train_gb, "build_peak_gb": build_peak, "serve_gb": serve_gb,
+               "per_forward": per, "built_through": "ServeEngine.from_trained"}
+        runs = []
+        for run in range(2):
+            outs, counts, fwds, decodes, wall, peak = _static_drain(
+                torch, np, ops, eng, _requests(np, arch.vocab), "cac_hw", tag)
+            runs.append(outs)
+            print(f"[{tag}] drain {run + 1}: 8 requests x {NEW_TOKENS} tokens, batch "
+                  f"{N_SLOTS}, max_len {MAX_LEN}: {fwds} forwards ({decodes} decode steps), "
+                  f"each {per} kernel-1 launches; launches {counts}; wall {wall:.3f} s, peak "
+                  f"{_gb(peak * 1e9 - base):.2f} GB above the build's start")
+            res.setdefault("drains", []).append({
+                "wall_s": wall, "peak_gb": _gb(peak * 1e9 - base), "launches": counts,
+                "forwards": fwds, "decode_steps": decodes})
+        if runs[0] != runs[1]:
+            fail(f"[{tag}] a second drain gave other tokens")
+        res["launches"] = res["drains"][0]["launches"]
+        print(f"[{tag}] tokens repeat; req0={runs[0][0]}")
+        res["profile"] = _profiled_drain(torch, np, eng, tag)
+        res["long_prefill"] = _long_prefill(torch, np, eng, per, tag)
+        if arch.family == "hybrid":
+            p_arch = arch.replace(n_layers=ZAMBA_PARITY_LAYERS)
+            # the engine holds the Mamba layers as a list of per-layer views
+            p_params = dict(eng.params, mamba=eng.params["mamba"][:ZAMBA_PARITY_LAYERS])
+        else:
+            p_arch, p_params = arch, eng.params
+        res["parity"] = phase_moe_parity(torch, np, p_arch, p_params, dev,
+                                         tag=f"recurrent-parity {name}",
+                                         hooks=_code_hooks(torch))
+        del eng, p_params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = res
+
+    # qnn8 (kernel 10) and bnn packed (kernel 7), from one train-form tree each
+    for name, layers in (("zamba2-2.7b", ZAMBA_LOWBIT_LAYERS), ("xlstm-125m", None)):
+        a = get_config(name, compute_mode="qnn8", remat=False)
+        a = a.replace(n_layers=layers) if layers else a
+        gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+        train = build_model(a, phase="train").init(gen, device=dev)
+        for mode, route, am in (("qnn8", "qnn8", a),
+                                ("bnn", "bnn_packed", a.replace(compute_mode="bnn",
+                                                                pack_signs=True))):
+            tree = train if mode == "qnn8" else _bnn_train_from(train)
+            e = ServeEngine.from_trained(tree, am, batch_size=N_SLOTS, max_len=MAX_LEN,
+                                         device=dev)
+            runs = []
+            for _ in range(2):
+                outs, counts, fwds, decodes, wall, peak = _static_drain(
+                    torch, np, ops, e, _requests(np, am.vocab), route,
+                    f"recurrent-{name}-{mode}")
+                runs.append(outs)
+            if runs[0] != runs[1]:
+                fail(f"[recurrent-{name}-{mode}] a second drain gave other tokens")
+            per = _forward_launches(am)
+            print(f"[recurrent-{name}-{mode}] {am.n_layers} layers: drain twice, tokens "
+                  f"repeat; {fwds} forwards, each {per} {route} launches; launches {counts}; "
+                  f"wall {wall:.3f} s")
+            out[f"{name} {mode}"] = {"layers": am.n_layers, "launches": counts,
+                                     "forwards": fwds, "per_forward": per, "wall_s": wall}
+            del e, tree
+        del train
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("paper", "moe"):
-        fail(f"unknown arguments {argv}; the one option is --only paper|moe")
+    if argv and only not in ("paper", "moe", "recurrent"):
+        fail(f"unknown arguments {argv}; the one option is --only paper|moe|recurrent")
     only_paper = only == "paper"
     try:
         import numpy as np
@@ -3509,6 +3810,21 @@ def main(argv=None) -> int:
         print(smi)
         print("partial run (--only moe): no result line")
         return 0
+    if only == "recurrent":  # a partial run: no kernels line, no last line
+        flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        rec_kernels = phase_recurrent_kernels(torch, np, dev, flush)
+        del flush
+        recurrent = phase_recurrent(torch, np, dev)
+        print(f"[recurrent] phase {time.perf_counter() - t0:.1f} s")
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_recurrent.json"), "w") as fh:
+            json.dump({"device": smi, "recurrent": recurrent, "recurrent_kernels": rec_kernels},
+                      fh, indent=1, sort_keys=True, default=str)
+        print(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
+        print(smi)
+        print("partial run (--only recurrent): no result line")
+        return 0
     device_ops = phase_device_ops(torch, np, dev)
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
     cac_rows, timing_floor = phase_cac(torch, np, dev, flush)
@@ -3548,10 +3864,14 @@ def main(argv=None) -> int:
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
     paper = phase_paper(torch, np, dev, flush)
     moe_cac, moe_attn = phase_moe_kernels(torch, np, dev, flush)
+    rec_kernels = phase_recurrent_kernels(torch, np, dev, flush)
     del flush
     t0 = time.perf_counter()
     moe = phase_moe(torch, np, dev)
     print(f"[moe] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    recurrent = phase_recurrent(torch, np, dev)
+    print(f"[recurrent] phase {time.perf_counter() - t0:.1f} s")
 
     main_cac = next(r for r in cac_rows if (r["M"], r["K"], r["N"]) == (4, 960, 2560))
     main_attn = next(r for r in attn_rows if r["case"] == "decode" and not r["int8"])
@@ -3690,6 +4010,20 @@ def main(argv=None) -> int:
         if entry["name"] == "bnn_packed_matmul":
             entry["moe_launches"] = {"mixtral_1_layer_drain":
                                      moe["bnn"]["launches"]["bnn_packed"]}
+    # the eighth slice: kernels 1, 7 and 10 on the recurrent paths (zamba2 and
+    # xlstm in bika; in qnn8 and bnn packed) and their rows at the new shapes
+    rec_keys = {"cac_matmul": ("cac_hw", ("zamba2-2.7b", "xlstm-125m")),
+                "bnn_packed_matmul": ("bnn_packed", ("zamba2-2.7b bnn", "xlstm-125m bnn")),
+                "qnn_matmul": ("qnn8", ("zamba2-2.7b qnn8", "xlstm-125m qnn8"))}
+    for entry in kernels:
+        if entry["name"] in rec_keys:
+            count, names = rec_keys[entry["name"]]
+            entry["recurrent_launches"] = {
+                f"{nm} drain ({recurrent[nm]['layers']} layers, "
+                f"{recurrent[nm]['per_forward']} a forward)": recurrent[nm]["launches"][count]
+                for nm in names}
+            entry["shapes"] = entry["shapes"] + [r for r in rec_kernels
+                                                 if r["kernel"] == entry["name"]]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump({"device": smi, "kernels": kernels, "timing_floor_ms": timing_floor,
@@ -3699,7 +4033,8 @@ def main(argv=None) -> int:
                    "bnn_training": bnn_training, "qnn_kernels": qnn_rows,
                    "qnn_route_sweep": qnn_route_sweep, "qnn_path": qnn_path,
                    "attn_sweep": attn_sweep,
-                   "spec": spec, "paper": paper, "ckpt": ckpt, "moe": moe},
+                   "spec": spec, "paper": paper, "ckpt": ckpt, "moe": moe,
+                   "recurrent": recurrent, "recurrent_kernels": rec_kernels},
                   fh, indent=1, sort_keys=True,
                   default=str)
     print(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")

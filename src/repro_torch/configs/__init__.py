@@ -1,9 +1,10 @@
-"""Config registry: every architecture of the ``lm`` family.
+"""Config registry: every architecture of the ``lm``, ``hybrid`` (zamba2)
+and ``xlstm`` families.
 
 ``get_config(name, **overrides)`` returns the public ArchConfig,
 ``get_smoke(name)`` the reduced same-family config for CPU tests. The
-reference's three other families (zamba2, xlstm, seamless) are not ported
-yet, so their configs are not registered.
+reference's encoder-decoder family (seamless-m4t-large-v2) is not ported
+yet, so its config is not registered.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from . import (
     phi3_mini_38b,
     qwen15_32b,
     smollm_360m,
+    xlstm_125m,
+    zamba2_27b,
 )
 from .shapes import SHAPES, ShapeSpec, applicable_shapes
 
@@ -28,6 +31,8 @@ _MODULES = (
     grok1_314b,
     mixtral_8x22b,
     chameleon_34b,
+    zamba2_27b,
+    xlstm_125m,
 )
 
 REGISTRY = {m.CONFIG.name: m for m in _MODULES}

@@ -1,5 +1,6 @@
 """Serving launcher CLI (port of ``repro/launch/serve.py``): bring up a
-hardware-form (serve-phase) model of any registered ``lm`` config and
+hardware-form (serve-phase) model of any registered config (the lm,
+hybrid and xlstm families) and
 drain a synthetic request stream through a slot engine (continuous or
 paged, optionally with speculative decoding) or the static packed-batch
 engine.
@@ -11,6 +12,7 @@ engine.
         --spec-draft qnn8 --spec-k 4
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --arch mixtral-8x22b \
         --device cpu            # MoE + SWA: engine auto -> static
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
 
 Runs on CUDA unless ``--device cpu`` is given; without a GPU it raises.
 Weights are initialised from seed 0, as in the reference launcher; with
@@ -36,7 +38,9 @@ Observability (``obs/``, all opt-in):
 
 ``--engine auto`` takes the continuous engine where the architecture
 supports it and the static engine otherwise (mixture of experts, sliding
-windows: mixtral, grok). The static engine has no scheduler: no metrics,
+windows: mixtral, grok; the recurrent families: zamba2-2.7b, xlstm-125m,
+whose states the slot pools do not hold). The static engine has no
+scheduler: no metrics,
 and ``--arrival-rate`` drains closed loop instead, as in the reference.
 Tensor parallelism's flags are not ported yet and are not accepted.
 """

@@ -1,19 +1,23 @@
-"""repro_torch.models — the lm family (every registered config) and the
+"""repro_torch.models — the lm, hybrid (zamba2) and xlstm families and the
 build_model dispatcher."""
 from .base import (ArchConfig, KVCacheLayout, ModelAPI, PagedKVLayout, kv_cache_layout,
-                   make_norm, paged_kv_layout)
+                   make_norm, paged_kv_layout, views_of)
+from .hybrid import build_hybrid
 from .lm import build_lm
+from .xlstm import build_xlstm
 
-_FAMILIES = {"lm": build_lm}
+_FAMILIES = {"lm": build_lm, "hybrid": build_hybrid, "xlstm": build_xlstm}
 
 
 def build_model(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
     try:
-        builder = _FAMILIES[cfg.family]
+        build = _FAMILIES[cfg.family]
     except KeyError:
-        raise ValueError(f"unknown model family {cfg.family!r} (the port serves 'lm')") from None
-    return builder(cfg, phase=phase)
+        raise ValueError(f"unknown model family {cfg.family!r} (the port serves "
+                         f"{sorted(_FAMILIES)}; encdec is not ported yet)") from None
+    return build(cfg, phase=phase)
 
 
-__all__ = ["ArchConfig", "KVCacheLayout", "ModelAPI", "PagedKVLayout", "build_lm",
-           "build_model", "kv_cache_layout", "make_norm", "paged_kv_layout"]
+__all__ = ["ArchConfig", "KVCacheLayout", "ModelAPI", "PagedKVLayout", "build_hybrid",
+           "build_lm", "build_model", "build_xlstm", "kv_cache_layout", "make_norm",
+           "paged_kv_layout", "views_of"]

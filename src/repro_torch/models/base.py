@@ -1,21 +1,23 @@
 """Architecture config, the KV layout contracts and the training layer loop
 (port of ``repro/models/base.py``: ``ArchConfig``, ``KVCacheLayout``,
 ``kv_cache_layout``, ``PagedKVLayout``, ``paged_kv_layout``,
-``scan_blocks_aux``, ``make_norm``). Layers run as a Python loop; ``scan_blocks_aux`` is
-the training forward's, with ``torch.utils.checkpoint`` around each layer
-when ``remat`` is set."""
+``scan_blocks_aux``, ``make_norm``), plus ``unbind_layers`` and
+``views_of`` (a family's per-layer views of its stacked leaves). Layers
+run as a Python loop; ``scan_blocks_aux`` is the training forward's, with
+``torch.utils.checkpoint`` around each layer when ``remat`` is set."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.backend import LinearSpec
 
-__all__ = ["ArchConfig", "KVCacheLayout", "ModelAPI", "PagedKVLayout", "kv_cache_layout",
-           "make_norm", "paged_kv_layout", "scan_blocks_aux"]
+__all__ = ["ArchConfig", "KVCacheLayout", "ModelAPI", "PagedKVLayout",
+           "kv_cache_layout", "make_generator", "make_norm", "paged_kv_layout",
+           "scan_blocks_aux", "unbind_layers", "views_of"]
 
 
 class KVCacheLayout(NamedTuple):
@@ -70,8 +72,8 @@ def paged_kv_layout(cache) -> PagedKVLayout:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The reference's ArchConfig, cut to the fields the lm family reads
-    (same names and defaults)."""
+    """The reference's ArchConfig, cut to the fields the lm, hybrid and
+    xlstm families read (same names and defaults)."""
 
     name: str
     family: str
@@ -92,7 +94,13 @@ class ArchConfig:
     n_experts: int = 0
     top_k: int = 2
     capacity_factor: float = 1.25
-    # frontend: tokens (the lm family's; frames belong to encdec)
+    # SSM / hybrid / xlstm
+    ssm_state: int = 64
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    attn_every: int = 0  # zamba2: shared attention block every k ssm blocks
+    slstm_every: int = 0  # xlstm: sLSTM block every k blocks (0 = all mLSTM)
+    # frontend: tokens (frames belong to encdec)
     frontend: str = "tokens"
     compute_mode: str = "dense"  # dense | bika | bnn | qnn8
     bika_m: int = 1
@@ -129,6 +137,14 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
+def make_generator(seed, device) -> torch.Generator:
+    """``seed`` itself where it is a generator, else a generator on
+    ``device`` seeded with it (every family's ``init``)."""
+    if isinstance(seed, torch.Generator):
+        return seed
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
 def make_norm(cfg: ArchConfig):
     """(init, apply) of the config's norm: RMSNorm or LayerNorm."""
     from repro_torch.nn import norms
@@ -155,26 +171,56 @@ def scan_blocks_aux(layers: Sequence[Any], x: torch.Tensor, body: Callable, *,
     return x, aux
 
 
+def unbind_layers(layers) -> List[Any]:
+    """Per-layer views of a stacked ``(L, ...)`` dict tree through one
+    ``torch.unbind`` per leaf, whose backward stacks the layers' gradients
+    in one op (indexing each layer would add a full-size zero-filled
+    gradient per layer and leaf); a list passes through."""
+    if isinstance(layers, list):
+        return layers
+
+    def split(node):
+        if isinstance(node, dict):
+            parts = {k: split(v) for k, v in node.items()}
+            n = len(next(iter(parts.values())))
+            return [{k: parts[k][i] for k in parts} for i in range(n)]
+        return list(torch.unbind(node))
+
+    return split(layers)
+
+
 class ModelAPI(NamedTuple):
     """What the trainer and the serving runtime consume (the reference's,
-    cut to the lm serve paths and the training forward)."""
+    without its encdec extras). The paged and speculative entries are the
+    lm family's; a recurrent family has none of them."""
 
     init: Callable[..., Any]  # (seed, device) -> params
-    # (batch, max_len, quantized, device): the dense slot cache, or with
-    # (n_phys_blocks, block_size) the paged pool
+    # (batch, max_len, quantized, device): the dense slot cache (a
+    # recurrent family's: its states), or with (n_phys_blocks, block_size)
+    # the paged pool
     init_cache: Callable[..., Any]
-    # (params, tok (S,1), pool, positions (S,), tables (S,T)) -> (logits, pool)
-    decode_paged: Callable[..., Any]
-    # (params, chunk (1,C), pool, table (1,T), start (1,), last_in_chunk (1,))
-    # -> (last-token logits (1,1,V), pool)
-    prefill_chunk: Callable[..., Any]
     apply: Optional[Callable[..., Any]] = None  # (params, batch) -> logits
     apply_aux: Optional[Callable[..., Any]] = None  # (params, batch) -> (logits, aux)
     # (params, tok (B,1), cache, positions (B,) or scalar) -> (logits, cache)
     decode_step: Optional[Callable[..., Any]] = None
-    # (params, {"tokens": (B,S)}, max_len, quantized, last_index) -> (logits (B,1,V), cache)
+    # (params, {"tokens": (B,S)}, max_len, quantized, ...) -> (logits (B,1,V), cache)
     prefill: Optional[Callable[..., Any]] = None
+    # (params, tok (S,1), pool, positions (S,), tables (S,T)) -> (logits, pool)
+    decode_paged: Optional[Callable[..., Any]] = None
+    # (params, chunk (1,C), pool, table (1,T), start (1,), last_in_chunk (1,))
+    # -> (last-token logits (1,1,V), pool)
+    prefill_chunk: Optional[Callable[..., Any]] = None
     # (params, window (B,C), cache, positions (B,)) -> (logits (B,C,V), cache)
     decode_verify: Optional[Callable[..., Any]] = None
     # (params, window (B,C), pool, positions (B,), tables (B,T)) -> (logits (B,C,V), pool)
     decode_verify_paged: Optional[Callable[..., Any]] = None
+    # params -> the same tree with each stacked (L, ...) subtree as a list of
+    # per-layer views (no copies), made once by an engine so that the layer
+    # loop indexes nothing per call; None: the tree is used as it is
+    layer_views: Optional[Callable[[Any], Any]] = None
+
+
+def views_of(api: ModelAPI, params):
+    """``params`` in the form the model's serve loop wants
+    (``api.layer_views``), or as they are where the family has no views."""
+    return api.layer_views(params) if api.layer_views is not None else params

@@ -38,11 +38,10 @@ from repro_torch.nn.mlp import mlp_apply, mlp_init
 from repro_torch.nn.module import stack_trees
 from repro_torch.nn.moe import MoEConfig, moe_apply, moe_init
 
-from .base import ArchConfig, ModelAPI, make_norm, scan_blocks_aux
+from .base import (ArchConfig, ModelAPI, make_generator, make_norm, scan_blocks_aux,
+                   unbind_layers)
 
 __all__ = ["build_lm", "split_layers"]
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def _attn_cfg(cfg: ArchConfig) -> AttnConfig:
@@ -69,30 +68,10 @@ def _moe_cfg(cfg: ArchConfig) -> MoEConfig:
     )
 
 
-def _tree_map(fn, node):
-    if isinstance(node, dict):
-        return {k: _tree_map(fn, v) for k, v in node.items()}
-    return fn(node)
-
-
 def split_layers(params) -> Dict[str, Any]:
     """Params with ``layers`` as a list of per-layer views of the stacked
     leaves (no copies), so the layer loop indexes nothing per call."""
-    layers = params["layers"]
-    if isinstance(layers, list):
-        return params
-    n = next(iter(_leaves(layers))).shape[0]
-    out = dict(params)
-    out["layers"] = [_tree_map(lambda t, i=i: t[i], layers) for i in range(n)]
-    return out
-
-
-def _leaves(node):
-    if isinstance(node, dict):
-        for v in node.values():
-            yield from _leaves(v)
-    else:
-        yield node
+    return dict(params, layers=unbind_layers(params["layers"]))
 
 
 def _layer_list(params) -> List[Dict]:
@@ -135,24 +114,6 @@ def _layer_ffn(p, x: torch.Tensor, cfg: ArchConfig, phase: str) -> torch.Tensor:
     return _layer_ffn_aux(p, x, cfg, phase)[0]
 
 
-def _unbind_layers(layers) -> List[Dict]:
-    """Per-layer views of stacked ``(L, ...)`` leaves through one
-    ``torch.unbind`` per leaf, whose backward stacks the layers' gradients
-    in one op (indexing each layer would add a full-size zero-filled
-    gradient per layer and leaf)."""
-    if isinstance(layers, list):
-        return layers
-    n = next(iter(_leaves(layers))).shape[0]
-
-    def split(node):
-        if isinstance(node, dict):
-            parts = {k: split(v) for k, v in node.items()}
-            return [{k: parts[k][i] for k in parts} for i in range(n)]
-        return list(torch.unbind(node))
-
-    return split(layers)
-
-
 def _layer_apply(p, x: torch.Tensor, cfg: ArchConfig, phase: str):
     _, norm_apply = make_norm(cfg)
     x = x + attn_apply(p["attn"], norm_apply(p["ln1"], x), _attn_cfg(cfg),
@@ -165,7 +126,7 @@ def _pool_layer(cache, i: int):
 
 
 def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
-    cdtype = _DTYPES[cfg.compute_dtype]
+    cdtype = cfg.linear_spec().cdtype
     acfg = _attn_cfg(cfg)
     norm_init, norm = make_norm(cfg)
 
@@ -174,12 +135,10 @@ def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
         ``device``); layer leaves stacked (L, ...). On CUDA unless
         ``device="cpu"``; raises without a GPU."""
         device = resolve_device(device)
-        gen = seed
-        if not isinstance(seed, torch.Generator):
-            gen = torch.Generator(device=device).manual_seed(int(seed))
+        gen = make_generator(seed, device)
         return {
             "embed": embedding.embed_init(gen, cfg.padded_vocab, cfg.d_model,
-                                          _DTYPES[cfg.param_dtype], device=device),
+                                          cfg.linear_spec().pdtype, device=device),
             "layers": stack_trees([_layer_init(gen, cfg, phase, device)
                                    for _ in range(cfg.n_layers)]),
             "ln_f": norm_init(cfg.d_model, device=device),
@@ -191,7 +150,7 @@ def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
         reference; the aux loss is the MoE layers' load-balance loss (0
         without experts)."""
         x = embedding.embed_apply(params["embed"], batch["tokens"], cdtype)
-        x, aux = scan_blocks_aux(_unbind_layers(params["layers"]), x,
+        x, aux = scan_blocks_aux(unbind_layers(params["layers"]), x,
                                  lambda p, h: _layer_apply(p, h, cfg, phase), remat=cfg.remat)
         x = norm(params["ln_f"], x)
         return embedding.unembed_apply(params["embed"], x), aux / max(cfg.n_layers, 1)
@@ -307,4 +266,4 @@ def build_lm(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
     return ModelAPI(init=init, init_cache=init_cache, decode_paged=decode_paged,
                     prefill_chunk=prefill_chunk, apply=apply, apply_aux=apply_aux,
                     decode_step=decode_step, prefill=prefill, decode_verify=decode_verify,
-                    decode_verify_paged=decode_verify_paged)
+                    decode_verify_paged=decode_verify_paged, layer_views=split_layers)

@@ -14,9 +14,13 @@ API:
   requests are left-padded to a shared length, prefilled together and
   decoded greedily to completion before the next group is admitted. It
   serves what the slot schedulers cannot: mixture of experts (capacity
-  routing couples the rows of a batch) and sliding windows (a ring cache
-  shorter than max_len). Its decode loop stops once every row is done and
-  never writes past the cache's end. Speculation is rejected.
+  routing couples the rows of a batch), sliding windows (a ring cache
+  shorter than max_len) and the recurrent families (hybrid, xlstm: their
+  states are no KV slots; the left pads run through the recurrences, as in
+  the reference). It uses no part of the model but ``prefill`` and
+  ``decode_step``, and the tree the family's ``layer_views`` makes. Its
+  decode loop stops once every row is done and never writes past the
+  cache's end. Speculation is rejected.
 - ``engine="auto"`` resolves as the reference does: ``continuous`` when the
   architecture supports the slot scheduler, else ``static``.
 
@@ -53,8 +57,7 @@ import torch
 from repro_torch.core.convert import tree_to_serve
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.models.base import ArchConfig, ModelAPI
-from repro_torch.models.lm import split_layers
+from repro_torch.models.base import ArchConfig, ModelAPI, views_of
 from repro_torch.obs.profile import StepTimer
 from repro_torch.serve.scheduler import (
     PagedSlotScheduler,
@@ -122,11 +125,11 @@ class ServeEngine:
         # shared NULL_TIMER)
         self.profiler = (StepTimer(profile_sample, tracer=tracer)
                          if profile_sample and profile_sample > 0 else None)
-        self.params = split_layers(_to_device(params, self.device))
+        self.params = views_of(api, _to_device(params, self.device))
         self.queue: List[Request] = []  # the static engine's
         if spec_draft is not None:
             dapi, dparams, darch = spec_draft
-            spec_draft = (dapi, split_layers(_to_device(dparams, self.device)), darch)
+            spec_draft = (dapi, views_of(dapi, _to_device(dparams, self.device)), darch)
         common = dict(n_slots=n_slots or batch_size, max_len=max_len,
                       quantized_kv=quantized_kv, device=self.device, tracer=tracer,
                       registry=registry, profiler=self.profiler, spec_draft=spec_draft,
@@ -270,7 +273,7 @@ def serve_batch(api: ModelAPI, params, prompts: torch.Tensor, *, max_new_tokens:
     early stop): (B, max_new_tokens) int32 tokens."""
     b, s = prompts.shape
     ml = max_len or (s + max_new_tokens)
-    params = split_layers(params)
+    params = views_of(api, params)
     logits, cache = api.prefill(params, {"tokens": prompts}, max_len=ml)
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     toks = [tok]

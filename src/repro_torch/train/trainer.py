@@ -62,6 +62,10 @@ class Trainer:
                 f"{cfg.arch.name}: training a mixture of experts is not ported yet (the "
                 f"load-balance aux loss in the step and the training kernels under the "
                 f"expert loop); the port serves MoE models")
+        if cfg.arch.family in ("hybrid", "xlstm"):
+            raise NotImplementedError(
+                f"{cfg.arch.name}: training the {cfg.arch.family} family is not ported yet "
+                f"(the training kernels under its recurrent scans); the port serves it")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.fail_at_step = fail_at_step

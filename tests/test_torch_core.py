@@ -184,7 +184,9 @@ def test_port_imports_neither_jax_nor_reference():
                    "models/paper.py", "nn/conv.py", "nn/module.py", "core/thresholds.py",
                    "core/kan.py", "data/vision.py", "train/paper.py", "launch/quickstart.py",
                    "launch/table2.py", "launch/kan_to_bika.py", "checkpoint/manager.py",
-                   "obs/trace.py", "obs/registry.py", "obs/profile.py"):
+                   "obs/trace.py", "obs/registry.py", "obs/profile.py", "nn/ssm.py",
+                   "nn/xlstm_blocks.py", "models/hybrid.py", "models/xlstm.py",
+                   "configs/zamba2_27b.py", "configs/xlstm_125m.py"):
         assert module in rel, module
     for path in files:
         with open(path, encoding="utf-8") as fh:

@@ -38,7 +38,10 @@ bit for bit (its ranks meet in rank order), takes the plan that
 ``attn_plan`` computes, and is one device operation a call at decode and
 at a prefill chunk, also at the lm family's other GQA groups and head
 dims (G = 6, 1 and 8 at D = 128; G = 1 at D = 96), and kernel 1 at
-mixtral's expert and attention shapes (K = 6144 and 16384, M down to 1).
+mixtral's expert and attention shapes (K = 6144 and 16384, M down to 1),
+and kernels 1, 7 and 10 at zamba2's in_proj (N = 10448: a ragged last
+128-column tile), with a SMOKE forward of each recurrent family on the card
+equal to its CPU forward at exact launch counts.
 At the paper models' ragged shapes (TFC's N = 10 and
 K = 32 head, CNV's first conv at K = 3 x 3 x 3 = 27 and a large im2col M)
 every kernel of their paths holds to its plain version the same way, and
@@ -570,3 +573,98 @@ def test_restart_bit_equal_under_deterministic_algorithms_on_card(cuda, tmp_path
             assert a.dtype == b.dtype and torch.equal(a, b)
         else:
             assert a == b == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 64])
+def test_in_proj_ragged_tile_on_card(cuda, m):
+    """Kernels 1, 7 and 10 at zamba2-2.7b's in_proj, (K, N) = (2560,
+    10448): N is not a multiple of the streaming template's 128-column tile,
+    and the ragged last tile (columns 10368-10447) is exactly the dt
+    columns that feed softplus. Decode (M = 4) and a prefill (M = 64):
+    bit-exact against the plain versions, repeatable, one counted launch a
+    call."""
+    k, n = 2560, 10448
+    rng = np.random.default_rng(m + 10448)
+    x, tau, s = cac_case(rng, m, k, n)
+    args = [torch.from_numpy(a) for a in (x, tau)] + [pack_signs(torch.from_numpy(s))]
+    dev = [a.to(cuda) for a in args]
+    xf, w, _ = (torch.from_numpy(a).to(cuda) for a in bnn_case(rng, m, k, n, nan=True))
+    wp = pack_signs(sign(w).to(torch.int8))
+    xq, wq, ws = (torch.from_numpy(a).to(cuda) for a in qnn_case(rng, m, k, n))
+    calls = ((cac_matmul_kernel_call, dev, cac_matmul_plain(*args)),
+             (bnn.bnn_packed_matmul_kernel_call, (xf, wp), bnn.bnn_packed_matmul_plain(xf, wp)),
+             (qnn.qnn_matmul_kernel_call, (xq, wq, ws, 0.05),
+              qnn.qnn_matmul_plain(xq, wq, ws, 0.05)))
+    for fn, operands, want in calls:
+        before = fn.launches
+        got, again = fn(*operands), fn(*operands)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2, fn
+        assert torch.equal(got, again), fn
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "xlstm-125m"])
+def test_recurrent_smoke_forward_on_card(cuda, monkeypatch, name):
+    """One SMOKE-size model of each recurrent family in bika: its prefill
+    of 2 x 9 tokens and 2 decode steps on CUDA tensors, then the same calls
+    on the CPU (the plain version of kernel 1) fed the card's tokens, with
+    activation codes held to the card's at genuine half-way ties
+    (``chip_smoke._code_hooks``): logits within 1e-4, greedy tokens equal,
+    and every forward on the card exactly one kernel-1 launch a projection
+    (hybrid: 2 a Mamba layer + 7 a shared-block application; xLSTM: 2 an
+    sLSTM layer + 5 an mLSTM layer) and no other kernel."""
+    import os
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.convert import tree_to_serve
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, views_of
+
+    monkeypatch.syspath_prepend(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    cfg = get_smoke(name, compute_mode="bika", pack_signs=True, remat=False)
+    per = cs._forward_launches(cfg)
+    assert per == (2 * 4 + 7 * 2 if cfg.family == "hybrid" else 2 * 2 + 5)
+    train = build_model(cfg, phase="train").init(3, device="cpu")
+    serve = tree_to_serve(train, cfg.linear_spec())
+    api = build_model(cfg, phase="serve")
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab, (2, 9))
+                              .astype(np.int32))
+    install, restore, _ = cs._code_hooks(torch)
+    logs, fed = {}, []
+    for side, where in (("card", cuda), ("cpu", torch.device("cpu"))):
+        params = views_of(api, _tree_to(serve, where))
+        ops.reset_launches()
+        install(side)
+        try:
+            with torch.inference_mode():
+                lg, cache = api.prefill(params, {"tokens": tokens.to(where)}, max_len=16)
+                out = [lg.float().cpu()]
+                for t in range(9, 11):
+                    if side == "card":
+                        fed.append(out[-1][:, -1].argmax(-1).to(torch.int32)[:, None])
+                    lg, cache = api.decode_step(params, fed[t - 9].to(where), cache, t)
+                    out.append(lg.float().cpu())
+        finally:
+            restore()
+        if side == "card":
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            assert counts["cac_hw"] == 3 * per
+            assert sum(counts.values()) == counts["cac_hw"], counts
+        logs[side] = out
+    for g, c in zip(logs["card"], logs["cpu"]):
+        torch.testing.assert_close(g, c, atol=1e-4, rtol=0)
+        assert torch.equal(g.argmax(-1), c.argmax(-1))
+
+
+def _tree_to(tree, where):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, where) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, where) for v in tree]
+    return tree.to(where)
