@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases (each prints its own line; any failure exits non-zero):
+Phases (each prints its own lines and, as it ends, ``[time] <phase> <s>``;
+any failure exits non-zero):
 
 1. device  — the card's name and power limit (nvidia-smi).
 2. build   — compile every kernel in src/repro_torch/csrc/ with nvcc, in
@@ -64,20 +65,21 @@ Phases (each prints its own line; any failure exits non-zero):
              losses; ms per step, peak memory, and one more step of each
              backward under torch.profiler (device busy, idle share, top
              kernels, the device ms of kernels 2 and 5, or 2, 3 and 4).
-7. train parity — one train step of the same model cut to 2 layers on the
+7. train parity — one train step of the same model cut to 1 layer on the
              card and on the CPU plain path, CAC outputs held equal where
              the two split a Sign at a near-zero pre-activation (see
              phase_train_parity); loss, gradients and updated parameters
              within the stated tolerances.
-   ckpt    — checkpoint and restart at full width and depth (bika, remat,
-             batch 4 x seq 128): run_with_restarts with a failure at step 2
-             of 4 (ckpt_every=1, keep=1) equals the uninterrupted 4-step run
-             bit for bit in every parameter and AdamW m / v leaf, each step
-             exactly 448 kernel-2 and 224 kernel-5 launches; the
+   ckpt    — checkpoint and restart at full width, 8 of 32 layers (bika,
+             remat, batch 4 x seq 128): run_with_restarts with a failure at
+             step 2 of 4 (ckpt_every=1, keep=1) equals the uninterrupted
+             4-step run bit for bit in every parameter and AdamW m / v leaf,
+             each step exactly 112 kernel-2 and 56 kernel-5 launches; the
              checkpoint's bytes and its save (sync, async) and restore
              seconds; a flipped byte in a leaf makes restore raise; then one
-             qnn8 step through launch/train.py --mode qnn8 (finite loss, no
-             kernel). Checkpoints go to a temporary directory under build/,
+             qnn8 step through launch/train.py --mode qnn8 (full depth;
+             finite loss, no kernel). Checkpoints go to a temporary
+             directory under build/,
              removed at the end of the phase.
 8. bnn-kernels — the BNN kernels (6: sign product, 7: its packed serve
              form, 8/9: the SignSTE dx and dw) against their plain versions
@@ -125,12 +127,12 @@ Phases (each prints its own line; any failure exits non-zero):
              and 32 attention launches per tick, 0 elsewhere; the parity holds
              activation codes at half-way ties as for bika.
 13. spec    — dense smollm-360m target <- qnn8 draft (k = 4) of one seeded
-             train-form tree, full width and depth: paged and continuous
+             train-form tree, full width, 8 of 32 layers: paged and continuous
              engines, each target-only and speculative (fp KV). Speculative
              tokens equal target-only, and continuous equal paged, except
              where the target's top-2 logit gap (recomputed on the card from
              the common prefix) is below 1e-4, each such case printed; kernel
-             10 exactly 224 x (4 x rounds + admissions), kernel 11 exactly 32
+             10 exactly 56 x (4 x rounds + admissions), kernel 11 exactly 8
              x (rounds + prefill chunks) on the paged engine and 0 on the
              continuous one, 0 elsewhere; accept rate, tokens per round, TPOT
              and goodput printed for the record, and one more speculative
@@ -174,8 +176,9 @@ Phases (each prints its own line; any failure exits non-zero):
              far, fp32 and int8 rings); card-vs-CPU parity of the short
              drain's first batch (prefill + 4 decode steps) with activation
              codes and expert choices held at genuine ties, each printed;
-             one layer in qnn8 (kernel 10) and bnn (kernel 7) from one
-             train-form tree, a drain each twice; nemotron-4-15b (LayerNorm,
+             (1 of the 2 layers); one layer in qnn8 (kernel 10) and bnn
+             (kernel 7) from one train-form tree, a drain each twice;
+             nemotron-4-15b (LayerNorm,
              squared ReLU, G = 6) at full width, 2 layers, bika on the paged
              engine: a drain twice (12 kernel-1 and 2 kernel-11 launches a
              tick) and its 2-layer parity. Wall seconds and peak memory of
@@ -196,12 +199,40 @@ Phases (each prints its own line; any failure exits non-zero):
              (device busy, idle share, kernel 1's device ms); the
              prefill's host-loop cost at 64 and 512 tokens; card-vs-CPU
              parity of the drain's first batch (prefill + 4 decode steps;
-             zamba2 cut to 12 layers, so the shared block runs on two KV
-             streams) with activation codes held at half-way ties; then
+             zamba2 cut to 6 layers, one shared-block application; xlstm to
+             4, an sLSTM and three mLSTM layers) with activation codes held
+             at half-way ties; then
              qnn8 (kernel 10) and bnn packed (kernel 7) from one train-form
              tree each (zamba2 at 6 layers: 19 launches a forward; xlstm
              whole: 51), a drain each twice. ``python3 chip_smoke.py --only
              recurrent`` runs the two alone (a partial run: no result line).
+17. encdec — the encoder-decoder family (phase_encdec_kernels,
+             phase_encdec): kernels 1, 7 and 10 at seamless-m4t-large-v2's
+             three (K, N) (``ENCDEC_KN``: q/k/v/o, up, down) at M = 4, 44
+             and 64, and kernel 1 at M = 4,096 (the encoder over 1,024
+             frames a row), bit-exact, repeatable, timed beside their plain
+             versions, a library call and the bound. Then the model in bika
+             (packed) at full width and all 24 + 24 layers through
+             ServeEngine.from_trained(engine="auto") -> static, frames (4,
+             16, 1024) given as run(extra_batch=): the 8 requests x 16
+             tokens twice, every prefill exactly 384 and every decode step
+             192 kernel-1 launches and no other kernel (6,528 a drain),
+             tokens equal run to run, build and drain peaks; one drain
+             under torch.profiler; one prefill over 1,024 frames a row and
+             3 decode steps over its 1,024 cross keys, launches exact;
+             card-vs-CPU parity at 4 + 4 layers with activation codes held
+             at half-way ties; then qnn8 (kernel 10) and bnn packed (kernel
+             7) from one train-form tree at 6 + 6 layers (96 launches a
+             prefill, 48 a decode step), a drain each twice. ``python3
+             chip_smoke.py --only encdec`` runs the two alone (a partial
+             run: no result line).
+
+Earlier paths run at cut depths so that the whole script stays well inside
+its time limit: the card-vs-CPU parities, whose CPU sides are most of their
+phases' time (mixtral at 1 layer and 2 decode steps, the bika train step
+at 1 layer, zamba2 at 6, xlstm at 4), the checkpoint phase (8 of smollm's
+32 layers) and the spec phase (8 of 32 layers). The profiled drains read
+the profiler's events directly and write no trace file.
 
 Before the last line come the card's name and power limit as nvidia-smi
 prints them, then the kernels JSON; the last line is
@@ -244,6 +275,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3
 TRAIN_SIGN_TIE = 1e-6  # |pre| within this of 0: a Sign the two devices may split
 TRAIN_PARITY_LOSS = 1e-5  # relative loss difference, card vs CPU, codes held
 TRAIN_PARITY_REL = 1e-4  # per-leaf relative L2 difference of gradients and parameters
+TRAIN_PARITY_LAYERS = 1  # the bika train step card vs CPU (the CPU side is the cost)
+CKPT_LAYERS = 8  # checkpoint and restart at full width, 8 of 32 layers
 _NO_LAUNCHES = {"bnn": 0, "bnn_bwd_dw": 0, "bnn_bwd_dx": 0, "bnn_packed": 0, "cac_hw": 0,
                 "cac_train_bwd_dw": 0, "cac_train_bwd_dx": 0, "cac_train_bwd_fused": 0,
                 "cac_train_fwd": 0, "paged_attn": 0, "qnn8": 0}
@@ -277,11 +310,27 @@ INT8_TENSOR_OPS_S = 1979e12  # H100 SXM dense int8 tensor-core peak (data sheet)
 ACT_SCALE = 0.05  # LinearSpec.act_scale, the serve path's x_scale
 SPEC_K = 4  # the reference's benchmarked speculative window (dense <- qnn8)
 SPEC_TIE = 1e-4  # top-2 logit gap below which target-only and spec may part
+SPEC_LAYERS = 8  # the speculative pair at full width, 8 of smollm's 32 layers
 # the profiled drains' device ms of kernel 7 (the streaming template's op 3,
 # SIGN_PACKED), of kernel 10 (both routes) and of kernel 11, by kernel name
 KERNEL7_GROUP = {"bnn_packed_matmul": ("stream_kernel<3,",)}
 KERNEL10_GROUP = {"qnn_matmul": ("qnn_stream_kernel", "qnn_kernel<")}
 KERNEL11_GROUP = {"paged_attn": ("paged_attn_kernel",)}
+
+
+class PhaseClock:
+    """Host seconds of each phase: ``clock(name, fn, *args)`` runs the phase,
+    prints ``[time] name X s`` as it ends and keeps the figure."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def __call__(self, name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        self.seconds[name] = time.perf_counter() - t0
+        print(f"[time] {name} {self.seconds[name]:.1f} s")
+        return out
 
 
 def fail(msg: str) -> None:
@@ -1400,16 +1449,22 @@ def phase_profile(torch, np, arch, train, dev, tag="profile", label=None, groups
     default the paged engine). Device busy time is the union of the kernel,
     memcpy and memset intervals inside the drain's window; the idle share is
     the rest; ``groups`` names kernels whose device ms and launches in the
-    window are summed (``_device_share``). The trace stays under
-    build/profile/ (gitignored)."""
+    window are summed (``_device_share``). The profiler's own cost, its stop
+    and the reading of its events, is printed beside."""
     from torch.profiler import ProfilerActivity, profile
 
     label = label or f"{arch.compute_mode}_serve_drain"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, wall, summ = _serve(np, train, arch, False, dev, label=label, **serve_kw)
+        t0 = time.perf_counter()
+    t_stop = time.perf_counter() - t0
     ticks = summ["decode_steps"] + summ["prefill_chunks"]
     result = {"wall_s": wall, "ticks": ticks, "ms_per_tick": wall / ticks * 1e3}
+    t0 = time.perf_counter()
     share = _device_share(prof, label, groups)
+    result["profiler_s"] = {"stop": t_stop, "trace": time.perf_counter() - t0}
+    print(f"[{tag}] the profiler's own cost: stop {t_stop:.2f} s, reading its events "
+          f"{result['profiler_s']['trace']:.2f} s")
     if share is None:
         print(f"[{tag}] device busy share: not measured (the trace holds no drain window "
               "or no device events)")
@@ -1511,21 +1566,23 @@ def _spec_ties(torch, np, arch, train, dev, want, got, what):
 
 
 def phase_spec(torch, np, dev):
-    """Speculative decoding at full width and depth: dense smollm-360m target
-    <- qnn8 draft of the same seeded train-form tree, spec_k = SPEC_K,
+    """Speculative decoding at full width, SPEC_LAYERS of 32 layers: dense
+    smollm-360m target <- qnn8 draft of the same seeded train-form tree,
+    spec_k = SPEC_K,
     through ``ServeEngine.from_trained``. Four fp-KV drains of the 8
     requests: paged target-only, paged speculative, continuous target-only,
     continuous speculative. Speculative tokens equal target-only tokens on
     the same engine, and the continuous target-only tokens the paged ones,
     under the tie rule of ``_spec_ties``. Launch counts exact: kernel 10 =
-    224 x (SPEC_K x rounds + admissions) (SPEC_K draft decode steps a round,
-    one draft prefill an admission), kernel 11 = 32 x (rounds + prefill
-    chunks) on the paged engine and 0 on the continuous one (its dense
-    attention is plain PyTorch), every other kernel 0."""
+    7 x layers x (SPEC_K x rounds + admissions) (SPEC_K draft decode steps a
+    round, one draft prefill an admission), kernel 11 = layers x (rounds +
+    prefill chunks) on the paged engine and 0 on the continuous one (its
+    dense attention is plain PyTorch), every other kernel 0."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    arch = get_config("smollm-360m", compute_mode="dense", remat=False, paged_attn_route="fused")
+    arch = get_config("smollm-360m", compute_mode="dense", remat=False, paged_attn_route="fused",
+                      n_layers=SPEC_LAYERS)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     train = build_model(arch, phase="train").init(gen, device=dev)
     per_pass = 7 * arch.n_layers
@@ -1573,20 +1630,24 @@ def phase_spec(torch, np, dev):
 
 def _device_share(prof, label, groups=None):
     """Device busy time, idle share and top kernels inside the profiler
-    window named ``label``: busy is the union of the kernel, memcpy and
-    memset intervals in the window. The trace stays under build/profile/
-    (gitignored). ``groups`` maps a name to the substrings of the kernel
-    names it sums (device ms and launches in the window). None when the
-    trace holds no such window or no device events."""
-    out_dir = os.path.join(ROOT, "build", "profile")
-    os.makedirs(out_dir, exist_ok=True)
-    trace_path = os.path.join(out_dir, f"{label}.json")
-    prof.export_chrome_trace(trace_path)
-    with open(trace_path) as fh:
-        events = json.load(fh).get("traceEvents", [])
-    window = [e for e in events if e.get("name") == label and e.get("ph") == "X"]
-    gpu = [e for e in events if e.get("ph") == "X"
-           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    window named ``label`` (a ``record_function`` range), read from the
+    profiler's own event list (the categories a Chrome trace of it would
+    show, without writing and parsing one): busy is the union of the
+    kernel, memcpy and memset intervals in the window. ``groups`` maps a
+    name to the substrings of the kernel names it sums (device ms and
+    launches in the window). None when the window or the device events are
+    missing."""
+    from torch.autograd import DeviceType
+
+    window, gpu = [], []
+    for e in prof.profiler.kineto_results.events():
+        on_card = e.device_type() == DeviceType.CUDA
+        if e.is_user_annotation():  # a record_function range: its host side names the window
+            if not on_card and e.name() == label:
+                window.append({"ts": e.start_ns() / 1e3, "dur": e.duration_ns() / 1e3})
+        elif on_card:  # a kernel, memcpy or memset
+            gpu.append({"name": e.name(), "ts": e.start_ns() / 1e3,
+                        "dur": e.duration_ns() / 1e3})
     if not window or not gpu:
         return None
     t0 = float(window[0]["ts"])
@@ -2036,19 +2097,20 @@ def _flip_a_byte(path, member):
 
 
 def phase_ckpt(torch, np, dev, tag="ckpt"):
-    """Checkpoint and restart of full-width, full-depth smollm-360m in bika
-    mode (remat, batch 4 x seq 128, random weights from seed 42): an
-    uninterrupted 4-step run against ``run_with_restarts`` with a failure
-    injected at step 2 (``ckpt_every=1``, ``keep=1``: the restart restores
-    step 2). Every parameter and every AdamW m / v leaf must be equal bit for
-    bit, and each step launch exactly 448 kernel-2 and 224 kernel-5 kernels
-    and nothing else; the restarted run's four (sync) saves and its restore
-    are timed. Then the checkpoint's bytes and an async save's seconds (until
-    ``save`` returns, and until ``wait``); a byte flipped in one leaf's data
-    must make restore raise on that leaf's hash; and one
-    qnn8 step through ``launch/train.py --mode qnn8``: a finite loss and no
-    kernel launched (fake quantization). The checkpoints live in a
-    temporary directory under build/ that the phase removes."""
+    """Checkpoint and restart of full-width smollm-360m cut to CKPT_LAYERS
+    layers in bika mode (remat, batch 4 x seq 128, random weights from seed
+    42): an uninterrupted 4-step run against ``run_with_restarts`` with a
+    failure injected at step 2 (``ckpt_every=1``, ``keep=1``: the restart
+    restores step 2). Every parameter and every AdamW m / v leaf must be
+    equal bit for bit, and each step launch exactly 2 x 7 kernel-2 and 7
+    kernel-5 kernels a layer and nothing else; the restarted run's four
+    (sync) saves and its restore are timed. Then the checkpoint's bytes and
+    an async save's seconds (until ``save`` returns, and until ``wait``); a
+    byte flipped in one leaf's data must make restore raise on that leaf's
+    hash; and one qnn8 step (full width and depth) through
+    ``launch/train.py --mode qnn8``: a finite loss and no kernel launched
+    (fake quantization). The checkpoints live in a temporary directory
+    under build/ that the phase removes."""
     import contextlib
     import io
     import re
@@ -2061,7 +2123,7 @@ def phase_ckpt(torch, np, dev, tag="ckpt"):
     from repro_torch.launch import train as launch_train
     from repro_torch.train.trainer import TrainConfig, run_with_restarts
 
-    arch = get_config("smollm-360m", compute_mode="bika")
+    arch = get_config("smollm-360m", compute_mode="bika", n_layers=CKPT_LAYERS)
     n_proj = 7 * arch.n_layers
     expect = dict(_NO_LAUNCHES, cac_train_fwd=2 * n_proj, cac_train_bwd_fused=n_proj)
     steps, fail_at = 4, 2
@@ -2437,7 +2499,7 @@ def _tree_np(tree):
     return tree.detach().cpu().numpy()
 
 
-def phase_train_parity(torch, np, dev, mode, hooks, tag="train-parity"):
+def phase_train_parity(torch, np, dev, mode, hooks, tag="train-parity", layers=2):
     """One train step (loss, gradients, AdamW update) of the same 2-layer,
     full-width model in ``mode`` on the card and on the CPU plain path: the
     same numpy params (seed 3) and the same batch (2 x 64 tokens).
@@ -2464,7 +2526,7 @@ def phase_train_parity(torch, np, dev, mode, hooks, tag="train-parity"):
     from repro_torch.optim.adamw import OptimizerSpec, make_optimizer, tree_leaves
     from repro_torch.train.steps import loss_and_grads
 
-    arch = get_config("smollm-360m", compute_mode=mode, n_layers=2)
+    arch = get_config("smollm-360m", compute_mode=mode, n_layers=layers)
     api = build_model(arch, phase="train")
     np_params = _tree_np(api.init(3, device="cpu"))
     batch = lm_batch(LMDataConfig(vocab=arch.vocab, seq_len=64, global_batch=2, seed=5), 0)
@@ -2917,6 +2979,8 @@ MOE_LAYERS = 2  # mixtral-8x22b and nemotron-4-15b cut from 56 / 32 layers
 MOE_LONG_LEN = 4352  # past mixtral's 4,096-position window
 MOE_LONG_PROMPTS = (4090, 4200)  # wraps the ring during decode; folds at prefill
 MOE_PARITY_STEPS = 4
+MOE_PARITY_LAYERS = 1  # mixtral's card-vs-CPU parity: 1 of the 2 served layers
+MOE_PARITY_LAYER_STEPS = 2  # and 2 decode steps after its prefill
 ROUTE_TIE = 1e-6  # gates this close: an expert choice the two devices may order either way
 # mixtral-8x22b's kernel-1 shapes, (where, M, K, N): an expert's gate/up and
 # down at decode (capacity 1), at the short drain's first prefill (4 rows of
@@ -3044,11 +3108,13 @@ def _counted_forwards(ops, eng, log):
     return api
 
 
-def _static_drain(torch, np, ops, eng, reqs, route, tag):
-    """Drain ``reqs`` through a static engine with the launch counters zeroed
-    just before and read just after; every forward (a batch's prefill or a
-    decode step) must launch exactly ``_forward_launches`` of ``route``
-    and nothing else. -> (tokens by rid, counts, forwards, wall s, peak GB)."""
+def _static_drain(torch, np, ops, eng, reqs, route, tag, extra=None):
+    """Drain ``reqs`` through a static engine (``extra`` is its
+    ``extra_batch``: the encdec family's frames) with the launch counters
+    zeroed just before and read just after; every forward (a batch's
+    prefill or a decode step) must launch exactly ``_forward_launches`` of
+    ``route`` for its kind and nothing else. -> (tokens by rid, counts,
+    forwards, decode steps, wall s, peak GB)."""
     log = []
     api = _counted_forwards(ops, eng, log)
     for r in reqs:
@@ -3057,20 +3123,21 @@ def _static_drain(torch, np, ops, eng, reqs, route, tag):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    done = eng.run()
+    done = eng.run(extra_batch=extra)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     eng.api = api
     peak = _gb(torch.cuda.max_memory_allocated())
-    per = _forward_launches(eng.arch)
-    want = dict(_NO_LAUNCHES, **{route: per})
+    total = 0
     for i, (kind, delta) in enumerate(log):
-        if delta != want:
+        per = _forward_launches(eng.arch, kind)
+        total += per
+        if delta != dict(_NO_LAUNCHES, **{route: per}):
             fail(f"[{tag}] forward {i} ({kind}): launches {delta} != {per} {route} and 0 "
                  f"elsewhere")
-    if counts != dict(_NO_LAUNCHES, **{route: per * len(log)}) or counts[route] <= 0:
-        fail(f"[{tag}] drain launches {counts} != {per} x {len(log)} forwards")
+    if counts != dict(_NO_LAUNCHES, **{route: total}) or counts[route] <= 0:
+        fail(f"[{tag}] drain launches {counts} != {total} over {len(log)} forwards")
     outs = {r.rid: [int(t) for t in r.output] for r in done}
     if sorted(outs) != sorted(r.rid for r in reqs) or any(
             len(outs[r.rid]) != r.max_new_tokens for r in reqs):
@@ -3152,11 +3219,13 @@ def _both(*hooks):
     return install, restore, lambda: "; ".join(h[2]() for h in hooks)
 
 
-def phase_moe_parity(torch, np, arch, params, dev, tag="moe-parity", hooks=None):
+def phase_moe_parity(torch, np, arch, params, dev, tag="moe-parity", hooks=None, frames=None,
+                     steps=MOE_PARITY_STEPS):
     """The short drain's first batch (requests 0-3, left-padded to the
     longest: 11 tokens at mixtral's vocab) on the card and on the CPU
     (plain versions), the same serve weights, through the model's
-    ``prefill`` and ``decode_step`` (any static-engine family): the
+    ``prefill`` (with ``frames``, a card tensor, for the encdec family) and
+    ``decode_step`` (any static-engine family): the
     prefill's and 4 decode steps' logits, the CPU fed its own greedy tokens
     on both sides, activation codes held at half-way ties (``_code_hooks``)
     and expert choices at near-tie gates (``_route_hooks``), or what
@@ -3188,9 +3257,11 @@ def phase_moe_parity(torch, np, arch, params, dev, tag="moe-parity", hooks=None)
 
     for side, where in sides:
         p = params if side == "card" else _tree_to(params, where)
-        runs[side] = (p, step(side, lambda: api.prefill(
-            p, {"tokens": torch.from_numpy(toks).to(where)}, max_len=MAX_LEN)))
-    for t in range(1, MOE_PARITY_STEPS + 1):
+        batch = {"tokens": torch.from_numpy(toks).to(where)}
+        if frames is not None:
+            batch["frames"] = frames.to(where)
+        runs[side] = (p, step(side, lambda: api.prefill(p, batch, max_len=MAX_LEN)))
+    for t in range(1, steps + 1):
         tok = logs["cpu"][-1].argmax(-1).to(torch.int32)[:, None]
         for side, where in sides:
             p, cache = runs[side]
@@ -3212,7 +3283,7 @@ def phase_moe_parity(torch, np, arch, params, dev, tag="moe-parity", hooks=None)
                 fail(f"{tag} step {i} row {r}: greedy tokens differ between card and CPU")
     held = report()
     print(f"[{tag}] {arch.name} {arch.compute_mode}, {arch.n_layers} layers at full width: "
-          f"prefill of 4 x {s} tokens + {MOE_PARITY_STEPS} decode steps, card vs CPU plain "
+          f"prefill of 4 x {s} tokens + {steps} decode steps, card vs CPU plain "
           f"path: max |dlogit| = {worst:.3e} (tolerance {PARITY_ATOL}); greedy tokens equal "
           f"on {compared} of {compared + ties} rows ({ties} within-tolerance ties); {held}; "
           f"card {secs['card']:.1f} s, CPU {secs['cpu']:.1f} s")
@@ -3388,7 +3459,12 @@ def phase_moe(torch, np, dev):
     print(f"[moe] long drain tokens repeat; {longs[0]}")
     del long_eng
     out["ring"] = phase_moe_ring(torch, np, arch, eng.params, dev)
-    out["parity"] = phase_moe_parity(torch, np, arch, eng.params, dev)
+    # the parity at MOE_PARITY_LAYERS of the served layers (its CPU side is
+    # most of the phase's time)
+    out["parity"] = phase_moe_parity(
+        torch, np, arch.replace(n_layers=MOE_PARITY_LAYERS),
+        dict(eng.params, layers=eng.params["layers"][:MOE_PARITY_LAYERS]), dev,
+        steps=MOE_PARITY_LAYER_STEPS)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -3465,17 +3541,27 @@ RECURRENT_KN = [("zamba2 in_proj", 2560, 10448), ("zamba2 out_proj", 5120, 2560)
                 ("zamba2 shared down", 10240, 2560), ("xlstm mLSTM up", 768, 3072),
                 ("xlstm mLSTM q/k/v", 1536, 1536), ("xlstm mLSTM down", 1536, 768),
                 ("xlstm sLSTM wx", 768, 3072), ("xlstm sLSTM down", 768, 768)]
-ZAMBA_PARITY_LAYERS = 12  # two groups: the shared block runs twice, on two KV streams
+ZAMBA_PARITY_LAYERS = 6  # one group (the SMOKE card test holds two KV streams)
+XLSTM_PARITY_LAYERS = 4  # an sLSTM (layer 0) and three mLSTM layers
 ZAMBA_LOWBIT_LAYERS = 6  # bnn and qnn8: one group, 6 x 2 + 7 = 19 launches a forward
 LONG_PROMPTS = (64, 512)  # the host-side time loop's prefill cost per token
+THREE_KERNELS = ("cac_matmul", "bnn_packed_matmul", "qnn_matmul")  # kernels 1, 7, 10
 KERNEL1_GROUP = {"cac_matmul": ("stream_kernel<0,",)}
 
 
-def _forward_launches(arch):
-    """Projection launches of one forward (a prefill or a decode step): the
-    lm family's ``_projections`` a layer; the hybrid's 2 a Mamba layer
-    (in_proj, out_proj) and 7 a shared-block application; xLSTM's 2 an
-    sLSTM layer (wx, down) and 5 an mLSTM layer (up, q, k, v, down)."""
+def _forward_launches(arch, kind="decode"):
+    """Projection launches of one forward, a prefill or a decode step
+    (``kind``): the lm family's ``_projections`` a layer; the hybrid's 2 a
+    Mamba layer (in_proj, out_proj) and 7 a shared-block application;
+    xLSTM's 2 an sLSTM layer (wx, down) and 5 an mLSTM layer (up, q, k, v,
+    down); the encdec family's prefill 6 an encoder layer (q, k, v, o, up,
+    down) and 10 a decoder layer (self q/k/v/o, cross q/k/v/o with the
+    cross K/V projected once, up, down), its decode step 8 a decoder layer
+    (the cross K/V are cached)."""
+    if arch.family == "encdec":
+        if kind == "prefill":
+            return 6 * arch.n_encoder_layers + 10 * arch.n_layers
+        return 8 * arch.n_layers
     if arch.family == "hybrid":
         return 2 * arch.n_layers + _projections(arch) * (arch.n_layers // arch.attn_every)
     if arch.family == "xlstm":
@@ -3484,65 +3570,79 @@ def _forward_launches(arch):
     return _projections(arch) * arch.n_layers
 
 
-def phase_recurrent_kernels(torch, np, dev, flush):
-    """Kernels 1, 7 and 10 at the ten (K, N) of the recurrent paths
-    (``RECURRENT_KN``), M = 4 (decode) and M = 84 (the drains' second
-    prefill): bit-exact against their plain versions and repeatable, timed
-    (L2 flushed) beside the plain version, a library call where one exists
-    (kernel 7: torch.matmul on +-1 float32; kernel 10: torch._int_mm) and
-    the bound."""
+def _kernel_rows(torch, np, dev, flush, cases, key, tag, seed):
+    """Kernels 1, 7 and 10 at each case (where, M, K, N, kernels): bit-exact
+    against their plain versions and repeatable, timed (L2 flushed) beside
+    the plain version, a library call where one exists (kernel 7:
+    torch.matmul on +-1 float32; kernel 10: torch._int_mm) and the bound.
+    Above 512 rows the kernel is timed 5 times and the plain version once.
+    Each row names its case under ``key``."""
     from repro_torch.core.backend import pack_signs
     from repro_torch.kernels import bnn_matmul as bnn
     from repro_torch.kernels import qnn_matmul as qnn
     from repro_torch.kernels.cac_matmul import cac_matmul_kernel_call, cac_matmul_plain
 
-    rng = np.random.default_rng(SEED + 25)
+    rng = np.random.default_rng(seed)
     rows = []
-    for where, k, n in RECURRENT_KN:
-        for m in (N_SLOTS, RECURRENT_PREFILL_M):
-            x = torch.from_numpy(rng.integers(-128, 128, size=(m, k)).astype(np.int8)).to(dev)
-            tau = torch.from_numpy(rng.integers(-128, 128, size=(k, n)).astype(np.int8)).to(dev)
-            signs = torch.from_numpy(np.where(rng.random((k, n)) < 0.5, 1, -1).astype(np.int8))
-            sp = pack_signs(signs).to(dev)
+    for where, m, k, n, names in cases:
+        x = torch.from_numpy(rng.integers(-128, 128, size=(m, k)).astype(np.int8)).to(dev)
+        tau = torch.from_numpy(rng.integers(-128, 128, size=(k, n)).astype(np.int8)).to(dev)
+        signs = torch.from_numpy(np.where(rng.random((k, n)) < 0.5, 1, -1).astype(np.int8))
+        sp = pack_signs(signs).to(dev)
+        ops2 = 2.0 * m * k * n
+        cases_here = {"cac_matmul": (
+            lambda: cac_matmul_kernel_call(x, tau, sp), lambda: cac_matmul_plain(x, tau, sp),
+            None, _bound(m * k + k * n + k * n // 8 + 4 * m * n, ops2, CUDA_CORE_OPS_S))}
+        if "bnn_packed_matmul" in names or "qnn_matmul" in names:
             xf = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
             w = torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8)).to(dev)
             ws = torch.from_numpy(rng.uniform(1e-3, 1e-2, size=(n,)).astype(np.float32)).to(dev)
             xs, wsf = torch.where(xf >= 0, 1.0, -1.0), signs.to(dev).float()
             int_mm, int_mm_shape = _int_mm_yardstick(torch, x, w, ws)
-            ops2 = 2.0 * m * k * n
-            cases = (
-                ("cac_matmul", lambda: cac_matmul_kernel_call(x, tau, sp),
-                 lambda: cac_matmul_plain(x, tau, sp), None,
-                 _bound(m * k + k * n + k * n // 8 + 4 * m * n, ops2, CUDA_CORE_OPS_S)),
-                ("bnn_packed_matmul", lambda: bnn.bnn_packed_matmul_kernel_call(xf, sp),
-                 lambda: bnn.bnn_packed_matmul_plain(xf, sp), lambda: torch.matmul(xs, wsf),
-                 _bound(4 * m * k + k * n // 8 + 4 * m * n, ops2, TENSOR_CORE_OPS_S)),
-                ("qnn_matmul", lambda: qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE),
-                 lambda: qnn.qnn_matmul_plain(x, w, ws, ACT_SCALE), int_mm,
-                 _bound(m * k + k * n + 4 * n + 4 * m * n, ops2, INT8_TENSOR_OPS_S)))
-            for name, kern, plain, lib, (bound, by) in cases:
-                got, again, want = kern(), kern(), plain()
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                if err != 0.0 or not torch.equal(got, again):
-                    fail(f"recurrent {name} {where} M={m} K={k} N={n}: max |kernel - plain| = "
-                         f"{err}, repeatable {torch.equal(got, again)}")
-                row = {"recurrent": where, "kernel": name, "M": m, "K": k, "N": n,
-                       "max_abs_err": err, "ms": time_ms(torch, kern, flush=flush),
-                       "plain_ms": time_ms(torch, plain, iters=2, warmup=1, flush=flush),
-                       "library_ms": time_ms(torch, lib, flush=flush) if lib else None,
-                       "bound_ms": bound, "bound_by": by}
-                if name == "qnn_matmul":
-                    row["library_shape"] = int_mm_shape
-                row["bound_share"] = bound / row["ms"]
-                rows.append(row)
-                lib_ms = "none" if lib is None else f"{row['library_ms']:.5f}"
-                print(f"[recurrent-kernels] {name} {where} M={m} K={k} N={n} bit-exact, "
-                      f"repeatable; ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
-                      f"library_ms={lib_ms} bound_ms={bound:.6f} ({by}, "
-                      f"{100 * row['bound_share']:.1f}%)")
-            del x, tau, sp, xf, w, ws, xs, wsf
+            cases_here["bnn_packed_matmul"] = (
+                lambda: bnn.bnn_packed_matmul_kernel_call(xf, sp),
+                lambda: bnn.bnn_packed_matmul_plain(xf, sp), lambda: torch.matmul(xs, wsf),
+                _bound(4 * m * k + k * n // 8 + 4 * m * n, ops2, TENSOR_CORE_OPS_S))
+            cases_here["qnn_matmul"] = (
+                lambda: qnn.qnn_matmul_kernel_call(x, w, ws, ACT_SCALE),
+                lambda: qnn.qnn_matmul_plain(x, w, ws, ACT_SCALE), int_mm,
+                _bound(m * k + k * n + 4 * n + 4 * m * n, ops2, INT8_TENSOR_OPS_S))
+        big = m > 512
+        for name in names:
+            kern, plain, lib, (bound, by) = cases_here[name]
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if err != 0.0 or not torch.equal(got, again):
+                fail(f"{tag} {name} {where} M={m} K={k} N={n}: max |kernel - plain| = "
+                     f"{err}, repeatable {torch.equal(got, again)}")
+            row = {key: where, "kernel": name, "M": m, "K": k, "N": n, "max_abs_err": err,
+                   "ms": time_ms(torch, kern, iters=5 if big else 20, flush=flush),
+                   "plain_ms": time_ms(torch, plain, iters=1 if big else 2, warmup=1,
+                                       flush=flush),
+                   "library_ms": time_ms(torch, lib, flush=flush) if lib else None,
+                   "bound_ms": bound, "bound_by": by}
+            if name == "qnn_matmul":
+                row["library_shape"] = int_mm_shape
+            row["bound_share"] = bound / row["ms"]
+            rows.append(row)
+            lib_ms = "none" if lib is None else f"{row['library_ms']:.5f}"
+            print(f"[{tag}] {name} {where} M={m} K={k} N={n} bit-exact, repeatable; "
+                  f"ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} library_ms={lib_ms} "
+                  f"bound_ms={bound:.6f} ({by}, {100 * row['bound_share']:.1f}%)")
+            del got, again, want
+        del x, tau, sp, cases_here
     return rows
+
+
+def phase_recurrent_kernels(torch, np, dev, flush):
+    """Kernels 1, 7 and 10 at the ten (K, N) of the recurrent paths
+    (``RECURRENT_KN``), M = 4 (decode) and M = 84 (the drains' second
+    prefill) (``_kernel_rows``)."""
+    return _kernel_rows(torch, np, dev, flush,
+                        [(where, m, k, n, THREE_KERNELS) for where, k, n in RECURRENT_KN
+                         for m in (N_SLOTS, RECURRENT_PREFILL_M)],
+                        "recurrent", "recurrent-kernels", SEED + 25)
 
 
 def _long_prefill(torch, np, eng, per, tag):
@@ -3579,9 +3679,10 @@ def _long_prefill(torch, np, eng, per, tag):
     return out
 
 
-def _profiled_drain(torch, np, eng, tag):
-    """One more drain of the 8 requests under torch.profiler: device busy,
-    idle share, the top kernels and kernel 1's device ms."""
+def _profiled_drain(torch, np, eng, tag, extra=None):
+    """One more drain of the 8 requests (``extra``: the engine's
+    ``extra_batch``) under torch.profiler: device busy, idle share, the top
+    kernels and kernel 1's device ms."""
     from torch.profiler import ProfilerActivity, profile
 
     label = f"{eng.arch.name}_static_drain"
@@ -3590,9 +3691,14 @@ def _profiled_drain(torch, np, eng, tag):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with torch.profiler.record_function(label):
-            eng.run()
+            eng.run(extra_batch=extra)
             torch.cuda.synchronize()
+        t0 = time.perf_counter()
+    t_stop = time.perf_counter() - t0
+    t0 = time.perf_counter()
     share = _device_share(prof, label, KERNEL1_GROUP)
+    print(f"[{tag}] the profiler's own cost: stop {t_stop:.2f} s, reading its events "
+          f"{time.perf_counter() - t0:.2f} s")
     if share is None:
         print(f"[{tag}] device busy share: not measured (the trace holds no drain window or "
               f"no device events)")
@@ -3604,6 +3710,112 @@ def _profiled_drain(torch, np, eng, tag):
     for row in share["top_kernels"]:
         print(f"[{tag}]   {row['ms']:9.3f} ms {row['count']:6d}x {row['name']}")
     return share
+
+
+def _bika_engine(torch, arch, dev, seed, tag):
+    """A train-form tree of ``arch`` from a seeded generator on the card,
+    served through ServeEngine.from_trained (engine="auto", which must
+    resolve to static; batch N_SLOTS, max_len MAX_LEN), the train tree then
+    freed. -> (engine, a record of the init and conversion seconds, the
+    train tree's, build peak's and served tree's GB, the memory baseline)."""
+    import gc
+
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    train = build_model(arch, phase="train").init(gen, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    train_gb = _gb(torch.cuda.memory_allocated() - base)
+    t0 = time.perf_counter()
+    eng = ServeEngine.from_trained(train, arch, batch_size=N_SLOTS, max_len=MAX_LEN,
+                                   device=dev)
+    torch.cuda.synchronize()
+    t_conv = time.perf_counter() - t0
+    del train
+    gc.collect()
+    torch.cuda.empty_cache()
+    build_peak = _gb(torch.cuda.max_memory_allocated() - base)
+    serve_gb = _gb(torch.cuda.memory_allocated() - base)
+    if eng.engine != "static":
+        fail(f"[{tag}] engine='auto' resolved to {eng.engine!r}, not 'static'")
+    per = {kind: _forward_launches(arch, kind) for kind in ("prefill", "decode")}
+    print(f"[{tag}] bika packed, {arch.n_layers} layers"
+          + (f" + {arch.n_encoder_layers} encoder layers" if arch.n_encoder_layers else "")
+          + f", d_model {arch.d_model}, vocab {arch.vocab}: train-form init {t_init:.2f} s "
+          f"({train_gb:.2f} GB), built through ServeEngine.from_trained in {t_conv:.2f} s, "
+          f"build peak {build_peak:.2f} GB, served tree {serve_gb:.2f} GB; "
+          f"engine={eng.engine}; kernel-1 launches {per['prefill']} a prefill, "
+          f"{per['decode']} a decode step")
+    res = {"layers": arch.n_layers, "init_s": t_init, "convert_s": t_conv,
+           "train_gb": train_gb, "build_peak_gb": build_peak, "serve_gb": serve_gb,
+           "per_forward": per["decode"], "per_prefill": per["prefill"],
+           "built_through": "ServeEngine.from_trained"}
+    return eng, res, base
+
+
+def _drains_twice(torch, np, ops, eng, route, tag, res, base, extra=None):
+    """The 8 requests drained twice through a static engine
+    (``_static_drain``, ``extra`` its ``extra_batch``): tokens must repeat.
+    Each drain's wall seconds, peak above ``base``, launches, forwards and
+    decode steps go into ``res["drains"]``, the first's launches into
+    ``res["launches"]``."""
+    runs = []
+    for run in range(2):
+        outs, counts, fwds, decodes, wall, peak = _static_drain(
+            torch, np, ops, eng, _requests(np, eng.arch.vocab), route, tag, extra=extra)
+        runs.append(outs)
+        print(f"[{tag}] drain {run + 1}: 8 requests x {NEW_TOKENS} tokens, batch {N_SLOTS}, "
+              f"max_len {MAX_LEN}: {fwds} forwards ({decodes} decode steps), "
+              f"{_forward_launches(eng.arch, 'prefill')} {route} launches a prefill and "
+              f"{_forward_launches(eng.arch)} a decode step; launches {counts}; wall "
+              f"{wall:.3f} s, peak {_gb(peak * 1e9 - base):.2f} GB above the build's start")
+        res.setdefault("drains", []).append({
+            "wall_s": wall, "peak_gb": _gb(peak * 1e9 - base), "launches": counts,
+            "forwards": fwds, "decode_steps": decodes})
+    if runs[0] != runs[1]:
+        fail(f"[{tag}] a second drain gave other tokens")
+    res["launches"] = res["drains"][0]["launches"]
+    print(f"[{tag}] tokens repeat; req0={runs[0][0]}")
+
+
+def _lowbit_drains(torch, np, ops, arch, dev, tag, extra=None):
+    """qnn8 (kernel 10) and bnn packed (kernel 7) serving of one qnn8
+    train-form tree of ``arch`` (the bnn form through ``_bnn_train_from``):
+    each drained twice (``_drains_twice``), launches exact.
+    -> {mode: record}."""
+    import gc
+
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    train = build_model(arch, phase="train").init(gen, device=dev)
+    out = {}
+    for mode, route, am in (("qnn8", "qnn8", arch),
+                            ("bnn", "bnn_packed", arch.replace(compute_mode="bnn",
+                                                               pack_signs=True))):
+        tree = train if mode == "qnn8" else _bnn_train_from(train)
+        e = ServeEngine.from_trained(tree, am, batch_size=N_SLOTS, max_len=MAX_LEN, device=dev)
+        res = {"layers": am.n_layers, "encoder_layers": am.n_encoder_layers,
+               "per_forward": _forward_launches(am),
+               "per_prefill": _forward_launches(am, "prefill")}
+        _drains_twice(torch, np, ops, e, route, f"{tag}-{mode}", res, 0, extra=extra)
+        res["forwards"] = res["drains"][0]["forwards"]
+        res["wall_s"] = res["drains"][-1]["wall_s"]
+        out[mode] = res
+        del e, tree
+    del train
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_recurrent(torch, np, dev):
@@ -3621,72 +3833,25 @@ def phase_recurrent(torch, np, dev):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import build_model
-    from repro_torch.serve import ServeEngine
 
     out = {"cut": f"zamba2-2.7b: all 54 layers in bika; the parity at {ZAMBA_PARITY_LAYERS} "
-                  f"layers, bnn / qnn8 at {ZAMBA_LOWBIT_LAYERS}; xlstm-125m whole; every "
-                  f"width as published"}
+                  f"layers, bnn / qnn8 at {ZAMBA_LOWBIT_LAYERS}; xlstm-125m whole, its parity "
+                  f"at {XLSTM_PARITY_LAYERS} layers; every width as published"}
     print(f"[recurrent] {smi_line()}; {out['cut']}")
     for name, seed in (("zamba2-2.7b", SEED + 21), ("xlstm-125m", SEED + 22)):
         tag = f"recurrent-{name}"
         arch = get_config(name, compute_mode="bika", pack_signs=True, remat=False)
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        train = build_model(arch, phase="train").init(gen, device=dev)
-        torch.cuda.synchronize()
-        t_init = time.perf_counter() - t0
-        train_gb = _gb(torch.cuda.memory_allocated() - base)
-        t0 = time.perf_counter()
-        eng = ServeEngine.from_trained(train, arch, batch_size=N_SLOTS, max_len=MAX_LEN,
-                                       device=dev)
-        torch.cuda.synchronize()
-        t_conv = time.perf_counter() - t0
-        del train
-        gc.collect()
-        torch.cuda.empty_cache()
-        build_peak = _gb(torch.cuda.max_memory_allocated() - base)
-        serve_gb = _gb(torch.cuda.memory_allocated() - base)
-        if eng.engine != "static":
-            fail(f"[{tag}] engine='auto' resolved to {eng.engine!r}, not 'static'")
-        per = _forward_launches(arch)
-        print(f"[{tag}] bika packed, {arch.n_layers} layers, d_model {arch.d_model}, vocab "
-              f"{arch.vocab}: train-form init {t_init:.2f} s ({train_gb:.2f} GB), built "
-              f"through ServeEngine.from_trained in {t_conv:.2f} s, build peak "
-              f"{build_peak:.2f} GB, served tree {serve_gb:.2f} GB; engine={eng.engine}; "
-              f"{per} kernel-1 launches a forward")
-        res = {"layers": arch.n_layers, "init_s": t_init, "convert_s": t_conv,
-               "train_gb": train_gb, "build_peak_gb": build_peak, "serve_gb": serve_gb,
-               "per_forward": per, "built_through": "ServeEngine.from_trained"}
-        runs = []
-        for run in range(2):
-            outs, counts, fwds, decodes, wall, peak = _static_drain(
-                torch, np, ops, eng, _requests(np, arch.vocab), "cac_hw", tag)
-            runs.append(outs)
-            print(f"[{tag}] drain {run + 1}: 8 requests x {NEW_TOKENS} tokens, batch "
-                  f"{N_SLOTS}, max_len {MAX_LEN}: {fwds} forwards ({decodes} decode steps), "
-                  f"each {per} kernel-1 launches; launches {counts}; wall {wall:.3f} s, peak "
-                  f"{_gb(peak * 1e9 - base):.2f} GB above the build's start")
-            res.setdefault("drains", []).append({
-                "wall_s": wall, "peak_gb": _gb(peak * 1e9 - base), "launches": counts,
-                "forwards": fwds, "decode_steps": decodes})
-        if runs[0] != runs[1]:
-            fail(f"[{tag}] a second drain gave other tokens")
-        res["launches"] = res["drains"][0]["launches"]
-        print(f"[{tag}] tokens repeat; req0={runs[0][0]}")
+        eng, res, base = _bika_engine(torch, arch, dev, seed, tag)
+        _drains_twice(torch, np, ops, eng, "cac_hw", tag, res, base)
         res["profile"] = _profiled_drain(torch, np, eng, tag)
-        res["long_prefill"] = _long_prefill(torch, np, eng, per, tag)
+        res["long_prefill"] = _long_prefill(torch, np, eng, res["per_forward"], tag)
+        # the engine holds the layers as lists of per-layer views
         if arch.family == "hybrid":
             p_arch = arch.replace(n_layers=ZAMBA_PARITY_LAYERS)
-            # the engine holds the Mamba layers as a list of per-layer views
             p_params = dict(eng.params, mamba=eng.params["mamba"][:ZAMBA_PARITY_LAYERS])
         else:
-            p_arch, p_params = arch, eng.params
+            p_arch = arch.replace(n_layers=XLSTM_PARITY_LAYERS)
+            p_params = dict(eng.params, layers=eng.params["layers"][:XLSTM_PARITY_LAYERS])
         res["parity"] = phase_moe_parity(torch, np, p_arch, p_params, dev,
                                          tag=f"recurrent-parity {name}",
                                          hooks=_code_hooks(torch))
@@ -3699,40 +3864,138 @@ def phase_recurrent(torch, np, dev):
     for name, layers in (("zamba2-2.7b", ZAMBA_LOWBIT_LAYERS), ("xlstm-125m", None)):
         a = get_config(name, compute_mode="qnn8", remat=False)
         a = a.replace(n_layers=layers) if layers else a
-        gen = torch.Generator(device=dev).manual_seed(SEED + 23)
-        train = build_model(a, phase="train").init(gen, device=dev)
-        for mode, route, am in (("qnn8", "qnn8", a),
-                                ("bnn", "bnn_packed", a.replace(compute_mode="bnn",
-                                                                pack_signs=True))):
-            tree = train if mode == "qnn8" else _bnn_train_from(train)
-            e = ServeEngine.from_trained(tree, am, batch_size=N_SLOTS, max_len=MAX_LEN,
-                                         device=dev)
-            runs = []
-            for _ in range(2):
-                outs, counts, fwds, decodes, wall, peak = _static_drain(
-                    torch, np, ops, e, _requests(np, am.vocab), route,
-                    f"recurrent-{name}-{mode}")
-                runs.append(outs)
-            if runs[0] != runs[1]:
-                fail(f"[recurrent-{name}-{mode}] a second drain gave other tokens")
-            per = _forward_launches(am)
-            print(f"[recurrent-{name}-{mode}] {am.n_layers} layers: drain twice, tokens "
-                  f"repeat; {fwds} forwards, each {per} {route} launches; launches {counts}; "
-                  f"wall {wall:.3f} s")
-            out[f"{name} {mode}"] = {"layers": am.n_layers, "launches": counts,
-                                     "forwards": fwds, "per_forward": per, "wall_s": wall}
-            del e, tree
-        del train
-        gc.collect()
-        torch.cuda.empty_cache()
+        out.update({f"{name} {mode}": res for mode, res in _lowbit_drains(
+            torch, np, ops, a, dev, f"recurrent-{name}").items()})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the encoder-decoder family (seamless-m4t-large-v2)
+# ---------------------------------------------------------------------------
+
+ENCDEC = "seamless-m4t-large-v2"
+# the family's (K, N): self and cross q/k/v/o, the ungated MLP's up and down
+ENCDEC_KN = [("q/k/v/o", 1024, 1024), ("up", 1024, 8192), ("down", 8192, 1024)]
+# M: decode; the first group's decoder prefill (4 x 11 tokens); the encoder
+# and the cross K/V over 4 x 16 frames
+ENCDEC_M = (N_SLOTS, 44, 64)
+ENCDEC_FRAMES = 16  # frames a request, as the serve launcher makes them
+ENCDEC_PARITY_LAYERS = 4  # card vs CPU at 4 encoder + 4 decoder layers
+ENCDEC_LOWBIT_LAYERS = 6  # bnn and qnn8 at 6 + 6: 96 launches a prefill, 48 a decode step
+ENCDEC_LONG_STEPS = 3  # timed decode steps after the encoder_seq-frame prefill (and 1 untimed)
+
+
+def phase_encdec_kernels(torch, np, dev, flush):
+    """Kernels 1, 7 and 10 at the family's three (K, N) (``ENCDEC_KN``), M in
+    ``ENCDEC_M``, and kernel 1 at M = 4 x encoder_seq = 4,096 (the encoder
+    over 1,024 frames) at all three (``_kernel_rows``)."""
+    cases = [(where, m, k, n, THREE_KERNELS) for where, k, n in ENCDEC_KN for m in ENCDEC_M]
+    cases += [(f"encoder {where}", N_SLOTS * 1024, k, n, ("cac_matmul",))
+              for where, k, n in ENCDEC_KN]
+    return _kernel_rows(torch, np, dev, flush, cases, "encdec", "encdec-kernels", SEED + 26)
+
+
+def _encdec_frames(torch, arch, dev, n_frames):
+    """(N_SLOTS, n_frames, d_model) = 0.1 x a normal sample from a torch
+    generator seeded 1 on the card, as the serve launcher makes them."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    return 0.1 * torch.randn((N_SLOTS, n_frames, arch.d_model), generator=gen, device=dev)
+
+
+def _encdec_long(torch, np, ops, eng, tag):
+    """One prefill of the first group's prompts over encoder_seq frames a
+    row (the encoder's kernel 1 at M = 4 x 1,024), then one untimed and
+    ENCDEC_LONG_STEPS timed decode steps whose cross-attention reads 1,024
+    keys: launches exact, finite logits, the prefill's seconds and a decode
+    step's."""
+    arch = eng.arch
+    frames = _encdec_frames(torch, arch, eng.device, arch.encoder_seq)
+    prompts = [r.prompt for r in _requests(np, arch.vocab)[:N_SLOTS]]
+    s = max(len(p) for p in prompts)
+    toks = np.zeros((N_SLOTS, s), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, s - len(p):] = p
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, cache = eng.api.prefill(
+            eng.params, {"tokens": torch.from_numpy(toks).to(eng.device), "frames": frames},
+            max_len=MAX_LEN)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        for t in range(ENCDEC_LONG_STEPS + 1):
+            if t == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            logits, cache = eng.api.decode_step(eng.params, tok, cache, s + t)
+        torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) / ENCDEC_LONG_STEPS
+    counts = ops.launch_counts()
+    want = (_forward_launches(arch, "prefill")
+            + (ENCDEC_LONG_STEPS + 1) * _forward_launches(arch))
+    if counts != dict(_NO_LAUNCHES, cac_hw=want) or not bool(torch.isfinite(logits).all()):
+        fail(f"[{tag}] long-encoder prefill: launches {counts} != {want} kernel-1, or "
+             f"non-finite logits")
+    if tuple(cache["cross_k"].shape) != (arch.n_layers, N_SLOTS, arch.encoder_seq,
+                                         arch.n_kv_heads, arch.hd):
+        fail(f"[{tag}] the cross cache is {tuple(cache['cross_k'].shape)}")
+    print(f"[{tag}] prefill over {arch.encoder_seq} frames a row (the encoder at M = "
+          f"{N_SLOTS * arch.encoder_seq}) and 4 x {s} tokens: {t_prefill:.3f} s; a decode "
+          f"step over {arch.encoder_seq} cross keys {t_decode * 1e3:.2f} ms; {want} kernel-1 "
+          f"launches")
+    return {"frames": arch.encoder_seq, "prefill_s": t_prefill, "decode_step_s": t_decode,
+            "launches": counts["cac_hw"]}
+
+
+def phase_encdec(torch, np, dev):
+    """seamless-m4t-large-v2 in bika (packed signs) at full width and depth
+    (24 + 24 layers) through ServeEngine.from_trained(engine="auto") ->
+    static, frames (4, 16, 1024) as ``run(extra_batch=)``: the 8 requests x
+    16 tokens (batch 4, max_len 128) twice, every prefill exactly 384 and
+    every decode step 192 kernel-1 launches and no other kernel, tokens
+    equal run to run, build and drain peaks; one drain profiled; one
+    prefill over encoder_seq = 1,024 frames a row and decode steps after
+    it; card-vs-CPU parity at 4 + 4 layers with activation codes held at
+    half-way ties; then qnn8 (kernel 10) and bnn packed (kernel 7) from one
+    train-form tree at 6 + 6 layers, a drain each twice."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    out = {"cut": f"{ENCDEC}: all 24 + 24 layers in bika; the parity at "
+                  f"{ENCDEC_PARITY_LAYERS} + {ENCDEC_PARITY_LAYERS} layers, bnn / qnn8 at "
+                  f"{ENCDEC_LOWBIT_LAYERS} + {ENCDEC_LOWBIT_LAYERS}; every width as published"}
+    print(f"[encdec] {smi_line()}; {out['cut']}")
+    tag = "encdec-bika"
+    arch = get_config(ENCDEC, compute_mode="bika", pack_signs=True, remat=False)
+    eng, res, base = _bika_engine(torch, arch, dev, SEED + 26, tag)
+    extra = {"frames": _encdec_frames(torch, arch, dev, ENCDEC_FRAMES)}
+    _drains_twice(torch, np, ops, eng, "cac_hw", tag, res, base, extra=extra)
+    res["profile"] = _profiled_drain(torch, np, eng, tag, extra=extra)
+    res["long_encoder"] = _encdec_long(torch, np, ops, eng, tag)
+    n = ENCDEC_PARITY_LAYERS
+    res["parity"] = phase_moe_parity(
+        torch, np, arch.replace(n_layers=n, n_encoder_layers=n),
+        dict(eng.params, encoder=eng.params["encoder"][:n], decoder=eng.params["decoder"][:n]),
+        dev, tag="encdec-parity", hooks=_code_hooks(torch), frames=extra["frames"])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["bika"] = res
+    a = get_config(ENCDEC, compute_mode="qnn8", remat=False, n_layers=ENCDEC_LOWBIT_LAYERS,
+                   n_encoder_layers=ENCDEC_LOWBIT_LAYERS)
+    out.update(_lowbit_drains(torch, np, ops, a, dev, "encdec", extra=extra))
     return out
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("paper", "moe", "recurrent"):
-        fail(f"unknown arguments {argv}; the one option is --only paper|moe|recurrent")
+    if argv and only not in ("paper", "moe", "recurrent", "encdec"):
+        fail(f"unknown arguments {argv}; the one option is --only paper|moe|recurrent|encdec")
     only_paper = only == "paper"
     try:
         import numpy as np
@@ -3825,53 +4088,66 @@ def main(argv=None) -> int:
         print(smi)
         print("partial run (--only recurrent): no result line")
         return 0
-    device_ops = phase_device_ops(torch, np, dev)
+    if only == "encdec":  # a partial run: no kernels line, no last line
+        clock = PhaseClock()
+        flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+        encdec_kernels = clock("encdec-kernels", phase_encdec_kernels, torch, np, dev, flush)
+        del flush
+        encdec = clock("encdec", phase_encdec, torch, np, dev)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_encdec.json"), "w") as fh:
+            json.dump({"device": smi, "encdec": encdec, "encdec_kernels": encdec_kernels,
+                       "phase_seconds": clock.seconds}, fh, indent=1, sort_keys=True,
+                      default=str)
+        print(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
+        print(smi)
+        print("partial run (--only encdec): no result line")
+        return 0
+    clock = PhaseClock()
+    device_ops = clock("device-ops", phase_device_ops, torch, np, dev)
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
-    cac_rows, timing_floor = phase_cac(torch, np, dev, flush)
-    attn_rows = phase_paged(torch, np, dev, flush)
-    attn_sweep = phase_attn_sweep(torch, np, dev, flush)
-    train_rows = phase_train_kernels(torch, np, dev, flush)
-    bnn_rows = phase_bnn_kernels(torch, np, dev, flush)
-    route_sweep = phase_route_sweep(torch, np, dev, flush)
-    qnn_rows = phase_qnn_kernels(torch, np, dev, flush)
-    qnn_route_sweep = phase_qnn_route_sweep(torch, np, dev, flush)
+    cac_rows, timing_floor = clock("kernels cac", phase_cac, torch, np, dev, flush)
+    attn_rows = clock("kernels paged_attn", phase_paged, torch, np, dev, flush)
+    attn_sweep = clock("attn-sweep", phase_attn_sweep, torch, np, dev, flush)
+    train_rows = clock("train-kernels", phase_train_kernels, torch, np, dev, flush)
+    bnn_rows = clock("bnn-kernels", phase_bnn_kernels, torch, np, dev, flush)
+    route_sweep = clock("bnn route sweep", phase_route_sweep, torch, np, dev, flush)
+    qnn_rows = clock("qnn8-kernels", phase_qnn_kernels, torch, np, dev, flush)
+    qnn_route_sweep = clock("qnn route sweep", phase_qnn_route_sweep, torch, np, dev, flush)
     del flush
     from repro_torch.configs import get_config
     from repro_torch.core.convert import tree_to_serve
 
     arch = get_config("smollm-360m", compute_mode="bika", pack_signs=True, remat=False,
                       paged_attn_route="fused")
-    train, path = phase_path(torch, np, arch, dev, "cac_hw")
-    path["profile"] = phase_profile(torch, np, arch, train, dev, groups=KERNEL11_GROUP)
-    t0 = time.perf_counter()
-    path["obs"] = phase_obs(torch, np, arch, train, dev, path["tokens"])
-    print(f"[obs] phase {time.perf_counter() - t0:.1f} s")
+    train, path = clock("path", phase_path, torch, np, arch, dev, "cac_hw")
+    path["profile"] = clock("profile", phase_profile, torch, np, arch, train, dev,
+                            groups=KERNEL11_GROUP)
+    path["obs"] = clock("obs", phase_obs, torch, np, arch, train, dev, path["tokens"])
     serve_params = tree_to_serve(train, arch.linear_spec())
     del train
-    path["parity"] = phase_parity(torch, np, arch, serve_params, dev, _code_hooks(torch))
+    path["parity"] = clock("parity", phase_parity, torch, np, arch, serve_params, dev,
+                           _code_hooks(torch))
     del serve_params
-    training = phase_train_path(torch, np, dev, "bika")
-    training["parity"] = phase_train_parity(torch, np, dev, "bika", _sign_hooks(torch))
-    t0 = time.perf_counter()
-    ckpt = phase_ckpt(torch, np, dev)
-    print(f"[ckpt] phase {time.perf_counter() - t0:.1f} s")
-    bnn_path = phase_bnn_serve(torch, np, dev)
-    bnn_training = phase_train_path(torch, np, dev, "bnn", tag="bnn-train")
-    bnn_training["parity"] = phase_train_parity(torch, np, dev, "bnn", _bnn_train_hooks(torch),
-                                                tag="bnn-train-parity")
-    qnn_path = phase_qnn8_serve(torch, np, dev)
-    spec = phase_spec(torch, np, dev)
+    training = clock("train", phase_train_path, torch, np, dev, "bika")
+    training["parity"] = clock("train-parity", phase_train_parity, torch, np, dev, "bika",
+                               _sign_hooks(torch), layers=TRAIN_PARITY_LAYERS)
+    ckpt = clock("ckpt", phase_ckpt, torch, np, dev)
+    bnn_path = clock("bnn-serve", phase_bnn_serve, torch, np, dev)
+    bnn_training = clock("bnn-train", phase_train_path, torch, np, dev, "bnn", tag="bnn-train")
+    bnn_training["parity"] = clock("bnn-train-parity", phase_train_parity, torch, np, dev, "bnn",
+                                   _bnn_train_hooks(torch), tag="bnn-train-parity")
+    qnn_path = clock("qnn8-serve", phase_qnn8_serve, torch, np, dev)
+    spec = clock("spec", phase_spec, torch, np, dev)
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
-    paper = phase_paper(torch, np, dev, flush)
-    moe_cac, moe_attn = phase_moe_kernels(torch, np, dev, flush)
-    rec_kernels = phase_recurrent_kernels(torch, np, dev, flush)
+    paper = clock("paper", phase_paper, torch, np, dev, flush)
+    moe_cac, moe_attn = clock("moe-kernels", phase_moe_kernels, torch, np, dev, flush)
+    rec_kernels = clock("recurrent-kernels", phase_recurrent_kernels, torch, np, dev, flush)
+    encdec_kernels = clock("encdec-kernels", phase_encdec_kernels, torch, np, dev, flush)
     del flush
-    t0 = time.perf_counter()
-    moe = phase_moe(torch, np, dev)
-    print(f"[moe] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    recurrent = phase_recurrent(torch, np, dev)
-    print(f"[recurrent] phase {time.perf_counter() - t0:.1f} s")
+    moe = clock("moe", phase_moe, torch, np, dev)
+    recurrent = clock("recurrent", phase_recurrent, torch, np, dev)
+    encdec = clock("encdec", phase_encdec, torch, np, dev)
 
     main_cac = next(r for r in cac_rows if (r["M"], r["K"], r["N"]) == (4, 960, 2560))
     main_attn = next(r for r in attn_rows if r["case"] == "decode" and not r["int8"])
@@ -4024,6 +4300,20 @@ def main(argv=None) -> int:
                 for nm in names}
             entry["shapes"] = entry["shapes"] + [r for r in rec_kernels
                                                  if r["kernel"] == entry["name"]]
+    # the ninth slice: kernels 1, 7 and 10 on seamless-m4t-large-v2's static
+    # path (bika at 24 + 24 layers; qnn8 and bnn packed at 6 + 6) and their
+    # rows at the family's (K, N)
+    for entry in kernels:
+        if entry["name"] in rec_keys:
+            count = rec_keys[entry["name"]][0]
+            res = {"cac_matmul": encdec["bika"], "bnn_packed_matmul": encdec["bnn"],
+                   "qnn_matmul": encdec["qnn8"]}[entry["name"]]
+            entry["encdec_launches"] = {
+                f"{ENCDEC} drain ({res['layers']} + {res['layers']} layers, "
+                f"{res['per_prefill']} a prefill, {res['per_forward']} a decode step)":
+                    res["launches"][count]}
+            entry["shapes"] = entry["shapes"] + [r for r in encdec_kernels
+                                                 if r["kernel"] == entry["name"]]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump({"device": smi, "kernels": kernels, "timing_floor_ms": timing_floor,
@@ -4034,7 +4324,9 @@ def main(argv=None) -> int:
                    "qnn_route_sweep": qnn_route_sweep, "qnn_path": qnn_path,
                    "attn_sweep": attn_sweep,
                    "spec": spec, "paper": paper, "ckpt": ckpt, "moe": moe,
-                   "recurrent": recurrent, "recurrent_kernels": rec_kernels},
+                   "recurrent": recurrent, "recurrent_kernels": rec_kernels,
+                   "encdec": encdec, "encdec_kernels": encdec_kernels,
+                   "phase_seconds": clock.seconds},
                   fh, indent=1, sort_keys=True,
                   default=str)
     print(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")

@@ -1,10 +1,9 @@
-"""Config registry: every architecture of the ``lm``, ``hybrid`` (zamba2)
-and ``xlstm`` families.
+"""Config registry: every architecture of the reference, the ``lm``,
+``hybrid`` (zamba2), ``xlstm`` and ``encdec`` (seamless-m4t-large-v2)
+families.
 
 ``get_config(name, **overrides)`` returns the public ArchConfig,
-``get_smoke(name)`` the reduced same-family config for CPU tests. The
-reference's encoder-decoder family (seamless-m4t-large-v2) is not ported
-yet, so its config is not registered.
+``get_smoke(name)`` the reduced same-family config for CPU tests.
 """
 from __future__ import annotations
 
@@ -17,6 +16,7 @@ from . import (
     nemotron4_15b,
     phi3_mini_38b,
     qwen15_32b,
+    seamless_m4t_large_v2,
     smollm_360m,
     xlstm_125m,
     zamba2_27b,
@@ -33,6 +33,7 @@ _MODULES = (
     chameleon_34b,
     zamba2_27b,
     xlstm_125m,
+    seamless_m4t_large_v2,
 )
 
 REGISTRY = {m.CONFIG.name: m for m in _MODULES}

@@ -1,9 +1,8 @@
 """Serving launcher CLI (port of ``repro/launch/serve.py``): bring up a
 hardware-form (serve-phase) model of any registered config (the lm,
-hybrid and xlstm families) and
-drain a synthetic request stream through a slot engine (continuous or
-paged, optionally with speculative decoding) or the static packed-batch
-engine.
+hybrid, xlstm and encdec families) and drain a synthetic request stream
+through a slot engine (continuous or paged, optionally with speculative
+decoding) or the static packed-batch engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
         --requests 8 --new-tokens 16
@@ -13,6 +12,7 @@ engine.
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --arch mixtral-8x22b \
         --device cpu            # MoE + SWA: engine auto -> static
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-large-v2
 
 Runs on CUDA unless ``--device cpu`` is given; without a GPU it raises.
 Weights are initialised from seed 0, as in the reference launcher; with
@@ -39,9 +39,13 @@ Observability (``obs/``, all opt-in):
 ``--engine auto`` takes the continuous engine where the architecture
 supports it and the static engine otherwise (mixture of experts, sliding
 windows: mixtral, grok; the recurrent families: zamba2-2.7b, xlstm-125m,
-whose states the slot pools do not hold). The static engine has no
-scheduler: no metrics,
+whose states the slot pools do not hold; the encoder-decoder
+seamless-m4t-large-v2). The static engine has no scheduler: no metrics,
 and ``--arrival-rate`` drains closed loop instead, as in the reference.
+For the encoder-decoder family the launcher makes the stub frontend's
+frame embeddings, (batch-size, 16, d_model) = 0.1 x a normal sample from a
+torch generator seeded 1, and passes them as ``run(extra_batch={"frames":
+...})``: the engine trims them to each packed group.
 Tensor parallelism's flags are not ported yet and are not accepted.
 """
 from __future__ import annotations
@@ -49,6 +53,7 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
+import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke
 from repro_torch.device import resolve_device
@@ -160,6 +165,12 @@ def _serve(args, device, tracer) -> int:
         eng = ServeEngine(api, params, arch, **eng_kw)
     print(f"[serve] engine={eng.engine}")
     rng = np.random.RandomState(0)
+    extra = None
+    if arch.family == "encdec":
+        # sized to the engine's packed batch; the engine trims it to each group
+        gen = torch.Generator(device=device).manual_seed(1)
+        extra = {"frames": 0.1 * torch.randn((args.batch_size, 16, arch.d_model),
+                                             generator=gen, device=device)}
     reqs = []
     for i in range(args.requests):
         plen = int(rng.randint(3, 12))
@@ -176,7 +187,7 @@ def _serve(args, device, tracer) -> int:
         else:
             for r in reqs:
                 eng.submit(r)
-            done = eng.run()
+            done = eng.run(extra_batch=extra)
     for r in sorted(done, key=lambda q: q.rid)[:4]:
         print(f"  req {r.rid}: {[int(t) for t in r.output[:10]]}...")
     print(f"[serve] completed {len(done)} requests")

@@ -72,8 +72,8 @@ def paged_kv_layout(cache) -> PagedKVLayout:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The reference's ArchConfig, cut to the fields the lm, hybrid and
-    xlstm families read (same names and defaults)."""
+    """The reference's ArchConfig, cut to the fields the lm, hybrid, xlstm
+    and encdec families read (same names and defaults)."""
 
     name: str
     family: str
@@ -100,7 +100,10 @@ class ArchConfig:
     ssm_head_dim: int = 64
     attn_every: int = 0  # zamba2: shared attention block every k ssm blocks
     slstm_every: int = 0  # xlstm: sLSTM block every k blocks (0 = all mLSTM)
-    # frontend: tokens (frames belong to encdec)
+    # enc-dec
+    n_encoder_layers: int = 0
+    encoder_seq: int = 1024  # stub frontend sequence length
+    # frontend: tokens | frames (encdec: precomputed frame embeddings)
     frontend: str = "tokens"
     compute_mode: str = "dense"  # dense | bika | bnn | qnn8
     bika_m: int = 1
@@ -191,8 +194,11 @@ def unbind_layers(layers) -> List[Any]:
 
 class ModelAPI(NamedTuple):
     """What the trainer and the serving runtime consume (the reference's,
-    without its encdec extras). The paged and speculative entries are the
-    lm family's; a recurrent family has none of them."""
+    plus ``layer_views``). The paged and speculative entries are the lm
+    family's; a recurrent or encoder-decoder family has none of them. The
+    encdec family's ``init_cache`` also takes ``encoder_len``, and its
+    ``apply``, ``prefill`` batches carry ``"frames"`` (B, S_enc, d_model)
+    beside ``"tokens"``."""
 
     init: Callable[..., Any]  # (seed, device) -> params
     # (batch, max_len, quantized, device): the dense slot cache (a

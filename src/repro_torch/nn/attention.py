@@ -1,11 +1,13 @@
 """Grouped-query attention (port of ``repro/nn/attention.py``): the
 full-sequence training forward ``attn_apply`` over ``dot_attention`` /
-``blockwise_attention``; the dense per-slot KV path of the continuous
-engine, the static engine and speculative decoding: ``init_kv_cache``,
-``attn_prefill``, ``attn_decode_step`` and ``attn_verify_step``, with the
-sliding-window (SWA) ring cache; and the paged serve path:
-int8 KV quantization, ``paged_gather``, ``attn_decode_step_paged`` and
-``attn_prefill_chunk``.
+``blockwise_attention``, with cross-attention (``AttnConfig.cross``: K/V
+projected from an encoder's output, no RoPE; ``cross_attention`` also
+returns the projected K/V for the encdec family's cross cache); the
+dense per-slot KV path of the continuous engine, the static engine and
+speculative decoding: ``init_kv_cache``, ``attn_prefill``,
+``attn_decode_step`` and ``attn_verify_step``, with the sliding-window
+(SWA) ring cache; and the paged serve path: int8 KV quantization,
+``paged_gather``, ``attn_decode_step_paged`` and ``attn_prefill_chunk``.
 The score math is plain PyTorch (einsum and softmax), as the reference
 leaves it to XLA.
 
@@ -37,6 +39,7 @@ __all__ = [
     "attn_prefill_chunk",
     "attn_verify_step",
     "blockwise_attention",
+    "cross_attention",
     "dot_attention",
     "init_kv_cache",
     "paged_gather",
@@ -57,6 +60,7 @@ class AttnConfig:
     qkv_bias: bool = False
     causal: bool = True
     block_q: int = 256  # blockwise attention query tile (training)
+    cross: bool = False  # cross-attention (K/V from an encoder's output)
     # "fused": the block-table kernel (default); "gather": paged_gather +
     # dot_attention, the bit-parity oracle
     paged_route: str = "fused"
@@ -139,16 +143,39 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attn_apply(params, x: torch.Tensor, cfg: AttnConfig, spec: LinearSpec, *,
-               phase: str = "train") -> torch.Tensor:
-    """Full-sequence (training) causal self-attention. x: (B, S, D)."""
+               phase: str = "train", kv_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence (train / prefill) attention. x: (B, S, D). Self
+    attention applies RoPE and attends through ``blockwise_attention``
+    (causal per ``cfg.causal``); a ``cfg.cross`` layer takes its K/V from
+    ``kv_x`` (``cross_attention``)."""
+    if cfg.cross:
+        return cross_attention(params, x, kv_x, cfg, spec, phase=phase)[0]
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, spec, phase)
-    pos = torch.arange(s, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    q, k, v = _project_qkv(params, x, cfg, spec, phase, kv_x)
+    q = apply_rope(q, torch.arange(s, dtype=torch.int32, device=x.device), cfg.rope_theta)
+    k = apply_rope(k, torch.arange(k.shape[1], dtype=torch.int32, device=x.device),
+                   cfg.rope_theta)
     out = blockwise_attention(q, k, v, causal=cfg.causal, window=cfg.window,
                               block_q=cfg.block_q)
     return linear_apply(params["wo"], out.reshape(b, s, -1), spec, phase=phase)
+
+
+def cross_attention(params, x: torch.Tensor, kv_x: torch.Tensor, cfg: AttnConfig,
+                    spec: LinearSpec, *, phase: str = "train"):
+    """Cross-attention of x (B, S, D) over kv_x (B, S_kv, D): q from x, k
+    and v from kv_x (projected in that order, as the reference does), no
+    RoPE, every key visible (``dot_attention``, non-causal, positions
+    arange). Returns (y (B, S, D), k, v (B, S_kv, Hkv, hd)): the projected
+    K/V are what the encdec family's prefill keeps as its cross cache."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, spec, phase, kv_x)
+    out = dot_attention(
+        q, k, v,
+        q_positions=torch.arange(s, dtype=torch.int32, device=x.device),
+        kv_positions=torch.arange(k.shape[1], dtype=torch.int32, device=x.device),
+        causal=False,
+    )
+    return linear_apply(params["wo"], out.reshape(b, s, -1), spec, phase=phase), k, v
 
 
 def _quantize_kv(x: torch.Tensor):
@@ -334,11 +361,14 @@ def paged_gather(leaf: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return g.reshape(g.shape[0], g.shape[1] * g.shape[2], *g.shape[3:])
 
 
-def _project_qkv(params, x, cfg: AttnConfig, spec, phase):
+def _project_qkv(params, x, cfg: AttnConfig, spec, phase, kv_x=None):
+    """q from x; k and v from ``kv_x`` where given (cross-attention), else
+    from x."""
     hd = cfg.head_dim
+    src = x if kv_x is None else kv_x
     q = _split_heads(linear_apply(params["wq"], x, spec, phase=phase), cfg.n_heads, hd)
-    k = _split_heads(linear_apply(params["wk"], x, spec, phase=phase), cfg.n_kv_heads, hd)
-    v = _split_heads(linear_apply(params["wv"], x, spec, phase=phase), cfg.n_kv_heads, hd)
+    k = _split_heads(linear_apply(params["wk"], src, spec, phase=phase), cfg.n_kv_heads, hd)
+    v = _split_heads(linear_apply(params["wv"], src, spec, phase=phase), cfg.n_kv_heads, hd)
     return q, k, v
 
 

@@ -15,12 +15,13 @@ API:
   decoded greedily to completion before the next group is admitted. It
   serves what the slot schedulers cannot: mixture of experts (capacity
   routing couples the rows of a batch), sliding windows (a ring cache
-  shorter than max_len) and the recurrent families (hybrid, xlstm: their
+  shorter than max_len), the recurrent families (hybrid, xlstm: their
   states are no KV slots; the left pads run through the recurrences, as in
-  the reference). It uses no part of the model but ``prefill`` and
-  ``decode_step``, and the tree the family's ``layer_views`` makes. Its
-  decode loop stops once every row is done and never writes past the
-  cache's end. Speculation is rejected.
+  the reference) and the encoder-decoder family (its cross cache and the
+  packed batch's ``extra_batch`` frames). It uses no part of the model
+  but ``prefill`` and ``decode_step``, and the tree the family's
+  ``layer_views`` makes. Its decode loop stops once every row is done and
+  never writes past the cache's end. Speculation is rejected.
 - ``engine="auto"`` resolves as the reference does: ``continuous`` when the
   architecture supports the slot scheduler, else ``static``.
 
@@ -41,8 +42,13 @@ scheduler (``obs/trace.py``, ``obs/registry.py``), and ``profile_sample >
 phase-times every Nth tick (``engine.profiler``; None when off). The
 static engine has no scheduler, so no tracer events and no RunMetrics
 (``engine.metrics`` is None), as in the reference. Its packed-batch extra
-inputs (``run(extra_batch=...)``, the encdec family's frames) wait for that
-family and raise.
+inputs (``run(extra_batch={"frames": ...})``, the encdec family's frame
+embeddings) join every group's prefill batch, trimmed to the group's rows
+as the reference trims them: only the rows beyond the group's size go, so
+every group of a drain gets the same leading rows (an 8-request drain at
+batch 4 gives both groups ``frames[:4]``), kept on purpose for token
+parity with the reference. A family that reads no extra key ignores it.
+A slot engine refuses ``extra_batch``.
 
 The engine runs on CUDA unless ``device="cpu"`` is passed; without a GPU
 and without that request it raises.
@@ -193,7 +199,8 @@ class ServeEngine:
     @staticmethod
     def _slice_extra(extra_batch: Dict, n: int) -> Dict:
         """Trim batched extra inputs to the packed batch (the last group of
-        a drain is smaller than batch_size)."""
+        a drain is smaller than batch_size): only rows beyond ``n`` go, so
+        every group takes the same leading rows, as in the reference."""
         out = {}
         for k, v in extra_batch.items():
             if hasattr(v, "ndim") and v.ndim >= 1 and v.shape[0] > n:
@@ -204,16 +211,19 @@ class ServeEngine:
     @torch.inference_mode()
     def step_batch(self, reqs: Sequence[Request], extra_batch: Optional[Dict] = None):
         """Static path: prefill and greedily decode one packed batch to
-        completion; fills ``req.output``. The host loop stops as soon as
-        every row is finished (EOS or its budget), and decoding stops at the
-        cache end (positions s .. max_len - 1) instead of overwriting its
-        last row."""
-        if extra_batch:
-            raise NotImplementedError(
-                "extra_batch (the encdec family's frames) waits for that family's port")
+        completion; fills ``req.output``. ``extra_batch`` (the encdec
+        family's frames) joins the prefill batch, trimmed by
+        ``_slice_extra`` and moved to the engine's device. The host loop
+        stops as soon as every row is finished (EOS or its budget), and
+        decoding stops at the cache end (positions s .. max_len - 1) instead
+        of overwriting its last row."""
         tokens, s = self._pack(reqs)
-        logits, cache = self.api.prefill(self.params, {"tokens": tokens},
-                                         max_len=self.max_len, quantized=self.quantized_kv)
+        batch = {"tokens": tokens}
+        if extra_batch:
+            batch.update({k: torch.as_tensor(v).to(self.device) if hasattr(v, "shape") else v
+                          for k, v in self._slice_extra(extra_batch, len(reqs)).items()})
+        logits, cache = self.api.prefill(self.params, batch, max_len=self.max_len,
+                                         quantized=self.quantized_kv)
         tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         n_steps = max(r.max_new_tokens for r in reqs)
         n_steps = max(1, min(n_steps, self.max_len - s + 1))

@@ -66,6 +66,11 @@ class Trainer:
             raise NotImplementedError(
                 f"{cfg.arch.name}: training the {cfg.arch.family} family is not ported yet "
                 f"(the training kernels under its recurrent scans); the port serves it")
+        if cfg.arch.family == "encdec":
+            raise NotImplementedError(
+                f"{cfg.arch.name}: training the encdec family is not ported yet (the "
+                f"data pipeline's frames_dim frames beside the tokens, and the training "
+                f"kernels under both the encoder and the decoder stacks); the port serves it")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.fail_at_step = fail_at_step

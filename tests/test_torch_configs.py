@@ -84,9 +84,15 @@ def _close(got: torch.Tensor, want, what: str) -> None:
 
 def test_registry_matches_reference():
     """Every registered port config (and its SMOKE) equals the reference's
-    on every field the port keeps; the encdec family waits."""
-    assert set(ARCH_NAMES) == {"smollm-360m", "zamba2-2.7b", "xlstm-125m"} | set(NEW)
-    assert set(JAX_REGISTRY) - set(REGISTRY) == {"seamless-m4t-large-v2"}
+    on every field the port keeps, and no reference config is missing."""
+    assert set(ARCH_NAMES) == {"smollm-360m", "zamba2-2.7b", "xlstm-125m",
+                               "seamless-m4t-large-v2"} | set(NEW)
+    assert set(REGISTRY) == set(JAX_REGISTRY)
+    seamless = get_config("seamless-m4t-large-v2")
+    assert (seamless.family, seamless.n_encoder_layers, seamless.frontend) == (
+        "encdec", 24, "frames")
+    assert (get_smoke("seamless-m4t-large-v2").n_encoder_layers,
+            get_smoke("seamless-m4t-large-v2").encoder_seq) == (2, 32)
     for name in ARCH_NAMES:
         for attr in ("CONFIG", "SMOKE"):
             want = getattr(JAX_REGISTRY[name], attr)
@@ -251,9 +257,13 @@ def test_static_engine_refuses_speculation_and_extra_batch(lm):
         ServeEngine(api, params, cfg, engine="static", spec_draft=(api, params, cfg),
                     spec_k=4, device="cpu")
     eng = ServeEngine(api, params, cfg, engine="static", max_len=32, device="cpu")
-    eng.submit(Request(rid=0, prompt=np.arange(3, dtype=np.int32), max_new_tokens=2))
-    with pytest.raises(NotImplementedError, match="encdec"):
-        eng.run(extra_batch={"frames": np.zeros((1, 4, 96), np.float32)})
+    # the lm family's prefill reads no "frames": a drain with extra frames
+    # equals the drain without them, as in the reference
+    outs = []
+    for extra in ({"frames": np.ones((1, 4, cfg.d_model), np.float32)}, None):
+        eng.submit(Request(rid=0, prompt=np.arange(3, dtype=np.int32), max_new_tokens=2))
+        outs.append(eng.run(extra_batch=extra)[0].output)
+    np.testing.assert_array_equal(outs[0], outs[1])
     with pytest.raises(ValueError, match="max_len"):
         eng.submit(Request(rid=1, prompt=np.arange(32, dtype=np.int32)))
 

@@ -41,7 +41,9 @@ dims (G = 6, 1 and 8 at D = 128; G = 1 at D = 96), and kernel 1 at
 mixtral's expert and attention shapes (K = 6144 and 16384, M down to 1),
 and kernels 1, 7 and 10 at zamba2's in_proj (N = 10448: a ragged last
 128-column tile), with a SMOKE forward of each recurrent family on the card
-equal to its CPU forward at exact launch counts.
+equal to its CPU forward at exact launch counts; kernels 1, 7 and 10 at the
+encoder-decoder family's three (K, N), with a SMOKE seamless drain on the
+card equal to its CPU drain token for token at exact launch counts.
 At the paper models' ragged shapes (TFC's N = 10 and
 K = 32 head, CNV's first conv at K = 3 x 3 x 3 = 27 and a large im2col M)
 every kernel of their paths holds to its plain version the same way, and
@@ -668,3 +670,87 @@ def _tree_to(tree, where):
     if isinstance(tree, list):
         return [_tree_to(v, where) for v in tree]
     return tree.to(where)
+
+
+# seamless-m4t-large-v2's projections: self and cross q/k/v/o, up, down
+ENCDEC_KN = [(1024, 1024), (1024, 8192), (8192, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 64])
+@pytest.mark.parametrize("k,n", ENCDEC_KN)
+def test_encdec_shapes_on_card(cuda, k, n, m):
+    """Kernels 1, 7 and 10 at the encoder-decoder family's three (K, N),
+    at decode (M = 4) and at the encoder and cross K/V of 4 x 16 frames (M
+    = 64): bit-exact against the plain versions, repeatable, one counted
+    launch a call."""
+    rng = np.random.default_rng(m + k + 2 * n)
+    x, tau, s = cac_case(rng, m, k, n)
+    args = [torch.from_numpy(a) for a in (x, tau)] + [pack_signs(torch.from_numpy(s))]
+    dev = [a.to(cuda) for a in args]
+    xf, w, _ = (torch.from_numpy(a).to(cuda) for a in bnn_case(rng, m, k, n, nan=True))
+    wp = pack_signs(sign(w).to(torch.int8))
+    xq, wq, ws = (torch.from_numpy(a).to(cuda) for a in qnn_case(rng, m, k, n))
+    calls = ((cac_matmul_kernel_call, dev, cac_matmul_plain(*args)),
+             (bnn.bnn_packed_matmul_kernel_call, (xf, wp), bnn.bnn_packed_matmul_plain(xf, wp)),
+             (qnn.qnn_matmul_kernel_call, (xq, wq, ws, 0.05),
+              qnn.qnn_matmul_plain(xq, wq, ws, 0.05)))
+    for fn, operands, want in calls:
+        before = fn.launches
+        got, again = fn(*operands), fn(*operands)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2, fn
+        assert torch.equal(got, again), fn
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_encdec_smoke_drain_on_card(cuda, monkeypatch):
+    """A SMOKE seamless-m4t-large-v2 in bika through ServeEngine.from_trained
+    (auto -> static), 5 requests at batch 4 with frames (4, 16, 64) given as
+    ``run(extra_batch=)``: the drain on the card equals the same drain on
+    the CPU token for token, activation codes held to the card's at
+    genuine half-way ties (``chip_smoke._code_hooks``), and the card's
+    kernel-1 launches are exactly 6 an encoder layer and 10 a decoder layer
+    a prefill and 8 a decoder layer a decode step, and no other kernel."""
+    import os
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    monkeypatch.syspath_prepend(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    cfg = get_smoke("seamless-m4t-large-v2", compute_mode="bika", pack_signs=True, remat=False)
+    train = build_model(cfg, phase="train").init(3, device="cpu")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(3, 12))).astype(np.int32)
+               for _ in range(5)]
+    frames = (0.1 * rng.normal(size=(4, 16, cfg.d_model))).astype(np.float32)
+    install, restore, _ = cs._code_hooks(torch)
+    outs = {}
+    for side, where in (("card", cuda), ("cpu", torch.device("cpu"))):
+        eng = ServeEngine.from_trained(_tree_to(train, where), cfg, batch_size=4, max_len=32,
+                                       device=where)
+        assert eng.engine == "static"
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+        ops.reset_launches()
+        install(side)
+        try:
+            done = eng.run(extra_batch={"frames": frames})
+        finally:
+            restore()
+        if side == "card":
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            # two groups: a prefill and 5 decode steps each
+            per_prefill = 6 * cfg.n_encoder_layers + 10 * cfg.n_layers
+            assert counts["cac_hw"] == 2 * (per_prefill + 5 * 8 * cfg.n_layers), counts
+            assert sum(counts.values()) == counts["cac_hw"], counts
+        outs[side] = {r.rid: np.asarray(r.output) for r in done}
+    assert sorted(outs["card"]) == list(range(5))
+    for i in range(5):
+        np.testing.assert_array_equal(outs["card"][i], outs["cpu"][i], err_msg=f"request {i}")
