@@ -226,6 +226,27 @@ any failure exits non-zero):
              prefill, 48 a decode step), a drain each twice. ``python3
              chip_smoke.py --only encdec`` runs the two alone (a partial
              run: no result line).
+18. train-families — training the mixture of experts and the
+             encoder-decoder (phase_train_families_kernels,
+             phase_train_families): kernels 2-6, 8 and 9 at the seven (M,
+             K, N) of mixtral-8x22b's and seamless-m4t-large-v2's training
+             projections at batch 4 x seq 128 (``FAMILY_TRAIN_SHAPES``;
+             mixtral's expert queues hold 160 rows, a ragged last 128-row
+             tile, and its down projection K = 16384): 2 and 6 bit-exact,
+             the backwards within 1e-4, all repeatable, timed beside their
+             plain versions, a library call and the bound. Then seamless
+             in bika at full width and all 24 + 24 layers through the
+             Trainer (frames from the pipeline): 3 AdamW steps, a profiled
+             one and a profiled split-backward one, launches exact (768
+             kernel-2 and 384 kernel-5 a step); in bnn at 6 + 6 layers, 3
+             steps; mixtral at full width, 1 layer: the bika gradient twice
+             (56 kernel-2 and 28 kernel-5 launches each, equal bit for bit;
+             its AdamW state does not fit the card in bika), 3 AdamW steps
+             in bnn (56 / 28 / 28 launches) and in qnn8; peaks of each; then
+             one train step of each family's SMOKE config card vs CPU in
+             bika and bnn, Signs, STE masks and expert choices held at
+             genuine ties. ``python3 chip_smoke.py --only train-families``
+             runs the two alone (a partial run: no result line).
 
 Earlier paths run at cut depths so that the whole script stays well inside
 its time limit: the card-vs-CPU parities, whose CPU sides are most of their
@@ -1923,15 +1944,27 @@ def _train_step(torch, ops, trainer, params, opt, step, expect):
                          "grad_norm": float(met["grad_norm"]), "launches": counts}
 
 
-def phase_train_path(torch, np, dev, mode, tag="train"):
-    """Trainer on full-width, full-depth smollm-360m in ``mode`` (random
-    train-form weights from seed 42, remat on), batch 4 x seq 128: 3 steps,
-    then 1 more under torch.profiler. Per step, with remat, each of the 7
-    projections x 32 layers launches its forward kernel twice (forward, then
-    the recompute in the backward) and its backward once: bika the training
-    CAC forward and the fused STE backward (a 4th step takes the split dx +
-    dw pair); bnn the sign product (kernel 6) and the SignSTE dx and dw
-    kernels (8 and 9)."""
+def _train_projections(arch) -> int:
+    """Projections one training forward of ``arch`` runs through its mode's
+    kernel: 4 attention ones a layer (q, k, v, o), and the FFN's 3 (gated)
+    or 2 per expert (or once without experts); the encoder-decoder's
+    decoder layers also run the cross attention's 4."""
+    mlp = 3 if arch.gated_mlp else 2
+    if arch.family == "encdec":
+        return arch.n_encoder_layers * (4 + mlp) + arch.n_layers * (8 + mlp)
+    return arch.n_layers * (4 + mlp * max(arch.n_experts, 1))
+
+
+def phase_train_path(torch, np, dev, mode, tag="train", arch=None, profiled=True):
+    """Trainer on ``arch`` in ``mode`` (default: full-width, full-depth
+    smollm-360m; random train-form weights from seed 42, remat on), batch 4
+    x seq 128: 3 steps, then (``profiled``) 1 more under torch.profiler. Per
+    step, with remat, each projection (``_train_projections``) launches its
+    forward kernel twice (forward, then the recompute in the backward) and
+    its backward once: bika the training CAC forward and the fused STE
+    backward (with ``profiled``, a last step takes the split dx + dw pair);
+    bnn the sign product (kernel 6) and the SignSTE dx and dw kernels (8
+    and 9); qnn8 no kernel (fake quantization)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -1939,22 +1972,27 @@ def phase_train_path(torch, np, dev, mode, tag="train"):
     from repro_torch.optim.adamw import OptimizerSpec
     from repro_torch.train.trainer import TrainConfig, Trainer
 
-    arch = get_config("smollm-360m", compute_mode=mode)
-    n_proj = 7 * arch.n_layers
+    arch = arch or get_config("smollm-360m", compute_mode=mode)
+    n_proj = _train_projections(arch)
+    split = None
     if mode == "bika":
         main = {"cac_train_fwd": 2 * n_proj, "cac_train_bwd_fused": n_proj}
-        split = {"cac_train_fwd": 2 * n_proj, "cac_train_bwd_dx": n_proj,
-                 "cac_train_bwd_dw": n_proj}
-    else:
+        if profiled:
+            split = {"cac_train_fwd": 2 * n_proj, "cac_train_bwd_dx": n_proj,
+                     "cac_train_bwd_dw": n_proj}
+    elif mode == "bnn":
         main = {"bnn": 2 * n_proj, "bnn_bwd_dx": n_proj, "bnn_bwd_dw": n_proj}
-        split = None
+    else:
+        main = {}
     cfg = TrainConfig(arch=arch, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                       steps=TRAIN_STEPS + (2 if split is None else 3))
     trainer = Trainer(cfg, OptimizerSpec(total_steps=cfg.steps), device=dev)
+    layers = (f"{arch.n_encoder_layers} + {arch.n_layers}" if arch.family == "encdec"
+              else f"{arch.n_layers}")
     t0 = time.perf_counter()
     params, opt, _ = trainer.init()
     torch.cuda.synchronize()
-    print(f"[{tag}] smollm-360m {mode}, {arch.n_layers} layers, d_model {arch.d_model}, "
+    print(f"[{tag}] {arch.name} {mode}, {layers} layers, d_model {arch.d_model}, "
           f"remat={arch.remat}: init {time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
     steps = []
@@ -1973,13 +2011,19 @@ def phase_train_path(torch, np, dev, mode, tag="train"):
         print(f"[{tag}] step {r['step']}{' (split backward)' if r.get('split') else ''}: "
               f"loss {r['loss']:.5f} grad_norm {r['grad_norm']:.4f} {r['ms']:.1f} ms "
               f"launches {r['launches']}")
+    result = {"steps": steps, "max_memory_allocated": peak, "arch": arch.name,
+              "layers": layers, "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ,
+              "launches_per_step": main}
+    if not profiled:
+        print(f"[{tag}] peak memory {peak / 2**30:.2f} GiB; steps "
+              f"{[round(r['ms'], 1) for r in steps]} ms")
+        return result
     label = f"{mode}_train_step"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with torch.profiler.record_function(label):
             params, opt, row = _train_step(torch, ops, trainer, params, opt, TRAIN_STEPS + 1,
                                            main)
-    result = {"steps": steps, "profiled_step": row, "max_memory_allocated": peak,
-              "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ}
+    result["profiled_step"] = row
     # kernels 8, 9 and 6 (its tensor-core route at M = 512) each run a sign
     # pass and then the product template in its mode (1 dx, 0 dw, 2 fwd)
     groups = ({"bnn_bwd_dx": ("bnn_sign_kernel<true", "bnn_bwd_kernel<1,"),
@@ -2499,10 +2543,56 @@ def _tree_np(tree):
     return tree.detach().cpu().numpy()
 
 
-def phase_train_parity(torch, np, dev, mode, hooks, tag="train-parity", layers=2):
-    """One train step (loss, gradients, AdamW update) of the same 2-layer,
-    full-width model in ``mode`` on the card and on the CPU plain path: the
-    same numpy params (seed 3) and the same batch (2 x 64 tokens).
+def _tree_paths(tree, path=""):
+    """Leaf paths of a dict tree in ``tree_leaves``'s order (keys sorted)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _tree_paths(tree[k], f"{path}/{k}")]
+    return [path]
+
+
+def _beta_abs_terms(torch, api, params, batch, leaf):
+    """For each element of ``leaf`` (a bika dbeta leaf of ``params``, on the
+    CPU), the sum of the absolute terms its gradient adds up in one
+    ``loss_and_grads``: sum_m |g_mn| 1[|x_mk w_kn + beta_kn| <= 1], g the
+    gradient reaching the CAC output (the STE backward's dbeta). A call's
+    beta is a view of ``leaf`` where it shares its storage; its offset
+    places it."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.steps import loss_and_grads
+
+    real = ops.cac_train_matmul
+    out = torch.zeros(leaf.numel(), dtype=torch.float64)
+    ptr = leaf.untyped_storage().data_ptr()
+
+    def spy(x, w, beta, **kw):
+        y = real(x, w, beta, **kw)
+        if y.requires_grad and beta.untyped_storage().data_ptr() == ptr:
+            at, n = beta.storage_offset(), w.numel()
+            x2 = x.detach().double().reshape(-1, x.shape[-1])
+            mask = ((x2[:, :, None] * w.detach().double() + beta.detach().double()).abs()
+                    <= 1.0)
+
+            def hook(g):
+                g2 = g.detach().double().reshape(-1, w.shape[1])[:, None, :].abs()
+                out[at:at + n] += (g2 * mask).sum(0).reshape(-1)
+
+            y.register_hook(hook)
+        return y
+
+    ops.cac_train_matmul = spy
+    try:
+        loss_and_grads(api, params, batch)
+    finally:
+        ops.cac_train_matmul = real
+    return out.reshape(leaf.shape)
+
+
+def phase_train_parity(torch, np, dev, mode, hooks, tag="train-parity", layers=2, arch=None,
+                       cancelling=()):
+    """One train step (loss, gradients, AdamW update) of the same model in
+    ``mode`` on the card and on the CPU plain path: smollm-360m at full
+    width cut to ``layers`` layers, or ``arch``; the same numpy params (seed
+    3) and the same batch (2 x 64 tokens, and the encoder-decoder's frames).
 
     The CAC outputs are integers, but the float parts (RMSNorm, softmax, the
     head) differ between the two devices by ~1e-7 relative, and a
@@ -2518,7 +2608,13 @@ def phase_train_parity(torch, np, dev, mode, hooks, tag="train-parity", layers=2
     is in PERF.md). A bnn model flips the same way where a projection's
     input lies within the noise of 0 (its Sign) or of |x| = 1 (its STE
     mask, which gates a whole element of dx); ``_bnn_train_hooks`` holds
-    both at genuine ties."""
+    both at genuine ties. A gradient leaf named in ``cancelling`` (a bika
+    dbeta whose terms cancel to below their float32 rounding, as the cross
+    attention's key bias: softmax's scores shift alike for every key a
+    query sees, so the keys' gradients sum to 0 and only the STE mask's few
+    zeros leave a remainder) is held instead to TRAIN_PARITY_REL of the L2
+    norm of its absolute terms (``_beta_abs_terms``, on the CPU), the bound
+    of any float sum."""
     from repro_torch.configs import get_config
     from repro_torch.core.convert import from_reference
     from repro_torch.data.lm import LMDataConfig, lm_batch
@@ -2526,10 +2622,11 @@ def phase_train_parity(torch, np, dev, mode, hooks, tag="train-parity", layers=2
     from repro_torch.optim.adamw import OptimizerSpec, make_optimizer, tree_leaves
     from repro_torch.train.steps import loss_and_grads
 
-    arch = get_config("smollm-360m", compute_mode=mode, n_layers=layers)
+    arch = arch or get_config("smollm-360m", compute_mode=mode, n_layers=layers)
     api = build_model(arch, phase="train")
     np_params = _tree_np(api.init(3, device="cpu"))
-    batch = lm_batch(LMDataConfig(vocab=arch.vocab, seq_len=64, global_batch=2, seed=5), 0)
+    batch = lm_batch(LMDataConfig(vocab=arch.vocab, seq_len=64, global_batch=2, seed=5,
+                                  frames_dim=arch.d_model if arch.family == "encdec" else 0), 0)
     install, restore, report = hooks
     out = {}
     try:
@@ -2548,19 +2645,31 @@ def phase_train_parity(torch, np, dev, mode, hooks, tag="train-parity", layers=2
     held = report()
     (lc, gc, pc, tc), (lp, gp, pp, tp) = out["card"], out["cpu"]
     loss_rel = abs(lc - lp) / abs(lp)
-    rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
-    g_rel = max(rel(a, b) for a, b in zip(gc, gp))
-    p_rel = max(rel(a, b) for a, b in zip(pc, pp))
+    paths = _tree_paths(np_params)
+    scale = {}
+    for name in cancelling:
+        cpu_params = from_reference(np_params, device="cpu")
+        leaf = cpu_params
+        for key in name.strip("/").split("/"):
+            leaf = leaf[key]
+        scale[name] = float(_beta_abs_terms(torch, api, cpu_params, batch, leaf).norm())
+    rel = lambda a, b, den: float((a - b).norm() / max(den, 1e-30))
+    g_rels = [rel(a, b, scale.get(path, float(b.norm()))) for path, a, b in zip(paths, gc, gp)]
+    g_rel, worst = max(zip(g_rels, paths))
+    p_rel = max(rel(a, b, float(b.norm())) for a, b in zip(pc, pp))
     if not (np.isfinite(lc) and loss_rel <= TRAIN_PARITY_LOSS):
         fail(f"{tag}: loss card {lc} cpu {lp} (relative {loss_rel:.3e} > "
              f"{TRAIN_PARITY_LOSS})")
     if not (g_rel <= TRAIN_PARITY_REL and p_rel <= TRAIN_PARITY_REL):
-        fail(f"{tag}: worst leaf relative L2 gradient {g_rel:.3e}, parameter "
+        fail(f"{tag}: worst leaf relative L2 gradient {g_rel:.3e} ({worst}), parameter "
              f"{p_rel:.3e} (limit {TRAIN_PARITY_REL})")
-    print(f"[{tag}] {mode}, 2 layers at full width, one train step, card vs CPU plain path: "
+    print(f"[{tag}] {arch.name} {mode}, {arch.n_layers} layers, d_model {arch.d_model}, one "
+          f"train step, card vs CPU plain path: "
           f"loss {lc:.6f} vs {lp:.6f} (relative {loss_rel:.2e}, limit {TRAIN_PARITY_LOSS}); "
-          f"worst leaf relative L2 gradient {g_rel:.2e}, parameter {p_rel:.2e} (limit "
-          f"{TRAIN_PARITY_REL}); {held}; card {tc:.1f} s, CPU {tp:.1f} s")
+          f"worst leaf relative L2 gradient {g_rel:.2e} ({worst}), parameter {p_rel:.2e} "
+          f"(limit {TRAIN_PARITY_REL})"
+          + "".join(f"; {name} held to its absolute terms' norm {v:.3e}"
+                    for name, v in scale.items()) + f"; {held}; card {tc:.1f} s, CPU {tp:.1f} s")
     return {"loss_card": lc, "loss_cpu": lp, "loss_rel": loss_rel, "grad_rel": g_rel,
             "param_rel": p_rel, "held": held}
 
@@ -3991,11 +4100,286 @@ def phase_encdec(torch, np, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# train-families: training mixtral-8x22b (MoE) and seamless-m4t-large-v2
+# (encoder-decoder) at full width
+# ---------------------------------------------------------------------------
+
+MIXTRAL = "mixtral-8x22b"
+# kernels 2-6, 8 and 9 at every (M, K, N) the two families' training
+# projections give them at batch 4 x seq 128 (M = 512): mixtral's
+# attention, and its experts' (C, D) queues at C = int(512 x 2 / 8 x 1.25)
+# = 160 rows (a ragged last 128-row tile); seamless's attention (self and
+# cross: the encoder runs over 4 x 128 frames) and its ungated FFN
+FAMILY_TRAIN_SHAPES = [
+    (f"{MIXTRAL} q/o", 512, 6144, 6144), (f"{MIXTRAL} k/v", 512, 6144, 1024),
+    (f"{MIXTRAL} expert gate/up", 160, 6144, 16384), (f"{MIXTRAL} expert down", 160, 16384, 6144),
+    (f"{ENCDEC} q/k/v/o", 512, 1024, 1024), (f"{ENCDEC} up", 512, 1024, 8192),
+    (f"{ENCDEC} down", 512, 8192, 1024)]
+FAMILY_LOWBIT_LAYERS = 6  # seamless in bnn at 6 + 6 layers
+MIXTRAL_TRAIN_LAYERS = 1  # mixtral at full width, 1 of 56 layers (its state fills the card)
+
+
+def _bnn_operands_on(torch, gen, dev, m, k, n):
+    """``_bnn_operands`` drawn on the card (the host's normal draws of the
+    expert shapes' 100 M-element w took seconds each): x, g ~ N(0, 1), w ~
+    N(0, 0.25), about 2% of x and w exact +0.0, 2% exact -0.0 and 1% exact
+    +-1."""
+    x = torch.randn((m, k), generator=gen, device=dev)
+    w = torch.randn((k, n), generator=gen, device=dev) * 0.5
+    for a in (x, w):
+        u = torch.rand(a.shape, generator=gen, device=dev)
+        a[u < 0.02] = 0.0
+        a[(u >= 0.02) & (u < 0.04)] = -0.0
+        edge = (u >= 0.04) & (u < 0.05)
+        a[edge] = torch.where(torch.rand(a.shape, generator=gen, device=dev) < 0.5, 1.0,
+                              -1.0)[edge]
+    return x, w, torch.randn((m, n), generator=gen, device=dev)
+
+
+def _family_train_row(torch, dev, flush, gen, where, m, k, n):
+    """Kernels 2-5 and 6, 8, 9 at one (M, K, N), operands drawn on the card
+    (as the path's kernel tests draw them): the forwards bit-exact against
+    their plain versions, the backwards within TRAIN_TOL (kernels 3-5 off
+    the |pre| = 1 window edge, as ``phase_train_kernels``; 8 and 9 on every
+    element, as ``phase_bnn_kernels``) and bit-for-bit repeatable; each
+    timed (L2 flushed) beside its plain version (one call: at these sizes
+    the plain versions take ~0.1-1 s) and its bound."""
+    from repro_torch.kernels import bnn_matmul as bnn
+    from repro_torch.kernels import cac_matmul as cac
+    from repro_torch.core.ste import sign
+
+    x = torch.randn((m, k), generator=gen, device=dev)
+    w = torch.randn((k, n), generator=gen, device=dev) * 0.5
+    beta = torch.randn((k, n), generator=gen, device=dev) * 0.5
+    g = torch.randn((m, n), generator=gen, device=dev)
+    index = dev.index or 0
+    row = {"where": where, "M": m, "K": k, "N": n,
+           "fwd_splits": cac.card_train_fwd_plan(index, m, k, n)[0],
+           "bwd_cluster": cac.card_train_bwd_plan(index, m, k, n),
+           "dw_plan": cac.card_train_bwd_dw_plan(index, m, k, n)}
+    y = cac.cac_train_fwd_call(x, w, beta)
+    if not _bits_equal(torch, y, cac.cac_train_fwd_plain(x, w, beta)):
+        fail(f"cac_train_fwd {where} M={m} K={k} N={n}: differs from plain (must be bit-exact)")
+    fused = cac.cac_train_bwd_fused_call(x, w, beta, g)
+    split = (cac.cac_train_bwd_dx_call(x, w, beta, g),) + cac.cac_train_bwd_dw_call(x, w, beta, g)
+    again = (cac.cac_train_bwd_fused_call(x, w, beta, g),
+             (cac.cac_train_bwd_dx_call(x, w, beta, g),) + cac.cac_train_bwd_dw_call(x, w, beta, g))
+    for which, first, second in zip(("fused", "split"), (fused, split), again):
+        for name, a, b in zip(("dx", "dw", "dbeta"), first, second):
+            if not _bits_equal(torch, a, b):
+                fail(f"cac_train_bwd {which} {where} M={m} K={k} N={n}: {name} differs between "
+                     f"two launches (must repeat bit for bit)")
+    del again
+    plain = cac.cac_train_bwd_fused_plain(x, w, beta, g)
+    dx_keep, dw_keep = _window_clear(torch, x, w, beta, rows=max(1, (1 << 28) // (k * n)))
+    row["left_out"] = {"dx": int((~dx_keep).sum()), "dw": int((~dw_keep).sum())}
+    for name, a, b, c, keep in zip(("dx", "dw", "dbeta"), fused, split, plain,
+                                   (dx_keep, dw_keep, dw_keep)):
+        for which, got, want in (("fused", a, c), ("split", b, c)):
+            err, ok = _close_err(torch, got, want, keep)
+            row[f"{name}_{which}_max_abs_err"] = err
+            if not ok:
+                fail(f"cac_train {which} {name} {where} M={m} K={k} N={n}: beyond atol = rtol = "
+                     f"{TRAIN_TOL} (max |diff| {err:.3e})")
+    del fused, split, plain, dx_keep, dw_keep
+    xb, wb, gb = _bnn_operands_on(torch, gen, dev, m, k, n)
+    if not torch.equal(bnn.bnn_matmul_kernel_call(xb, wb), bnn.bnn_matmul_plain(xb, wb)):
+        fail(f"bnn forward {where} M={m} K={k} N={n}: differs from plain (must be bit-exact)")
+    dx, dw = bnn.bnn_bwd_dx_call(xb, wb, gb), bnn.bnn_bwd_dw_call(xb, wb, gb)
+    if not (torch.equal(dx, bnn.bnn_bwd_dx_call(xb, wb, gb))
+            and torch.equal(dw, bnn.bnn_bwd_dw_call(xb, wb, gb))):
+        fail(f"bnn backward {where} M={m} K={k} N={n}: a second launch gave other values")
+    keep = torch.ones((), dtype=torch.bool, device=dev)
+    for name, kern, want in (("dx", dx, bnn.bnn_bwd_dx_plain(xb, wb, gb)),
+                             ("dw", dw, bnn.bnn_bwd_dw_plain(xb, wb, gb))):
+        err, ok = _close_err(torch, kern, want, keep)
+        row[f"bnn_{name}_max_abs_err"] = err
+        if not ok:
+            fail(f"bnn backward {name} {where} M={m} K={k} N={n}: beyond atol = rtol = "
+                 f"{TRAIN_TOL} (max |diff| {err:.3e})")
+    del dx, dw
+    row["bnn_plan"] = {"fwd": list(bnn._card_fwd_plan(index, m, k, n, wb.dtype)),
+                       **{nm: list(bnn._card_plan(index, m, k, n, nm == "dx"))
+                          for nm in ("dx", "dw")}}
+    sx, sw = sign(xb), sign(wb)
+    mkn = float(m) * k * n
+    timed = {  # (kernel, plain, library call or None, operations, bytes, rate)
+        "fwd": (lambda: cac.cac_train_fwd_call(x, w, beta),
+                lambda: cac.cac_train_fwd_plain(x, w, beta), None,
+                4 * mkn, 4.0 * (m * k + 2 * k * n + m * n), CUDA_CORE_OPS_S),
+        "bwd_fused": (lambda: cac.cac_train_bwd_fused_call(x, w, beta, g),
+                      lambda: cac.cac_train_bwd_fused_plain(x, w, beta, g), None,
+                      9 * mkn, 4.0 * (2 * m * k + 4 * k * n + m * n), CUDA_CORE_OPS_S),
+        "bwd_dx": (lambda: cac.cac_train_bwd_dx_call(x, w, beta, g),
+                   lambda: cac.cac_train_bwd_dx_plain(x, w, beta, g), None,
+                   6 * mkn, 4.0 * (2 * m * k + 2 * k * n + m * n), CUDA_CORE_OPS_S),
+        "bwd_dw": (lambda: cac.cac_train_bwd_dw_call(x, w, beta, g),
+                   lambda: cac.cac_train_bwd_dw_plain(x, w, beta, g), None,
+                   7 * mkn, 4.0 * (m * k + 4 * k * n + m * n), CUDA_CORE_OPS_S),
+        "bnn_fwd_f32": (lambda: bnn.bnn_matmul_kernel_call(xb, wb),
+                        lambda: bnn.bnn_matmul_plain(xb, wb), lambda: torch.matmul(sx, sw),
+                        2 * mkn, 4.0 * (m * k + k * n + m * n), TENSOR_CORE_OPS_S),
+        "bnn_bwd_dx": (lambda: bnn.bnn_bwd_dx_call(xb, wb, gb),
+                       lambda: bnn.bnn_bwd_dx_plain(xb, wb, gb), lambda: torch.matmul(gb, sw.T),
+                       2 * mkn, 4.0 * (2 * m * k + k * n + m * n), TENSOR_CORE_OPS_S),
+        "bnn_bwd_dw": (lambda: bnn.bnn_bwd_dw_call(xb, wb, gb),
+                       lambda: bnn.bnn_bwd_dw_plain(xb, wb, gb), lambda: torch.matmul(sx.T, gb),
+                       2 * mkn, 4.0 * (m * k + 2 * k * n + m * n), TENSOR_CORE_OPS_S),
+    }
+    for name, (kern, plain_fn, lib, n_ops, n_bytes, rate) in timed.items():
+        bound, by = _bound(n_bytes, n_ops, rate)
+        row[name] = {"ms": time_ms(torch, kern, iters=10, flush=flush),
+                     "plain_ms": time_ms(torch, plain_fn, iters=1, warmup=0, flush=flush),
+                     "library_ms": None if lib is None else time_ms(torch, lib, iters=10,
+                                                                    flush=flush),
+                     "bound_ms": bound, "bound_by": by}
+        row[name]["bound_share"] = bound / row[name]["ms"]
+    times = "; ".join(
+        f"{nm} {r['ms']:.4f} ms (plain {r['plain_ms']:.1f}, "
+        + (f"library {r['library_ms']:.4f}, " if r["library_ms"] is not None else "")
+        + f"bound {r['bound_ms']:.5f} {r['bound_by']}, {100 * r['bound_share']:.0f}%)"
+        for nm, r in ((nm, row[nm]) for nm in timed))
+    print(f"[train-families-kernels] {where} M={m} K={k} N={n}: kernel 2 bit-exact (K split "
+          f"{row['fwd_splits']}), 5 and 3 + 4 within {TRAIN_TOL} (dx "
+          f"{row['dx_fused_max_abs_err']:.2e} / {row['dx_split_max_abs_err']:.2e}, dw "
+          f"{row['dw_fused_max_abs_err']:.2e} / {row['dw_split_max_abs_err']:.2e}, dbeta "
+          f"{row['dbeta_fused_max_abs_err']:.2e} / {row['dbeta_split_max_abs_err']:.2e}; left "
+          f"out dx {row['left_out']['dx']}, dw {row['left_out']['dw']}; cluster "
+          f"{row['bwd_cluster']}, dw plan {row['dw_plan']}), kernel 6 bit-exact, 8 and 9 within "
+          f"{TRAIN_TOL} (dx {row['bnn_dx_max_abs_err']:.2e}, dw {row['bnn_dw_max_abs_err']:.2e};"
+          f" plans {row['bnn_plan']}), all repeatable; {times}")
+    return row
+
+
+def phase_train_families_kernels(torch, np, dev, flush):
+    """Kernels 2-6, 8 and 9 at every shape of ``FAMILY_TRAIN_SHAPES``
+    (``_family_train_row``)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    rows = []
+    for where, m, k, n in FAMILY_TRAIN_SHAPES:
+        rows.append(_family_train_row(torch, dev, flush, gen, where, m, k, n))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _mixtral_grad_twice(torch, np, dev):
+    """mixtral-8x22b in bika at full width, MIXTRAL_TRAIN_LAYERS layer(s):
+    ``train.steps.loss_and_grads`` (the step's gradient; the whole AdamW
+    step's state does not fit the card in bika) twice on one batch (4 x
+    128), each with the launch counters zeroed just before and read just
+    after (per layer: 4 attention and 8 x 3 expert projections, each a
+    kernel-2 forward twice under remat and a kernel-5 backward once), the
+    two gradients equal bit for bit (the first kept on the card: 20.8 GB
+    beside a gradient's ~42 GiB peak), the router's gradient finite and
+    non-zero (it flows through the gates and the aux loss)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import LMDataConfig, lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.steps import loss_and_grads
+
+    arch = get_config(MIXTRAL, compute_mode="bika", n_layers=MIXTRAL_TRAIN_LAYERS)
+    n_proj = _train_projections(arch)
+    expect = {"cac_train_fwd": 2 * n_proj, "cac_train_bwd_fused": n_proj}
+    api = build_model(arch, phase="train")
+    t0 = time.perf_counter()
+    params = api.init(42, device=dev)
+    batch = lm_batch(LMDataConfig(vocab=arch.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  seed=SEED), 0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"[train-families] {MIXTRAL} bika, {arch.n_layers} layer(s), d_model {arch.d_model}: "
+          f"{n_params / 1e9:.3f} G parameters ({4 * n_params / 1e9:.1f} GB), init "
+          f"{time.perf_counter() - t0:.2f} s")
+    runs, first = [], None
+    for i in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        met, grads = loss_and_grads(api, params, batch)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if counts != dict(_NO_LAUNCHES, **expect):
+            fail(f"{MIXTRAL} bika gradient: launch counts {counts}, expected {expect} and 0 "
+                 f"elsewhere")
+        router = torch.stack([grads["layers"]["moe"]["router"]["w"].abs().max(),
+                              grads["layers"]["moe"]["router"]["w"].isfinite().all()])
+        if not (math.isfinite(loss) and float(router[1]) == 1.0 and float(router[0]) > 0.0):
+            fail(f"{MIXTRAL} bika gradient: loss {loss}, router gradient max |g| "
+                 f"{float(router[0])}, finite {bool(router[1])}")
+        leaves = tree_leaves(grads)
+        if first is None:
+            first = leaves
+        else:
+            differ = [j for j, (a, b) in enumerate(zip(first, leaves))
+                      if not _bits_equal(torch, a, b)]
+            if differ:
+                fail(f"{MIXTRAL} bika gradient: {len(differ)} of {len(leaves)} leaves differ "
+                     f"between two runs on one batch (must repeat bit for bit)")
+        runs.append({"loss": loss, "aux_loss": float(met["aux_loss"]), "ms": ms,
+                     "max_memory_allocated": peak, "launches": counts})
+        print(f"[train-families] {MIXTRAL} bika gradient {i}: loss {loss:.5f} aux "
+              f"{float(met['aux_loss']):.5f} {ms:.1f} ms, peak memory {peak / 2**30:.2f} GiB, "
+              f"launches {counts}")
+        del grads, leaves, met
+    print(f"[train-families] {MIXTRAL} bika: the two gradients equal bit for bit "
+          f"({len(first)} leaves)")
+    return {"layers": arch.n_layers, "runs": runs, "bit_equal": True,
+            "launches_per_gradient": expect, "parameters": n_params}
+
+
+def phase_train_families(torch, np, dev):
+    """seamless-m4t-large-v2 in bika at full width and depth (24 + 24) through
+    the Trainer (``phase_train_path``: 3 AdamW steps, a profiled one and a
+    split-backward one, frames from the pipeline) and in bnn at 6 + 6;
+    mixtral-8x22b at full width, 1 layer: the bika gradient twice, bit for
+    bit (``_mixtral_grad_twice``), 3 AdamW steps in bnn and in qnn8; then
+    one train step of each family's SMOKE config card vs CPU in bika and
+    bnn (``phase_train_parity``, codes, Signs, STE masks and expert choices
+    held at genuine ties)."""
+    from repro_torch.configs import get_config, get_smoke
+
+    out = {}
+    out["seamless_bika"] = phase_train_path(torch, np, dev, "bika", tag="train-families",
+                                            arch=get_config(ENCDEC, compute_mode="bika"))
+    torch.cuda.empty_cache()
+    out["seamless_bnn"] = phase_train_path(
+        torch, np, dev, "bnn", tag="train-families", profiled=False,
+        arch=get_config(ENCDEC, compute_mode="bnn", n_layers=FAMILY_LOWBIT_LAYERS,
+                        n_encoder_layers=FAMILY_LOWBIT_LAYERS))
+    torch.cuda.empty_cache()
+    out["mixtral_bika_grad"] = _mixtral_grad_twice(torch, np, dev)
+    torch.cuda.empty_cache()
+    for mode in ("bnn", "qnn8"):
+        out[f"mixtral_{mode}"] = phase_train_path(
+            torch, np, dev, mode, tag="train-families", profiled=False,
+            arch=get_config(MIXTRAL, compute_mode=mode, n_layers=MIXTRAL_TRAIN_LAYERS))
+        torch.cuda.empty_cache()
+    for name in (ENCDEC, MIXTRAL):
+        for mode in ("bika", "bnn"):
+            hooks = _sign_hooks(torch) if mode == "bika" else _bnn_train_hooks(torch)
+            if name == MIXTRAL:
+                hooks = _both(hooks, _route_hooks(torch))
+            out[f"parity {name} {mode}"] = phase_train_parity(
+                torch, np, dev, mode, hooks, tag="train-families-parity",
+                arch=get_smoke(name, compute_mode=mode),
+                cancelling=("/decoder/xattn/wk/beta",) if (name, mode) == (ENCDEC, "bika")
+                else ())
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("paper", "moe", "recurrent", "encdec"):
-        fail(f"unknown arguments {argv}; the one option is --only paper|moe|recurrent|encdec")
+    if argv and only not in ("paper", "moe", "recurrent", "encdec", "train-families"):
+        fail(f"unknown arguments {argv}; the one option is --only "
+             f"paper|moe|recurrent|encdec|train-families")
     only_paper = only == "paper"
     try:
         import numpy as np
@@ -4103,6 +4487,22 @@ def main(argv=None) -> int:
         print(smi)
         print("partial run (--only encdec): no result line")
         return 0
+    if only == "train-families":  # a partial run: no kernels line, no last line
+        clock = PhaseClock()
+        flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+        fam_kernels = clock("train-families-kernels", phase_train_families_kernels, torch, np,
+                            dev, flush)
+        del flush
+        families = clock("train-families", phase_train_families, torch, np, dev)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_train_families.json"), "w") as fh:
+            json.dump({"device": smi, "train_families": families,
+                       "train_families_kernels": fam_kernels, "phase_seconds": clock.seconds},
+                      fh, indent=1, sort_keys=True, default=str)
+        print(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
+        print(smi)
+        print("partial run (--only train-families): no result line")
+        return 0
     clock = PhaseClock()
     device_ops = clock("device-ops", phase_device_ops, torch, np, dev)
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
@@ -4144,10 +4544,13 @@ def main(argv=None) -> int:
     moe_cac, moe_attn = clock("moe-kernels", phase_moe_kernels, torch, np, dev, flush)
     rec_kernels = clock("recurrent-kernels", phase_recurrent_kernels, torch, np, dev, flush)
     encdec_kernels = clock("encdec-kernels", phase_encdec_kernels, torch, np, dev, flush)
+    fam_kernels = clock("train-families-kernels", phase_train_families_kernels, torch, np, dev,
+                        flush)
     del flush
     moe = clock("moe", phase_moe, torch, np, dev)
     recurrent = clock("recurrent", phase_recurrent, torch, np, dev)
     encdec = clock("encdec", phase_encdec, torch, np, dev)
+    families = clock("train-families", phase_train_families, torch, np, dev)
 
     main_cac = next(r for r in cac_rows if (r["M"], r["K"], r["N"]) == (4, 960, 2560))
     main_attn = next(r for r in attn_rows if r["case"] == "decode" and not r["int8"])
@@ -4314,6 +4717,36 @@ def main(argv=None) -> int:
                     res["launches"][count]}
             entry["shapes"] = entry["shapes"] + [r for r in encdec_kernels
                                                  if r["kernel"] == entry["name"]]
+    # the tenth slice: kernels 2-6, 8 and 9 on the training paths of
+    # mixtral-8x22b (1 layer at full width) and seamless-m4t-large-v2 (bika at
+    # 24 + 24 layers, bnn at 6 + 6): launches a step and rows at their shapes
+    fam_keys = {"cac_train_fwd": ("fwd", "cac_train_fwd"),
+                "cac_train_bwd_dx": ("bwd_dx", "cac_train_bwd_dx"),
+                "cac_train_bwd_dw": ("bwd_dw", "cac_train_bwd_dw"),
+                "cac_train_bwd_fused": ("bwd_fused", "cac_train_bwd_fused"),
+                "bnn_matmul": ("bnn_fwd_f32", "bnn"), "bnn_bwd_dx": ("bnn_bwd_dx", "bnn_bwd_dx"),
+                "bnn_bwd_dw": ("bnn_bwd_dw", "bnn_bwd_dw")}
+    seamless_split = families["seamless_bika"]["steps"][-1]["launches"]
+    for entry in kernels:
+        if entry["name"] not in fam_keys:
+            continue
+        key, count = fam_keys[entry["name"]]
+        if count.startswith("cac"):
+            seamless = seamless_split if count in ("cac_train_bwd_dx", "cac_train_bwd_dw") \
+                else families["seamless_bika"]["steps"][0]["launches"]
+            entry["families_launches"] = {
+                f"{ENCDEC} bika step (24 + 24 layers)": seamless[count],
+                f"{MIXTRAL} bika gradient (1 layer)":
+                    families["mixtral_bika_grad"]["runs"][0]["launches"][count]}
+        else:
+            entry["families_launches"] = {
+                f"{ENCDEC} bnn step (6 + 6 layers)":
+                    families["seamless_bnn"]["steps"][0]["launches"][count],
+                f"{MIXTRAL} bnn step (1 layer)":
+                    families["mixtral_bnn"]["steps"][0]["launches"][count]}
+        entry["shapes"] = entry["shapes"] + [
+            {"train_families": r["where"], "M": r["M"], "K": r["K"], "N": r["N"], key: r[key]}
+            for r in fam_kernels]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump({"device": smi, "kernels": kernels, "timing_floor_ms": timing_floor,
@@ -4326,6 +4759,7 @@ def main(argv=None) -> int:
                    "spec": spec, "paper": paper, "ckpt": ckpt, "moe": moe,
                    "recurrent": recurrent, "recurrent_kernels": rec_kernels,
                    "encdec": encdec, "encdec_kernels": encdec_kernels,
+                   "train_families": families, "train_families_kernels": fam_kernels,
                    "phase_seconds": clock.seconds},
                   fh, indent=1, sort_keys=True,
                   default=str)

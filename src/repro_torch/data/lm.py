@@ -5,9 +5,11 @@ which prefers a band of a Zipf-tilted vocabulary, so there is next-token
 structure to learn. A batch is a function of ``(seed, step)`` only, drawn
 from a ``torch.Generator`` on the target device: no iterator state exists
 outside the step counter. The draws are not JAX's bits (the two generators
-differ), so parity tests feed one batch, as numpy, to both packages. The
-reference's multi-host sharding of a batch and its frame embeddings (the
-encoder-decoder family's ``frames_dim``) are not ported.
+differ), so parity tests feed one batch, as numpy, to both packages. With
+``frames_dim`` a batch also carries the encoder-decoder family's frame
+embeddings, drawn from the same generator after every token draw, so the
+tokens of a batch do not depend on ``frames_dim``. The reference's
+multi-host sharding of a batch is not ported.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ class LMDataConfig:
     global_batch: int
     seed: int = 0
     n_classes: int = 64  # Markov "topic" states; the vocab is banded among them
+    frames_dim: int = 0  # > 0: also emit (B, seq_len, frames_dim) frame embeddings
 
 
 def _zipf_logits(vocab: int, n_classes: int, device) -> torch.Tensor:
@@ -42,7 +45,9 @@ def _zipf_logits(vocab: int, n_classes: int, device) -> torch.Tensor:
 def lm_batch(cfg: LMDataConfig, step: int, *,
              device: Optional[Union[str, torch.device]] = "cpu") -> Dict[str, torch.Tensor]:
     """Batch for ``step``: {"tokens" (B, S) int32, "labels" (B, S) int32 (the
-    next token), "mask" (B, S) float32 ones}, B = global_batch."""
+    next token), "mask" (B, S) float32 ones}, B = global_batch; with
+    ``frames_dim`` also "frames" (B, S, frames_dim) float32, 0.1 x a
+    standard normal, as the reference's."""
     b = cfg.global_batch
     device = torch.device(device)
     gen = torch.Generator(device=device)
@@ -60,8 +65,12 @@ def lm_batch(cfg: LMDataConfig, step: int, *,
         state = torch.where(switch, tok % cfg.n_classes, state)
         toks.append(tok)
     toks = torch.stack(toks, dim=1).to(torch.int32)  # (b, S+1)
-    return {
+    out = {
         "tokens": toks[:, :-1].contiguous(),
         "labels": toks[:, 1:].contiguous(),
         "mask": torch.ones((b, cfg.seq_len), dtype=torch.float32, device=device),
     }
+    if cfg.frames_dim:
+        out["frames"] = 0.1 * torch.randn((b, cfg.seq_len, cfg.frames_dim), generator=gen,
+                                          device=device)
+    return out

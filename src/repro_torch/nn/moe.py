@@ -21,6 +21,20 @@ like any token.
 Expert parameters are stacked on a leading expert axis: every leaf of
 ``params["experts"]`` is ``(E, ...)`` (``(L, E, ...)`` in a model's
 stacked layers), the reference's layout.
+
+In train form gradients flow through the gates (the softmax, the stable
+top-k sort and the renormalization) into the router, through the aux loss,
+and through both gathers of the scatter dispatch. Each gather's backward
+is itself a gather (``_RowGather``): a token's gradient is the sum of the
+at most top-k queue rows that read it, taken by its slots, and a queue
+row's gradient is the one (token, choice) row that read it back, so no
+scatter-add (atomic, and so not repeatable, on CUDA) runs. An empty queue
+slot is a zero row that no token reads back: the gradient reaching its
+output row is exactly 0, so each term it adds to the expert's weight
+gradients is 0, and its input's gradient reaches no token. A dropped
+assignment points at the sentinel, a zero row both ways. Under remat the
+routing is recomputed from the same inputs by the same ops and takes the
+same slots.
 """
 from __future__ import annotations
 
@@ -119,11 +133,34 @@ def _route_sparse(logits: torch.Tensor, cfg: MoEConfig, capacity: int):
     return slot.contiguous(), topw, _load_balance_loss(gates, topi, e)
 
 
+class _RowGather(torch.autograd.Function):
+    """``cat(src, zero row)[idx]``: rows of ``src`` (R, D) by ``idx`` (I,)
+    int64 in [0, R], R the zero row. The backward is a gather too: ``inv``
+    (R, J) int64 in [0, I] lists, for each row of ``src``, the J output rows
+    that read it (I, a zero row of the gradient, where fewer do), and its
+    gradient is their sum over J in order: the same bits on every run."""
+
+    @staticmethod
+    def forward(ctx, src, idx, inv):
+        ctx.save_for_backward(inv)
+        return torch.cat([src, src.new_zeros((1, src.shape[1]))])[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        return torch.cat([g, g.new_zeros((1, g.shape[1]))])[inv].sum(dim=1), None, None
+
+
 def _experts(params, xe: torch.Tensor, cfg: MoEConfig, spec: LinearSpec, phase: str):
-    """Each expert's FFN on its (C, D) queue: (E, C, D) -> (E, C, D)."""
+    """Each expert's FFN on its (C, D) queue: (E, C, D) -> (E, C, D). The
+    experts' views come from one ``torch.unbind`` a leaf, whose backward
+    stacks their gradients in one op (indexing an expert would add a
+    full-size zero-filled gradient per expert and leaf)."""
+    views = {k: {n: torch.unbind(leaf) for n, leaf in proj.items()}
+             for k, proj in params.items()}
     out = []
     for i in range(cfg.n_experts):
-        ep = {k: {n: leaf[i] for n, leaf in proj.items()} for k, proj in params.items()}
+        ep = {k: {n: leaves[i] for n, leaves in proj.items()} for k, proj in views.items()}
         out.append(mlp_apply(ep, xe[i], spec, activation=cfg.activation, phase=phase))
     return torch.stack(out)
 
@@ -156,15 +193,18 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, spec: LinearSpec, *,
         raise ValueError(f"unknown dispatch {dispatch!r}")
     slot, gates, aux = _route_sparse(logits, cfg, capacity)  # (T, k) each
     ec = cfg.n_experts * capacity
-    # expert slot -> token (sentinel row t: a zero row); dropped assignments
-    # all land on slot ec, which no queue reads
+    kt = t * cfg.top_k
+    flat_slot = slot.reshape(-1).long()
+    # expert slot -> token (sentinel t: the zero row) and -> (token, choice)
+    # row (sentinel kt); dropped assignments all land on slot ec, which no
+    # queue reads
     slot_to_tok = torch.full((ec + 1,), t, dtype=torch.int64, device=x.device)
-    flat_tok = torch.arange(t, device=x.device)[:, None].expand(t, cfg.top_k).reshape(-1)
-    slot_to_tok[slot.reshape(-1).long()] = flat_tok
-    xpad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
-    xe = xpad[slot_to_tok[:ec]].reshape(cfg.n_experts, capacity, d)
-    ye = _experts(params["experts"], xe, cfg, spec, phase)
-    ye_flat = torch.cat([ye.reshape(ec, d), ye.new_zeros((1, d))], dim=0)
-    picked = ye_flat[slot.reshape(-1).long()].reshape(t, cfg.top_k, d)
+    slot_to_tok[flat_slot] = torch.arange(t, device=x.device).repeat_interleave(cfg.top_k)
+    slot_to_row = torch.full((ec + 1,), kt, dtype=torch.int64, device=x.device)
+    slot_to_row[flat_slot] = torch.arange(kt, device=x.device)
+    xe = _RowGather.apply(xt, slot_to_tok[:ec], slot.long())
+    ye = _experts(params["experts"], xe.reshape(cfg.n_experts, capacity, d), cfg, spec, phase)
+    picked = _RowGather.apply(ye.reshape(ec, d), flat_slot, slot_to_row[:ec, None])
+    picked = picked.reshape(t, cfg.top_k, d)
     yt = torch.sum(picked * gates[..., None].to(picked.dtype), dim=1)
     return yt.reshape(b, s, d), aux

@@ -11,7 +11,7 @@ not modified.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -56,17 +56,25 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(leaf.to(torch.float32).square().sum() for leaf in leaves))
 
 
+def _clipped(tree, max_norm: float) -> Tuple[Iterator[torch.Tensor], torch.Tensor]:
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
+    return ((leaf * scale).to(leaf.dtype) for leaf in tree_leaves(tree)), norm
+
+
 def clip_by_global_norm(tree, max_norm: float) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """(the leaves scaled so their global norm is at most ``max_norm``, the
     norm before scaling). New tensors; ``tree`` is not modified."""
-    norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
-    return [(leaf * scale).to(leaf.dtype) for leaf in tree_leaves(tree)], norm
+    leaves, norm = _clipped(tree, max_norm)
+    return list(leaves), norm
 
 
 def _grads(spec: OptimizerSpec, grads):
+    """(the gradient leaves, each clipped only as the update reaches it, so
+    that a step never holds a second, clipped copy of the whole gradient
+    tree; the global norm)."""
     if spec.clip_norm is not None:
-        return clip_by_global_norm(grads, spec.clip_norm)
+        return _clipped(grads, spec.clip_norm)
     return tree_leaves(grads), global_norm(grads)
 
 

@@ -66,6 +66,17 @@ SIGN_TIE = 1e-5  # |x| at or below which the two packages may split a Sign
 ATOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the tier-1 run
+    holds several test processes at once, and torch's default of a thread
+    a core in each of them oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))  # a writable, contiguous copy
 

@@ -282,15 +282,18 @@ def test_launcher_serves_new_configs_on_cpu(capsys, argv, want):
 
 
 def test_trainer_refuses_moe():
+    """The Trainer and the launcher no longer refuse a mixture of experts:
+    grok-1's SMOKE config trains a step with a positive aux loss, and the
+    launcher trains mixtral's."""
     from repro_torch.launch import train as launch_train
     from repro_torch.train.trainer import TrainConfig, Trainer
 
-    with pytest.raises(NotImplementedError, match="mixture of experts"):
-        Trainer(TrainConfig(arch=get_smoke("grok-1-314b"), seq_len=8, global_batch=2, steps=1),
-                device="cpu")
-    with pytest.raises(NotImplementedError, match="mixture of experts"):
-        launch_train.main(["--smoke", "--arch", "mixtral-8x22b", "--device", "cpu",
-                           "--steps", "1", "--seq-len", "8", "--batch", "2"])
+    trainer = Trainer(TrainConfig(arch=get_smoke("grok-1-314b"), seq_len=8, global_batch=2,
+                                  steps=1, log_every=1), device="cpu")
+    _, opt, log = trainer.run()
+    assert opt["step"] == 1 and np.isfinite(log[0]["loss"]) and log[0]["aux_loss"] > 0
+    assert launch_train.main(["--smoke", "--arch", "mixtral-8x22b", "--device", "cpu",
+                              "--steps", "1", "--seq-len", "8", "--batch", "2"]) == 0
 
 
 def test_new_modules_import_neither_jax_nor_reference():

@@ -48,7 +48,11 @@ At the paper models' ragged shapes (TFC's N = 10 and
 K = 32 head, CNV's first conv at K = 3 x 3 x 3 = 27 and a large im2col M)
 every kernel of their paths holds to its plain version the same way, and
 the bika serve path takes a contraction that is not a multiple of 8
-through kernel 1 (padded to K' = 32) to the plain integers."""
+through kernel 1 (padded to K' = 32) to the plain integers. At
+mixtral-8x22b's expert-queue training shapes (M = 160 rows, K = 6144 and
+16384) kernels 2 and 6 are bit-exact and kernels 5, 8 and 9 within 1e-4
+and repeatable, and a two-expert MoE layer's gradient (router, gates, aux
+loss, both gathers, the experts' kernels) repeats bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -754,3 +758,85 @@ def test_encdec_smoke_drain_on_card(cuda, monkeypatch):
     assert sorted(outs["card"]) == list(range(5))
     for i in range(5):
         np.testing.assert_array_equal(outs["card"][i], outs["cpu"][i], err_msg=f"request {i}")
+
+
+# the mixture of experts' expert queues at mixtral-8x22b's training shapes:
+# C = int(512 x 2 / 8 x 1.25) = 160 rows (a ragged last 128-row tile), the
+# gate/up (K = 6144, N = 16384) and down (K = 16384, N = 6144) projections
+EXPERT_TRAIN_SHAPES = [(160, 16384, 6144), (160, 6144, 16384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", EXPERT_TRAIN_SHAPES)
+def test_training_kernels_at_expert_queue_shapes_on_card(cuda, m, k, n):
+    """Kernels 2 and 6 bit-exact against their plain versions; kernel 5
+    within atol/rtol 1e-4 off the |pre| = 1 window edge, kernels 8 and 9
+    within 1e-4 everywhere; 5, 8 and 9 bit-repeatable."""
+    rng = np.random.default_rng(m + k + 2 * n)
+    x, w, beta, g = (torch.from_numpy(a).to(cuda) for a in cac_train_case(rng, m, k, n))
+    assert torch.equal(cac.cac_train_fwd_call(x, w, beta), cac.cac_train_fwd_plain(x, w, beta))
+    fused = cac.cac_train_bwd_fused_call(x, w, beta, g)
+    dx_keep, dw_keep = window_clear(x, w, beta, rows=2)
+    for name, got, want, keep in zip(("dx", "dw", "dbeta"), fused,
+                                     cac.cac_train_bwd_fused_plain(x, w, beta, g),
+                                     (dx_keep, dw_keep, dw_keep)):
+        torch.testing.assert_close(torch.where(keep, got, 0), torch.where(keep, want, 0),
+                                   atol=1e-4, rtol=1e-4, msg=name)
+    for a, b in zip(fused, cac.cac_train_bwd_fused_call(x, w, beta, g)):
+        assert bits_equal(a, b)
+    del fused, dx_keep, dw_keep, beta
+    x, w, g = (torch.from_numpy(a).to(cuda) for a in bnn_case(rng, m, k, n))
+    assert torch.equal(bnn.bnn_matmul_kernel_call(x, w), bnn.bnn_matmul_plain(x, w))
+    dx, dw = bnn.bnn_bwd_dx_call(x, w, g), bnn.bnn_bwd_dw_call(x, w, g)
+    torch.testing.assert_close(dx, bnn.bnn_bwd_dx_plain(x, w, g), atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(dw, bnn.bnn_bwd_dw_plain(x, w, g), atol=1e-4, rtol=1e-4)
+    assert torch.equal(dx, bnn.bnn_bwd_dx_call(x, w, g))
+    assert torch.equal(dw, bnn.bnn_bwd_dw_call(x, w, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["scatter", "einsum"])
+@pytest.mark.parametrize("mode", ["bika", "bnn"])
+def test_moe_layer_gradient_bit_repeatable_on_card(cuda, mode, dispatch):
+    """A two-expert MoE layer in train form (d_model 256, d_ff 512, 4 x 64
+    tokens, capacity factor 0.75 so that assignments are dropped and queue
+    slots stay empty): the gradients of x and of every parameter, through
+    the router, the gates, the aux loss, both gathers and the experts'
+    kernels, equal bit for bit across two runs; the launches are one
+    forward and one backward kernel call (kernels 2 and 5, or 6 and 8 + 9) a
+    projection and expert."""
+    from repro_torch.core.backend import LinearSpec
+    from repro_torch.kernels import ops
+    from repro_torch.nn import moe
+
+    cfg = moe.MoEConfig(n_experts=2, top_k=2, capacity_factor=0.75)
+    spec = LinearSpec(mode=mode)
+    params = moe.moe_init(torch.Generator(device=cuda).manual_seed(1), 256, 512, cfg, spec,
+                          phase="train", device=cuda)
+    x = torch.randn((4, 64, 256), generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    leaves = [params["router"]["w"]] + [leaf for proj in params["experts"].values()
+                                        for leaf in proj.values()]
+    runs = []
+    for _ in range(2):
+        live = [leaf.detach().requires_grad_(True) for leaf in leaves + [x]]
+        it = iter(live)
+        tree = {"router": {"w": next(it)},
+                "experts": {k: {n: next(it) for n in proj} for k, proj in
+                            params["experts"].items()}}
+        ops.reset_launches()
+        y, aux = moe.moe_apply(tree, live[-1], cfg, spec, phase="train", dispatch=dispatch)
+        grads = torch.autograd.grad(y.square().mean() + 0.01 * aux, live)
+        torch.cuda.synchronize()
+        runs.append((grads, ops.launch_counts()))
+    slots = moe._route_sparse(x.reshape(-1, 256) @ params["router"]["w"], cfg,
+                              moe.capacity_of(256, cfg))[0]
+    assert int((slots == 2 * moe.capacity_of(256, cfg)).sum()) > 0  # some assignments drop
+    per = 3 * cfg.n_experts
+    want = ({"cac_train_fwd": per, "cac_train_bwd_fused": per} if mode == "bika" else
+            {"bnn": per, "bnn_bwd_dx": per, "bnn_bwd_dw": per})
+    for grads, counts in runs:
+        assert {k: v for k, v in counts.items() if v} == want, counts
+    assert float(runs[0][0][0].abs().max()) > 0  # the router learns
+    for a, b in zip(runs[0][0], runs[1][0]):
+        assert bits_equal(a, b)

@@ -314,8 +314,9 @@ def test_static_engine_drain_matches_reference(mode):
 def test_registry_engines_and_trainer():
     """The registered config equals the reference's field for field; auto
     resolves to static, a slot engine refuses the family and a slot
-    engine's ``run`` refuses ``extra_batch``; the Trainer refuses the
-    family; the model has no paged or speculative entry."""
+    engine's ``run`` refuses ``extra_batch``; the Trainer takes the family
+    and its batches carry (B, S, d_model) frames; the model has no paged or
+    speculative entry."""
     from repro_torch.train.trainer import TrainConfig, Trainer
 
     from repro.configs import applicable_shapes as jax_shapes
@@ -339,8 +340,9 @@ def test_registry_engines_and_trainer():
     assert slot.engine == "continuous"
     with pytest.raises(ValueError, match="extra_batch"):
         slot.run(extra_batch={"frames": np.zeros((1, 4, lm.d_model), np.float32)})
-    with pytest.raises(NotImplementedError, match="encdec"):
-        Trainer(TrainConfig(arch=cfg, seq_len=8, global_batch=2, steps=1), device="cpu")
+    batch = Trainer(TrainConfig(arch=cfg, seq_len=8, global_batch=2, steps=1),
+                    device="cpu").batch(0)
+    assert batch["frames"].shape == (2, 8, cfg.d_model) and batch["tokens"].shape == (2, 8)
 
 
 @pytest.mark.parametrize("mode", ["bika", "qnn8"])

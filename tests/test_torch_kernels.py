@@ -26,6 +26,17 @@ from repro_torch.kernels import paged_attn as pa
 from repro_torch.kernels.cac_matmul import cac_matmul_kernel_call, cac_matmul_plain
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the tier-1 run
+    holds several test processes at once, and torch's default of a thread
+    a core in each of them oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("m,k,n", [(4, 64, 40), (9, 24, 7), (1, 8, 1), (33, 40, 130)])
 def test_cac_plain_matches_reference_kernel(m, k, n):
     """Ragged M, N and K' (K' % 8 == 0): the port's plain CAC (packed s)

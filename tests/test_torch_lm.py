@@ -42,6 +42,17 @@ ATOL = 1e-4
 TIE = 1e-3  # code units from a half-way point where the two codes may differ
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the tier-1 run
+    holds several test processes at once, and torch's default of a thread
+    a core in each of them oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def port_cfg(jcfg) -> ArchConfig:
     return ArchConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(ArchConfig)})
 

@@ -42,6 +42,17 @@ from repro_torch.serve import Request, ServeEngine
 FQ_TOL = 1e-6  # fake-quant values and gradients: float32 ops in other orders
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the tier-1 run
+    holds several test processes at once, and torch's default of a thread
+    a core in each of them oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 

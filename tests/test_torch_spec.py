@@ -49,6 +49,17 @@ from repro_torch.serve import (
 MAX_NEW = 10
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the tier-1 run
+    holds several test processes at once, and torch's default of a thread
+    a core in each of them oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_cfg(mode="dense"):
     return jax_get_smoke("smollm-360m", compute_mode=mode, remat=False)
 

@@ -65,6 +65,17 @@ from repro_torch.train.trainer import TrainConfig, Trainer
 TRAIN_SHAPES = [(8, 16, 8), (33, 100, 17), (64, 96, 40), (5, 7, 130)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the tier-1 run
+    holds several test processes at once, and torch's default of a thread
+    a core in each of them oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))  # a writable, contiguous copy
 
@@ -680,7 +691,9 @@ def test_train_step_matches_reference_at_smoke(mode, monkeypatch):
     the port's sit on it (half), as the paper slice's tests note. Its amax
     gradients, sums that cancel, are held to 1e-4 of their absolute terms
     (``_amax_grad_terms``). Loss and metrics,
-    every gradient leaf and every parameter after the update are compared."""
+    every gradient leaf and every parameter after the update are compared;
+    the reference's gradient is the one its step takes, captured at its
+    optimizer call (one reference pass)."""
     jcfg = jax_get_smoke("smollm-360m", compute_mode=mode, bika_impl="pallas")
     japi = jax_build_model(jcfg, phase="train")
     np_params = jax.tree_util.tree_map(np.asarray, unbox(japi.init(jax.random.PRNGKey(7))))
@@ -690,18 +703,19 @@ def test_train_step_matches_reference_at_smoke(mode, monkeypatch):
     jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
     tbatch = {k: _t(v) for k, v in batch.items()}
 
-    def jloss(p):
-        logits, aux = japi.apply_aux(p, jbatch)
-        loss, _ = jax_softmax_xent(logits, jbatch["labels"], jbatch["mask"], z_loss=1e-4)
-        return loss + 0.01 * aux
-
     spec = dict(peak_lr=1e-3, warmup=0, total_steps=10)
+    seen = {}
+
+    def capture(grads, state, params):  # the step's own gradient, then AdamW
+        seen["grads"] = grads
+        return jupd(grads, state, params)
+
     with jax.disable_jit() if mode == "qnn8" else contextlib.nullcontext():
-        jgrads = jax.grad(jloss)(jax.tree_util.tree_map(jnp.asarray, np_params))
         jinit, jupd = jax_make_optimizer(JaxOptimizerSpec(**spec))
         jp = jax.tree_util.tree_map(jnp.asarray, np_params)
-        jstep = jsteps.make_train_step(japi, jupd)
+        jstep = jsteps.make_train_step(japi, capture)
         jp, jopt, jmet = jstep(jp, jinit(jp), jbatch)
+    jgrads = seen["grads"]
 
     api = build_model(_port_cfg(jcfg), phase="train")
     tp = from_reference(np_params)
