@@ -101,9 +101,9 @@ any failure exits non-zero):
              float32 and int8 weights: the times that set the route
              threshold.
 9. bnn-serve — phases 4, profile (with kernel 7's device ms) and 5 again
-             in bnn mode (packed planes: 224 kernel-7 and 32 attention
-             launches per tick, 0 elsewhere),
-             plus one unpacked drain (224 kernel-6 launches per tick) whose
+             in bnn mode at 16 of 32 layers (packed planes: 112 kernel-7
+             and 16 attention launches per tick, 0 elsewhere),
+             plus one unpacked drain (112 kernel-6 launches per tick) whose
              tokens must equal the packed drain's; the parity holds a Sign
              only where both sides' input lies within 1e-5 of 0.
 10. bnn-train — phases 6 and 7 again in bnn mode: 3 steps with exactly 448
@@ -123,8 +123,8 @@ any failure exits non-zero):
    qnn route sweep — both routes at M = 16..128, gate/up and down: the
              times that set QNN_STREAM_MAX_M.
 12. qnn8-serve — phases 4, profile (with kernel 10's device ms) and 5
-             again in qnn8 mode: 224 kernel-10
-             and 32 attention launches per tick, 0 elsewhere; the parity holds
+             again in qnn8 mode at 16 of 32 layers: 112 kernel-10
+             and 16 attention launches per tick, 0 elsewhere; the parity holds
              activation codes at half-way ties as for bika.
 13. spec    — dense smollm-360m target <- qnn8 draft (k = 4) of one seeded
              train-form tree, full width, 8 of 32 layers: paged and continuous
@@ -190,10 +190,11 @@ any failure exits non-zero):
              the in_proj's N = 10448 leaves a ragged last 128-column tile),
              M = 4 and 84, bit-exact, repeatable, timed beside their plain
              versions, a library call and the bound. Then zamba2-2.7b in
-             bika (packed) at full width and all 54 layers and xlstm-125m
-             whole, each through ServeEngine.from_trained(engine="auto"),
-             which takes the static engine: the 8 requests x 16 tokens
-             (batch 4, max_len 128) twice, every forward exactly 171 (51)
+             bika (packed) at full width, 18 of 54 layers (3 of 9 groups),
+             and xlstm-125m whole, each through
+             ServeEngine.from_trained(engine="auto"), which takes the
+             static engine: the 8 requests x 16 tokens (batch 4, max_len
+             128) twice, every forward exactly 57 (51)
              kernel-1 launches and no other kernel, tokens equal run to
              run, build and drain peaks; one drain under torch.profiler
              (device busy, idle share, kernel 1's device ms); the
@@ -212,11 +213,11 @@ any failure exits non-zero):
              and 64, and kernel 1 at M = 4,096 (the encoder over 1,024
              frames a row), bit-exact, repeatable, timed beside their plain
              versions, a library call and the bound. Then the model in bika
-             (packed) at full width and all 24 + 24 layers through
+             (packed) at full width and 12 + 12 of 24 + 24 layers through
              ServeEngine.from_trained(engine="auto") -> static, frames (4,
              16, 1024) given as run(extra_batch=): the 8 requests x 16
-             tokens twice, every prefill exactly 384 and every decode step
-             192 kernel-1 launches and no other kernel (6,528 a drain),
+             tokens twice, every prefill exactly 192 and every decode step
+             96 kernel-1 launches and no other kernel (3,264 a drain),
              tokens equal run to run, build and drain peaks; one drain
              under torch.profiler; one prefill over 1,024 frames a row and
              3 decode steps over its 1,024 cross keys, launches exact;
@@ -235,10 +236,10 @@ any failure exits non-zero):
              tile, and its down projection K = 16384): 2 and 6 bit-exact,
              the backwards within 1e-4, all repeatable, timed beside their
              plain versions, a library call and the bound. Then seamless
-             in bika at full width and all 24 + 24 layers through the
-             Trainer (frames from the pipeline): 3 AdamW steps, a profiled
-             one and a profiled split-backward one, launches exact (768
-             kernel-2 and 384 kernel-5 a step); in bnn at 6 + 6 layers, 3
+             in bika at full width and 12 + 12 of 24 + 24 layers through
+             the Trainer (frames from the pipeline): 3 AdamW steps, a
+             profiled one and a profiled split-backward one, launches
+             exact (384 kernel-2 and 192 kernel-5 a step); in bnn at 6 + 6 layers, 3
              steps; mixtral at full width, 1 layer: the bika gradient twice
              (56 kernel-2 and 28 kernel-5 launches each, equal bit for bit;
              its AdamW state does not fit the card in bika), 3 AdamW steps
@@ -247,12 +248,33 @@ any failure exits non-zero):
              bika and bnn, Signs, STE masks and expert choices held at
              genuine ties. ``python3 chip_smoke.py --only train-families``
              runs the two alone (a partial run: no result line).
+19. train-recurrent — training the hybrid and xLSTM families
+             (phase_train_recurrent_kernels, phase_train_recurrent):
+             kernels 2-6, 8 and 9 at the nine (M, K, N) of zamba2-2.7b's
+             and xlstm-125m's training projections at batch 4 x seq 128
+             (``RECURRENT_TRAIN_SHAPES``; zamba2's in_proj N = 10448 leaves
+             a ragged edge in every one of them), as in train-families.
+             Then zamba2 in bika at full width and all 54 layers: the
+             gradient (``loss_and_grads``) twice, 342 kernel-2 and 171
+             kernel-5 launches each, equal bit for bit (its AdamW state at
+             54 layers does not fit the card); the Trainer at 18 layers: a
+             fused, a split-backward and a profiled step (114 / 57
+             launches, 57 each of kernels 3 and 4 split); in bnn (38 / 19
+             / 19) and qnn8 at 6 layers, 3 steps each; xlstm-125m whole in
+             bika (102 / 51) and bnn, 3 steps each; then one train step of
+             each family's SMOKE config card vs CPU in bika and bnn,
+             Signs and STE masks held at genuine ties. ``python3
+             chip_smoke.py --only train-recurrent`` runs the two alone (a
+             partial run: no result line).
 
 Earlier paths run at cut depths so that the whole script stays well inside
 its time limit: the card-vs-CPU parities, whose CPU sides are most of their
 phases' time (mixtral at 1 layer and 2 decode steps, the bika train step
 at 1 layer, zamba2 at 6, xlstm at 4), the checkpoint phase (8 of smollm's
-32 layers) and the spec phase (8 of 32 layers). The profiled drains read
+32 layers), the spec phase (8 of 32 layers), the bnn and qnn8 serve
+drains (16 of 32 layers), the zamba2 bika drains (18 of 54 layers; the
+54-layer forward runs in train-recurrent's gradient), the seamless bika
+drains and training (12 + 12 of 24 + 24 layers). The profiled drains read
 the profiler's events directly and write no trace file.
 
 Before the last line come the card's name and power limit as nvidia-smi
@@ -332,6 +354,7 @@ ACT_SCALE = 0.05  # LinearSpec.act_scale, the serve path's x_scale
 SPEC_K = 4  # the reference's benchmarked speculative window (dense <- qnn8)
 SPEC_TIE = 1e-4  # top-2 logit gap below which target-only and spec may part
 SPEC_LAYERS = 8  # the speculative pair at full width, 8 of smollm's 32 layers
+LOWBIT_SERVE_LAYERS = 16  # the bnn and qnn8 serve drains at full width, 16 of 32 layers
 # the profiled drains' device ms of kernel 7 (the streaming template's op 3,
 # SIGN_PACKED), of kernel 10 (both routes) and of kernel 11, by kernel name
 KERNEL7_GROUP = {"bnn_packed_matmul": ("stream_kernel<3,",)}
@@ -1502,8 +1525,8 @@ def phase_profile(torch, np, arch, train, dev, tag="profile", label=None, groups
 
 
 def phase_bnn_serve(torch, np, dev):
-    """The bnn serve path: smollm-360m in bnn mode at full width and depth,
-    packed sign planes (kernel 7 on every projection), through
+    """The bnn serve path: smollm-360m in bnn mode at full width and
+    LOWBIT_SERVE_LAYERS layers, packed sign planes (kernel 7 on every projection), through
     ``phase_path``; then one fp-KV drain with unpacked int8 signs (kernel 6
     on every projection), whose tokens must equal the packed drain's (both
     compute the same integers), one profiled drain, and the 2-layer
@@ -1512,7 +1535,7 @@ def phase_bnn_serve(torch, np, dev):
     from repro_torch.core.convert import tree_to_serve
 
     arch = get_config("smollm-360m", compute_mode="bnn", pack_signs=True, remat=False,
-                      paged_attn_route="fused")
+                      paged_attn_route="fused", n_layers=LOWBIT_SERVE_LAYERS)
     train, path = phase_path(torch, np, arch, dev, "bnn_packed", tag="bnn-serve")
     unpacked = arch.replace(pack_signs=False)
     outs, counts, wall, summ = _serve(np, train, unpacked, False, dev, count_launches=True)
@@ -1534,15 +1557,17 @@ def phase_bnn_serve(torch, np, dev):
 
 def phase_qnn8_serve(torch, np, dev):
     """The qnn8 serve path: smollm-360m in qnn8 mode at full width and
-    depth through ``phase_path`` (kernel 10 on every projection: 224
-    launches and 32 attention launches per tick, 0 elsewhere), one profiled
+    LOWBIT_SERVE_LAYERS layers through ``phase_path`` (kernel 10 on every
+    projection: 7 launches and one attention launch a layer and tick, 0
+    elsewhere), one profiled
     drain, and the 2-layer card-vs-CPU parity with activation codes held at
     genuine half-way ties (``_code_hooks``: qnn8 quantizes its input onto the
     same 0.05 grid as bika)."""
     from repro_torch.configs import get_config
     from repro_torch.core.convert import tree_to_serve
 
-    arch = get_config("smollm-360m", compute_mode="qnn8", remat=False, paged_attn_route="fused")
+    arch = get_config("smollm-360m", compute_mode="qnn8", remat=False, paged_attn_route="fused",
+                      n_layers=LOWBIT_SERVE_LAYERS)
     train, path = phase_path(torch, np, arch, dev, "qnn8", tag="qnn8-serve")
     path["profile"] = phase_profile(torch, np, arch, train, dev, tag="qnn8-profile",
                                     groups={**KERNEL10_GROUP, **KERNEL11_GROUP})
@@ -1948,17 +1973,25 @@ def _train_projections(arch) -> int:
     """Projections one training forward of ``arch`` runs through its mode's
     kernel: 4 attention ones a layer (q, k, v, o), and the FFN's 3 (gated)
     or 2 per expert (or once without experts); the encoder-decoder's
-    decoder layers also run the cross attention's 4."""
+    decoder layers also run the cross attention's 4; the recurrent
+    families as they serve (``_forward_launches``: the hybrid's 2 a Mamba
+    layer and 7 a shared-block application, xLSTM's 2 an sLSTM and 5 an
+    mLSTM layer)."""
     mlp = 3 if arch.gated_mlp else 2
     if arch.family == "encdec":
         return arch.n_encoder_layers * (4 + mlp) + arch.n_layers * (8 + mlp)
+    if arch.family in ("hybrid", "xlstm"):
+        return _forward_launches(arch)
     return arch.n_layers * (4 + mlp * max(arch.n_experts, 1))
 
 
-def phase_train_path(torch, np, dev, mode, tag="train", arch=None, profiled=True):
+def phase_train_path(torch, np, dev, mode, tag="train", arch=None, profiled=True,
+                     profile_split=True, n_steps=TRAIN_STEPS):
     """Trainer on ``arch`` in ``mode`` (default: full-width, full-depth
     smollm-360m; random train-form weights from seed 42, remat on), batch 4
-    x seq 128: 3 steps, then (``profiled``) 1 more under torch.profiler. Per
+    x seq 128: ``n_steps`` steps, then (``profiled``) 1 more under
+    torch.profiler (and in bika, with ``profile_split``, a split-backward
+    one). Per
     step, with remat, each projection (``_train_projections``) launches its
     forward kernel twice (forward, then the recompute in the backward) and
     its backward once: bika the training CAC forward and the fused STE
@@ -1985,7 +2018,8 @@ def phase_train_path(torch, np, dev, mode, tag="train", arch=None, profiled=True
     else:
         main = {}
     cfg = TrainConfig(arch=arch, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                      steps=TRAIN_STEPS + (2 if split is None else 3))
+                      steps=n_steps + (2 if split is None else 3))
+    profile_split = profile_split and split is not None
     trainer = Trainer(cfg, OptimizerSpec(total_steps=cfg.steps), device=dev)
     layers = (f"{arch.n_encoder_layers} + {arch.n_layers}" if arch.family == "encdec"
               else f"{arch.n_layers}")
@@ -1996,13 +2030,13 @@ def phase_train_path(torch, np, dev, mode, tag="train", arch=None, profiled=True
           f"remat={arch.remat}: init {time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
     steps = []
-    for step in range(TRAIN_STEPS):
+    for step in range(n_steps):
         params, opt, row = _train_step(torch, ops, trainer, params, opt, step, main)
         steps.append(row)
     if split is not None:
         ops.FUSED_BWD_DEFAULT = False
         try:
-            params, opt, row = _train_step(torch, ops, trainer, params, opt, TRAIN_STEPS, split)
+            params, opt, row = _train_step(torch, ops, trainer, params, opt, n_steps, split)
         finally:
             ops.FUSED_BWD_DEFAULT = True
         steps.append(dict(row, split=True))
@@ -2021,7 +2055,7 @@ def phase_train_path(torch, np, dev, mode, tag="train", arch=None, profiled=True
     label = f"{mode}_train_step"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with torch.profiler.record_function(label):
-            params, opt, row = _train_step(torch, ops, trainer, params, opt, TRAIN_STEPS + 1,
+            params, opt, row = _train_step(torch, ops, trainer, params, opt, n_steps + 1,
                                            main)
     result["profiled_step"] = row
     # kernels 8, 9 and 6 (its tensor-core route at M = 512) each run a sign
@@ -2034,7 +2068,7 @@ def phase_train_path(torch, np, dev, mode, tag="train", arch=None, profiled=True
                "cac_train_bwd_fused": ("cac_train_bwd_fused_kernel",)})
     share = _device_share(prof, label, groups)
     split_share = None
-    if split is not None:  # one split step under the profiler too, after the
+    if profile_split:  # one split step under the profiler too, after the
         # fused step's trace is read (a second profiler clears its events)
         split_label = f"{mode}_train_step_split"
         ops.FUSED_BWD_DEFAULT = False
@@ -2042,7 +2076,7 @@ def phase_train_path(torch, np, dev, mode, tag="train", arch=None, profiled=True
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_split:
                 with torch.profiler.record_function(split_label):
                     params, opt, _ = _train_step(torch, ops, trainer, params, opt,
-                                                 TRAIN_STEPS + 2, split)
+                                                 n_steps + 2, split)
         finally:
             ops.FUSED_BWD_DEFAULT = True
         split_share = _device_share(prof_split, split_label, {
@@ -2051,7 +2085,7 @@ def phase_train_path(torch, np, dev, mode, tag="train", arch=None, profiled=True
             "cac_train_bwd_dw": ("cac_train_bwd_dw_kernel",)})
         result["split_profile"] = split_share
     print(f"[{tag}] peak memory {peak / 2**30:.2f} GiB; steps "
-          f"{[round(r['ms'], 1) for r in steps[:TRAIN_STEPS]]} ms"
+          f"{[round(r['ms'], 1) for r in steps[:n_steps]]} ms"
           + (f", split step {steps[-1]['ms']:.1f} ms" if split is not None else ""))
     if share is None:
         print(f"[{tag}] device busy share: not measured (no window or no device events)")
@@ -2544,9 +2578,12 @@ def _tree_np(tree):
 
 
 def _tree_paths(tree, path=""):
-    """Leaf paths of a dict tree in ``tree_leaves``'s order (keys sorted)."""
+    """Leaf paths of a dict / list tree in ``tree_leaves``'s order (keys
+    sorted, lists by index)."""
     if isinstance(tree, dict):
         return [p for k in sorted(tree) for p in _tree_paths(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in _tree_paths(v, f"{path}/{i}")]
     return [path]
 
 
@@ -3651,6 +3688,8 @@ RECURRENT_KN = [("zamba2 in_proj", 2560, 10448), ("zamba2 out_proj", 5120, 2560)
                 ("xlstm mLSTM q/k/v", 1536, 1536), ("xlstm mLSTM down", 1536, 768),
                 ("xlstm sLSTM wx", 768, 3072), ("xlstm sLSTM down", 768, 768)]
 ZAMBA_PARITY_LAYERS = 6  # one group (the SMOKE card test holds two KV streams)
+# the zamba2 bika drains at 3 of 9 groups (the 54-layer forward runs in train-recurrent)
+ZAMBA_SERVE_LAYERS = 18
 XLSTM_PARITY_LAYERS = 4  # an sLSTM (layer 0) and three mLSTM layers
 ZAMBA_LOWBIT_LAYERS = 6  # bnn and qnn8: one group, 6 x 2 + 7 = 19 launches a forward
 LONG_PROMPTS = (64, 512)  # the host-side time loop's prefill cost per token
@@ -3928,14 +3967,16 @@ def _lowbit_drains(torch, np, ops, arch, dev, tag, extra=None):
 
 
 def phase_recurrent(torch, np, dev):
-    """zamba2-2.7b (full width, all 54 layers) and xlstm-125m (whole) in bika
-    (packed signs) through ServeEngine.from_trained(engine="auto") -> static:
-    the 8 requests x 16 tokens (batch 4, max_len 128) twice, every forward
-    exactly ``_forward_launches`` kernel-1 launches (171 and 51) and no
-    other kernel, tokens equal run to run, build and drain peaks; one
-    drain profiled; the prefill's cost per token at LONG_PROMPTS; card-vs-
-    CPU parity (zamba2 cut to 12 layers, xlstm whole) with activation codes
-    held at half-way ties; then qnn8 (kernel 10) and bnn packed (kernel 7)
+    """zamba2-2.7b (full width, ZAMBA_SERVE_LAYERS layers) and xlstm-125m
+    (whole) in bika (packed signs) through
+    ServeEngine.from_trained(engine="auto") -> static: the 8 requests x 16
+    tokens (batch 4, max_len 128) twice, every forward exactly
+    ``_forward_launches`` kernel-1 launches (57 and 51) and no other
+    kernel, tokens equal run to run, build and drain peaks; one drain
+    profiled; the prefill's cost per token at LONG_PROMPTS; card-vs-CPU
+    parity (zamba2 at ZAMBA_PARITY_LAYERS, xlstm at XLSTM_PARITY_LAYERS)
+    with activation codes held at half-way ties; then qnn8 (kernel 10) and
+    bnn packed (kernel 7)
     from one train-form tree each (zamba2 at 6 layers, xlstm whole), a
     drain each twice."""
     import gc
@@ -3943,13 +3984,16 @@ def phase_recurrent(torch, np, dev):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
 
-    out = {"cut": f"zamba2-2.7b: all 54 layers in bika; the parity at {ZAMBA_PARITY_LAYERS} "
+    out = {"cut": f"zamba2-2.7b: {ZAMBA_SERVE_LAYERS} of 54 layers in bika; the parity at "
+                  f"{ZAMBA_PARITY_LAYERS} "
                   f"layers, bnn / qnn8 at {ZAMBA_LOWBIT_LAYERS}; xlstm-125m whole, its parity "
                   f"at {XLSTM_PARITY_LAYERS} layers; every width as published"}
     print(f"[recurrent] {smi_line()}; {out['cut']}")
     for name, seed in (("zamba2-2.7b", SEED + 21), ("xlstm-125m", SEED + 22)):
         tag = f"recurrent-{name}"
         arch = get_config(name, compute_mode="bika", pack_signs=True, remat=False)
+        if arch.family == "hybrid":
+            arch = arch.replace(n_layers=ZAMBA_SERVE_LAYERS)
         eng, res, base = _bika_engine(torch, arch, dev, seed, tag)
         _drains_twice(torch, np, ops, eng, "cac_hw", tag, res, base)
         res["profile"] = _profiled_drain(torch, np, eng, tag)
@@ -3990,6 +4034,7 @@ ENCDEC_KN = [("q/k/v/o", 1024, 1024), ("up", 1024, 8192), ("down", 8192, 1024)]
 ENCDEC_M = (N_SLOTS, 44, 64)
 ENCDEC_FRAMES = 16  # frames a request, as the serve launcher makes them
 ENCDEC_PARITY_LAYERS = 4  # card vs CPU at 4 encoder + 4 decoder layers
+ENCDEC_SERVE_LAYERS = 12  # the bika drains at 12 + 12 of 24 + 24 layers: 192 / 96 launches
 ENCDEC_LOWBIT_LAYERS = 6  # bnn and qnn8 at 6 + 6: 96 launches a prefill, 48 a decode step
 ENCDEC_LONG_STEPS = 3  # timed decode steps after the encoder_seq-frame prefill (and 1 untimed)
 
@@ -4059,11 +4104,13 @@ def _encdec_long(torch, np, ops, eng, tag):
 
 
 def phase_encdec(torch, np, dev):
-    """seamless-m4t-large-v2 in bika (packed signs) at full width and depth
-    (24 + 24 layers) through ServeEngine.from_trained(engine="auto") ->
-    static, frames (4, 16, 1024) as ``run(extra_batch=)``: the 8 requests x
-    16 tokens (batch 4, max_len 128) twice, every prefill exactly 384 and
-    every decode step 192 kernel-1 launches and no other kernel, tokens
+    """seamless-m4t-large-v2 in bika (packed signs) at full width,
+    ENCDEC_SERVE_LAYERS + ENCDEC_SERVE_LAYERS layers, through
+    ServeEngine.from_trained(engine="auto") -> static, frames (4, 16, 1024)
+    as ``run(extra_batch=)``: the 8 requests x 16 tokens (batch 4, max_len
+    128) twice, every prefill exactly 16 and every decode step 8 kernel-1
+    launches a decoder layer (and 6 an encoder layer at prefill) and no
+    other kernel, tokens
     equal run to run, build and drain peaks; one drain profiled; one
     prefill over encoder_seq = 1,024 frames a row and decode steps after
     it; card-vs-CPU parity at 4 + 4 layers with activation codes held at
@@ -4074,12 +4121,14 @@ def phase_encdec(torch, np, dev):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
 
-    out = {"cut": f"{ENCDEC}: all 24 + 24 layers in bika; the parity at "
+    out = {"cut": f"{ENCDEC}: {ENCDEC_SERVE_LAYERS} + {ENCDEC_SERVE_LAYERS} of 24 + 24 "
+                  f"layers in bika; the parity at "
                   f"{ENCDEC_PARITY_LAYERS} + {ENCDEC_PARITY_LAYERS} layers, bnn / qnn8 at "
                   f"{ENCDEC_LOWBIT_LAYERS} + {ENCDEC_LOWBIT_LAYERS}; every width as published"}
     print(f"[encdec] {smi_line()}; {out['cut']}")
     tag = "encdec-bika"
-    arch = get_config(ENCDEC, compute_mode="bika", pack_signs=True, remat=False)
+    arch = get_config(ENCDEC, compute_mode="bika", pack_signs=True, remat=False,
+                      n_layers=ENCDEC_SERVE_LAYERS, n_encoder_layers=ENCDEC_SERVE_LAYERS)
     eng, res, base = _bika_engine(torch, arch, dev, SEED + 26, tag)
     extra = {"frames": _encdec_frames(torch, arch, dev, ENCDEC_FRAMES)}
     _drains_twice(torch, np, ops, eng, "cac_hw", tag, res, base, extra=extra)
@@ -4117,6 +4166,7 @@ FAMILY_TRAIN_SHAPES = [
     (f"{ENCDEC} q/k/v/o", 512, 1024, 1024), (f"{ENCDEC} up", 512, 1024, 8192),
     (f"{ENCDEC} down", 512, 8192, 1024)]
 FAMILY_LOWBIT_LAYERS = 6  # seamless in bnn at 6 + 6 layers
+SEAMLESS_TRAIN_LAYERS = 12  # seamless in bika at 12 + 12 of 24 + 24 layers: 384 / 192 launches
 MIXTRAL_TRAIN_LAYERS = 1  # mixtral at full width, 1 of 56 layers (its state fills the card)
 
 
@@ -4263,24 +4313,20 @@ def phase_train_families_kernels(torch, np, dev, flush):
     return rows
 
 
-def _mixtral_grad_twice(torch, np, dev):
-    """mixtral-8x22b in bika at full width, MIXTRAL_TRAIN_LAYERS layer(s):
-    ``train.steps.loss_and_grads`` (the step's gradient; the whole AdamW
-    step's state does not fit the card in bika) twice on one batch (4 x
-    128), each with the launch counters zeroed just before and read just
-    after (per layer: 4 attention and 8 x 3 expert projections, each a
-    kernel-2 forward twice under remat and a kernel-5 backward once), the
-    two gradients equal bit for bit (the first kept on the card: 20.8 GB
-    beside a gradient's ~42 GiB peak), the router's gradient finite and
-    non-zero (it flows through the gates and the aux loss)."""
-    from repro_torch.configs import get_config
+def _grad_twice(torch, dev, arch, tag, probe):
+    """``train.steps.loss_and_grads`` of ``arch`` in bika at full width (the
+    step's gradient, where the whole AdamW step's state does not fit the
+    card) twice on one batch (4 x 128), each with the launch counters
+    zeroed just before and read just after (each projection a kernel-2
+    forward twice under remat and a kernel-5 backward once), the two
+    gradients equal bit for bit (the first kept on the card), and the
+    leaf ``probe(grads)`` picks finite and non-zero."""
     from repro_torch.data.lm import LMDataConfig, lm_batch
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train.steps import loss_and_grads
 
-    arch = get_config(MIXTRAL, compute_mode="bika", n_layers=MIXTRAL_TRAIN_LAYERS)
     n_proj = _train_projections(arch)
     expect = {"cac_train_fwd": 2 * n_proj, "cac_train_bwd_fused": n_proj}
     api = build_model(arch, phase="train")
@@ -4290,8 +4336,8 @@ def _mixtral_grad_twice(torch, np, dev):
                                   seed=SEED), 0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    print(f"[train-families] {MIXTRAL} bika, {arch.n_layers} layer(s), d_model {arch.d_model}: "
-          f"{n_params / 1e9:.3f} G parameters ({4 * n_params / 1e9:.1f} GB), init "
+    print(f"[{tag}] {arch.name} bika, {arch.n_layers} layer(s), d_model {arch.d_model}: "
+          f"{n_params / 1e9:.3f} G parameters ({4 * n_params / 1e9:.2f} GB), init "
           f"{time.perf_counter() - t0:.2f} s")
     runs, first = [], None
     for i in range(2):
@@ -4306,13 +4352,13 @@ def _mixtral_grad_twice(torch, np, dev):
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         if counts != dict(_NO_LAUNCHES, **expect):
-            fail(f"{MIXTRAL} bika gradient: launch counts {counts}, expected {expect} and 0 "
+            fail(f"{arch.name} bika gradient: launch counts {counts}, expected {expect} and 0 "
                  f"elsewhere")
-        router = torch.stack([grads["layers"]["moe"]["router"]["w"].abs().max(),
-                              grads["layers"]["moe"]["router"]["w"].isfinite().all()])
-        if not (math.isfinite(loss) and float(router[1]) == 1.0 and float(router[0]) > 0.0):
-            fail(f"{MIXTRAL} bika gradient: loss {loss}, router gradient max |g| "
-                 f"{float(router[0])}, finite {bool(router[1])}")
+        name, leaf = probe(grads)
+        stats = torch.stack([leaf.abs().max(), leaf.isfinite().all()])
+        if not (math.isfinite(loss) and float(stats[1]) == 1.0 and float(stats[0]) > 0.0):
+            fail(f"{arch.name} bika gradient: loss {loss}, {name} gradient max |g| "
+                 f"{float(stats[0])}, finite {bool(stats[1])}")
         leaves = tree_leaves(grads)
         if first is None:
             first = leaves
@@ -4320,24 +4366,38 @@ def _mixtral_grad_twice(torch, np, dev):
             differ = [j for j, (a, b) in enumerate(zip(first, leaves))
                       if not _bits_equal(torch, a, b)]
             if differ:
-                fail(f"{MIXTRAL} bika gradient: {len(differ)} of {len(leaves)} leaves differ "
+                fail(f"{arch.name} bika gradient: {len(differ)} of {len(leaves)} leaves differ "
                      f"between two runs on one batch (must repeat bit for bit)")
         runs.append({"loss": loss, "aux_loss": float(met["aux_loss"]), "ms": ms,
                      "max_memory_allocated": peak, "launches": counts})
-        print(f"[train-families] {MIXTRAL} bika gradient {i}: loss {loss:.5f} aux "
+        print(f"[{tag}] {arch.name} bika gradient {i}: loss {loss:.5f} aux "
               f"{float(met['aux_loss']):.5f} {ms:.1f} ms, peak memory {peak / 2**30:.2f} GiB, "
               f"launches {counts}")
         del grads, leaves, met
-    print(f"[train-families] {MIXTRAL} bika: the two gradients equal bit for bit "
+    print(f"[{tag}] {arch.name} bika: the two gradients equal bit for bit "
           f"({len(first)} leaves)")
     return {"layers": arch.n_layers, "runs": runs, "bit_equal": True,
             "launches_per_gradient": expect, "parameters": n_params}
 
 
+def _mixtral_grad_twice(torch, np, dev):
+    """mixtral-8x22b in bika at full width, MIXTRAL_TRAIN_LAYERS layer(s),
+    the gradient twice (``_grad_twice``; per layer: 4 attention and 8 x 3
+    expert projections; the first kept on the card: 20.8 GB beside a
+    gradient's ~42 GiB peak), the router's gradient finite and non-zero (it
+    flows through the gates and the aux loss)."""
+    from repro_torch.configs import get_config
+
+    return _grad_twice(torch, dev, get_config(MIXTRAL, compute_mode="bika",
+                                              n_layers=MIXTRAL_TRAIN_LAYERS),
+                       "train-families", lambda g: ("router", g["layers"]["moe"]["router"]["w"]))
+
+
 def phase_train_families(torch, np, dev):
-    """seamless-m4t-large-v2 in bika at full width and depth (24 + 24) through
-    the Trainer (``phase_train_path``: 3 AdamW steps, a profiled one and a
-    split-backward one, frames from the pipeline) and in bnn at 6 + 6;
+    """seamless-m4t-large-v2 in bika at full width and SEAMLESS_TRAIN_LAYERS
+    + SEAMLESS_TRAIN_LAYERS layers through the Trainer (``phase_train_path``:
+    3 AdamW steps, a profiled one and a split-backward one, frames from the
+    pipeline) and in bnn at 6 + 6;
     mixtral-8x22b at full width, 1 layer: the bika gradient twice, bit for
     bit (``_mixtral_grad_twice``), 3 AdamW steps in bnn and in qnn8; then
     one train step of each family's SMOKE config card vs CPU in bika and
@@ -4346,8 +4406,10 @@ def phase_train_families(torch, np, dev):
     from repro_torch.configs import get_config, get_smoke
 
     out = {}
-    out["seamless_bika"] = phase_train_path(torch, np, dev, "bika", tag="train-families",
-                                            arch=get_config(ENCDEC, compute_mode="bika"))
+    out["seamless_bika"] = phase_train_path(
+        torch, np, dev, "bika", tag="train-families",
+        arch=get_config(ENCDEC, compute_mode="bika", n_layers=SEAMLESS_TRAIN_LAYERS,
+                        n_encoder_layers=SEAMLESS_TRAIN_LAYERS))
     torch.cuda.empty_cache()
     out["seamless_bnn"] = phase_train_path(
         torch, np, dev, "bnn", tag="train-families", profiled=False,
@@ -4374,12 +4436,90 @@ def phase_train_families(torch, np, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# train-recurrent: training zamba2-2.7b (hybrid) and xlstm-125m at full width
+# ---------------------------------------------------------------------------
+
+ZAMBA, XLSTM = "zamba2-2.7b", "xlstm-125m"
+# kernels 2-6, 8 and 9 at every (M, K, N) the two families' training
+# projections give them at batch 4 x seq 128 (M = 512): zamba2's in_proj
+# (N = 10448 = 163 x 64 + 16: a 16-column last tile in kernels 2-5, a
+# 16-step last stage of kernel 8's contraction, an 80-row last tile of
+# kernel 9's output), out_proj and the shared block's; xlstm-125m's (its
+# mLSTM up and its sLSTM wx share (768, 3072))
+RECURRENT_TRAIN_SHAPES = [
+    (f"{ZAMBA} in_proj", 512, 2560, 10448), (f"{ZAMBA} out_proj", 512, 5120, 2560),
+    (f"{ZAMBA} shared q/k/v/o", 512, 2560, 2560), (f"{ZAMBA} shared gate/up", 512, 2560, 10240),
+    (f"{ZAMBA} shared down", 512, 10240, 2560), (f"{XLSTM} mLSTM up, sLSTM wx", 512, 768, 3072),
+    (f"{XLSTM} mLSTM q/k/v", 512, 1536, 1536), (f"{XLSTM} mLSTM down", 512, 1536, 768),
+    (f"{XLSTM} sLSTM down", 512, 768, 768)]
+ZAMBA_STEP_LAYERS = 18  # the bika AdamW step: 3 of 9 groups (the whole state, ~91 GB, does not fit)
+ZAMBA_TRAIN_LOWBIT_LAYERS = 6  # bnn and qnn8: one group, 38 / 19 / 19 launches a bnn step
+
+
+def phase_train_recurrent_kernels(torch, np, dev, flush):
+    """Kernels 2-6, 8 and 9 at every shape of ``RECURRENT_TRAIN_SHAPES``
+    (``_family_train_row``)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    rows = []
+    for where, m, k, n in RECURRENT_TRAIN_SHAPES:
+        rows.append(_family_train_row(torch, dev, flush, gen, where, m, k, n))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train_recurrent(torch, np, dev):
+    """zamba2-2.7b at full width: the bika gradient at all 54 layers twice,
+    bit for bit (``_grad_twice``: 342 kernel-2 and 171 kernel-5 launches
+    each; the AdamW step's state at 54 layers does not fit the card), the
+    Trainer in bika at ZAMBA_STEP_LAYERS (``phase_train_path``: 3 AdamW
+    steps, a fused one, a split-backward one and a profiled one), in bnn
+    and qnn8 at ZAMBA_TRAIN_LOWBIT_LAYERS; xlstm-125m whole in bika and bnn,
+    3 steps each; then one train step of each family's SMOKE config card
+    vs CPU in bika and bnn (``phase_train_parity``, Signs and STE masks
+    held at genuine ties). Each part's seconds go to ``out["seconds"]``."""
+    from repro_torch.configs import get_config, get_smoke
+
+    out = {"cut": f"{ZAMBA}: the bika gradient at all 54 layers, the bika steps at "
+                  f"{ZAMBA_STEP_LAYERS}, bnn / qnn8 at {ZAMBA_TRAIN_LOWBIT_LAYERS}; {XLSTM} "
+                  f"whole; every width as published", "seconds": {}}
+    print(f"[train-recurrent] {smi_line()}; {out['cut']}")
+
+    def part(key, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out[key] = fn(*args, **kw)
+        torch.cuda.empty_cache()
+        out["seconds"][key] = time.perf_counter() - t0
+
+    part("zamba2_bika_grad", _grad_twice, torch, dev, get_config(ZAMBA, compute_mode="bika"),
+         "train-recurrent", lambda g: ("mamba A_log", g["mamba"]["ssm"]["A_log"]))
+    part("zamba2_bika", phase_train_path, torch, np, dev, "bika", tag="train-recurrent",
+         profile_split=False, n_steps=1,
+         arch=get_config(ZAMBA, compute_mode="bika", n_layers=ZAMBA_STEP_LAYERS))
+    for mode in ("bnn", "qnn8"):
+        part(f"zamba2_{mode}", phase_train_path, torch, np, dev, mode, tag="train-recurrent",
+             profiled=False,
+             arch=get_config(ZAMBA, compute_mode=mode, n_layers=ZAMBA_TRAIN_LOWBIT_LAYERS))
+    for mode in ("bika", "bnn"):
+        part(f"xlstm_{mode}", phase_train_path, torch, np, dev, mode, tag="train-recurrent",
+             profiled=False, arch=get_config(XLSTM, compute_mode=mode))
+    for name in (ZAMBA, XLSTM):
+        for mode in ("bika", "bnn"):
+            hooks = _sign_hooks(torch) if mode == "bika" else _bnn_train_hooks(torch)
+            part(f"parity {name} {mode}", phase_train_parity, torch, np, dev, mode, hooks,
+                 tag="train-recurrent-parity", arch=get_smoke(name, compute_mode=mode))
+    print("[train-recurrent] seconds: " + ", ".join(f"{k} {v:.1f}"
+                                                    for k, v in out["seconds"].items()))
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("paper", "moe", "recurrent", "encdec", "train-families"):
+    if argv and only not in ("paper", "moe", "recurrent", "encdec", "train-families",
+                             "train-recurrent"):
         fail(f"unknown arguments {argv}; the one option is --only "
-             f"paper|moe|recurrent|encdec|train-families")
+             f"paper|moe|recurrent|encdec|train-families|train-recurrent")
     only_paper = only == "paper"
     try:
         import numpy as np
@@ -4503,6 +4643,24 @@ def main(argv=None) -> int:
         print(smi)
         print("partial run (--only train-families): no result line")
         return 0
+    if only == "train-recurrent":  # a partial run: no kernels line, no last line
+        clock = PhaseClock()
+        flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+        rec_train_kernels = clock("train-recurrent-kernels", phase_train_recurrent_kernels,
+                                  torch, np, dev, flush)
+        del flush
+        rec_train = clock("train-recurrent", phase_train_recurrent, torch, np, dev)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_train_recurrent.json"),
+                  "w") as fh:
+            json.dump({"device": smi, "train_recurrent": rec_train,
+                       "train_recurrent_kernels": rec_train_kernels,
+                       "phase_seconds": clock.seconds}, fh, indent=1, sort_keys=True,
+                      default=str)
+        print(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
+        print(smi)
+        print("partial run (--only train-recurrent): no result line")
+        return 0
     clock = PhaseClock()
     device_ops = clock("device-ops", phase_device_ops, torch, np, dev)
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
@@ -4546,11 +4704,14 @@ def main(argv=None) -> int:
     encdec_kernels = clock("encdec-kernels", phase_encdec_kernels, torch, np, dev, flush)
     fam_kernels = clock("train-families-kernels", phase_train_families_kernels, torch, np, dev,
                         flush)
+    rec_train_kernels = clock("train-recurrent-kernels", phase_train_recurrent_kernels, torch,
+                              np, dev, flush)
     del flush
     moe = clock("moe", phase_moe, torch, np, dev)
     recurrent = clock("recurrent", phase_recurrent, torch, np, dev)
     encdec = clock("encdec", phase_encdec, torch, np, dev)
     families = clock("train-families", phase_train_families, torch, np, dev)
+    rec_train = clock("train-recurrent", phase_train_recurrent, torch, np, dev)
 
     main_cac = next(r for r in cac_rows if (r["M"], r["K"], r["N"]) == (4, 960, 2560))
     main_attn = next(r for r in attn_rows if r["case"] == "decode" and not r["int8"])
@@ -4719,7 +4880,7 @@ def main(argv=None) -> int:
                                                  if r["kernel"] == entry["name"]]
     # the tenth slice: kernels 2-6, 8 and 9 on the training paths of
     # mixtral-8x22b (1 layer at full width) and seamless-m4t-large-v2 (bika at
-    # 24 + 24 layers, bnn at 6 + 6): launches a step and rows at their shapes
+    # 12 + 12 layers, bnn at 6 + 6): launches a step and rows at their shapes
     fam_keys = {"cac_train_fwd": ("fwd", "cac_train_fwd"),
                 "cac_train_bwd_dx": ("bwd_dx", "cac_train_bwd_dx"),
                 "cac_train_bwd_dw": ("bwd_dw", "cac_train_bwd_dw"),
@@ -4735,7 +4896,8 @@ def main(argv=None) -> int:
             seamless = seamless_split if count in ("cac_train_bwd_dx", "cac_train_bwd_dw") \
                 else families["seamless_bika"]["steps"][0]["launches"]
             entry["families_launches"] = {
-                f"{ENCDEC} bika step (24 + 24 layers)": seamless[count],
+                f"{ENCDEC} bika step ({SEAMLESS_TRAIN_LAYERS} + {SEAMLESS_TRAIN_LAYERS} layers)":
+                    seamless[count],
                 f"{MIXTRAL} bika gradient (1 layer)":
                     families["mixtral_bika_grad"]["runs"][0]["launches"][count]}
         else:
@@ -4747,6 +4909,32 @@ def main(argv=None) -> int:
         entry["shapes"] = entry["shapes"] + [
             {"train_families": r["where"], "M": r["M"], "K": r["K"], "N": r["N"], key: r[key]}
             for r in fam_kernels]
+    # the eleventh slice: kernels 2-6, 8 and 9 on the recurrent families'
+    # training paths (zamba2 in bika: the 54-layer gradient and the 18-layer
+    # steps; in bnn at 6 layers; xlstm-125m whole) and their rows at the
+    # families' nine training shapes
+    zamba_steps = rec_train["zamba2_bika"]["steps"]
+    for entry in kernels:
+        if entry["name"] not in fam_keys:
+            continue
+        key, count = fam_keys[entry["name"]]
+        if count.startswith("cac"):
+            zamba = zamba_steps[-1 if count in ("cac_train_bwd_dx", "cac_train_bwd_dw") else 0]
+            entry["recurrent_train_launches"] = {
+                f"{ZAMBA} bika step ({ZAMBA_STEP_LAYERS} layers)": zamba["launches"][count],
+                f"{ZAMBA} bika gradient (54 layers)":
+                    rec_train["zamba2_bika_grad"]["runs"][0]["launches"][count],
+                f"{XLSTM} bika step (12 layers)":
+                    rec_train["xlstm_bika"]["steps"][0]["launches"][count]}
+        else:
+            entry["recurrent_train_launches"] = {
+                f"{ZAMBA} bnn step ({ZAMBA_TRAIN_LOWBIT_LAYERS} layers)":
+                    rec_train["zamba2_bnn"]["steps"][0]["launches"][count],
+                f"{XLSTM} bnn step (12 layers)":
+                    rec_train["xlstm_bnn"]["steps"][0]["launches"][count]}
+        entry["shapes"] = entry["shapes"] + [
+            {"train_recurrent": r["where"], "M": r["M"], "K": r["K"], "N": r["N"], key: r[key]}
+            for r in rec_train_kernels]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump({"device": smi, "kernels": kernels, "timing_floor_ms": timing_floor,
@@ -4760,6 +4948,7 @@ def main(argv=None) -> int:
                    "recurrent": recurrent, "recurrent_kernels": rec_kernels,
                    "encdec": encdec, "encdec_kernels": encdec_kernels,
                    "train_families": families, "train_families_kernels": fam_kernels,
+                   "train_recurrent": rec_train, "train_recurrent_kernels": rec_train_kernels,
                    "phase_seconds": clock.seconds},
                   fh, indent=1, sort_keys=True,
                   default=str)

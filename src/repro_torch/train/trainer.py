@@ -57,11 +57,6 @@ class TrainConfig:
 class Trainer:
     def __init__(self, cfg: TrainConfig, opt: Optional[OptimizerSpec] = None, *,
                  device=None, fail_at_step: Optional[int] = None):
-        if cfg.arch.family in ("hybrid", "xlstm"):
-            raise NotImplementedError(
-                f"{cfg.arch.name}: training the {cfg.arch.family} family is not ported yet; "
-                f"it is the next slice (autograd through its recurrent scans' host loops "
-                f"over positions at full width); the port serves it")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.fail_at_step = fail_at_step

@@ -772,6 +772,27 @@ def test_training_kernels_at_expert_queue_shapes_on_card(cuda, m, k, n):
     """Kernels 2 and 6 bit-exact against their plain versions; kernel 5
     within atol/rtol 1e-4 off the |pre| = 1 window edge, kernels 8 and 9
     within 1e-4 everywhere; 5, 8 and 9 bit-repeatable."""
+    _training_kernels_hold(cuda, m, k, n)
+
+
+# the recurrent families' training shapes at batch 4 x seq 128: zamba2-2.7b's
+# in_proj (N = 10448: a 16-column last tile in kernels 2-5, a 16-step last
+# stage of kernel 8, an 80-row last tile of kernel 9), out_proj and shared
+# block; xlstm-125m's mLSTM up / sLSTM wx, q/k/v, the two downs
+RECURRENT_TRAIN_SHAPES = [(512, 2560, 10448), (512, 5120, 2560), (512, 2560, 2560),
+                          (512, 2560, 10240), (512, 10240, 2560), (512, 768, 3072),
+                          (512, 1536, 1536), (512, 1536, 768), (512, 768, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", RECURRENT_TRAIN_SHAPES)
+def test_training_kernels_at_recurrent_shapes_on_card(cuda, m, k, n):
+    """Kernels 2-6, 8 and 9 at zamba2-2.7b's and xlstm-125m's training
+    shapes, as at the expert queues'."""
+    _training_kernels_hold(cuda, m, k, n)
+
+
+def _training_kernels_hold(cuda, m, k, n):
     rng = np.random.default_rng(m + k + 2 * n)
     x, w, beta, g = (torch.from_numpy(a).to(cuda) for a in cac_train_case(rng, m, k, n))
     assert torch.equal(cac.cac_train_fwd_call(x, w, beta), cac.cac_train_fwd_plain(x, w, beta))
@@ -839,4 +860,45 @@ def test_moe_layer_gradient_bit_repeatable_on_card(cuda, mode, dispatch):
         assert {k: v for k, v in counts.items() if v} == want, counts
     assert float(runs[0][0][0].abs().max()) > 0  # the router learns
     for a, b in zip(runs[0][0], runs[1][0]):
+        assert bits_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bika", "bnn"])
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "xlstm-125m"])
+def test_recurrent_smoke_train_step_on_card(cuda, monkeypatch, name, mode):
+    """One SMOKE-size train step of each recurrent family (remat on) through
+    the Trainer on the card, twice from the same init: exactly one forward
+    launch twice (the remat recompute) and one backward launch a projection
+    (``chip_smoke._train_projections``: zamba2's 2 a Mamba layer and 7 a
+    shared-block application, xLSTM's 2 an sLSTM and 5 an mLSTM layer),
+    finite losses, and the updated parameters and AdamW moments equal bit
+    for bit (the shared block's gradient sums its applications in a fixed
+    order, no atomics)."""
+    import os
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    monkeypatch.syspath_prepend(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    cfg = get_smoke(name, compute_mode=mode)
+    n = cs._train_projections(cfg)
+    assert n == (2 * 4 + 7 * 2 if cfg.family == "hybrid" else 2 * 2 + 5)
+    want = ({"cac_train_fwd": 2 * n, "cac_train_bwd_fused": n} if mode == "bika" else
+            {"bnn": 2 * n, "bnn_bwd_dx": n, "bnn_bwd_dw": n})
+    runs = []
+    for _ in range(2):
+        trainer = Trainer(TrainConfig(arch=cfg, seq_len=16, global_batch=2, steps=1), device=cuda)
+        params, opt, _ = trainer.init()
+        ops.reset_launches()
+        params, opt, met = trainer.train_step(params, opt, 0)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in ops.launch_counts().items() if v} == want
+        assert np.isfinite(float(met["loss"])) and float(met["skipped"]) == 0.0
+        runs.append(tree_leaves({"params": params, "m": opt["m"], "v": opt["v"]}))
+    for a, b in zip(*runs):
         assert bits_equal(a, b)

@@ -389,8 +389,8 @@ def test_static_engine_drain_matches_reference(name, mode):
 def test_registry_engine_and_trainer(name):
     """The registered config equals the reference's field for field (and
     runs long_500k); auto resolves to static and a slot engine refuses the
-    family; the Trainer refuses it; the model has no paged or speculative
-    entry."""
+    family; the Trainer takes it (no frames; ``tests/test_torch_train_recurrent.py``
+    trains it); the model has no paged or speculative entry."""
     from repro_torch.train.trainer import TrainConfig, Trainer
 
     from repro.configs import applicable_shapes as jax_shapes
@@ -408,8 +408,8 @@ def test_registry_engine_and_trainer(name):
     assert eng.engine == "static"
     with pytest.raises(ValueError, match="static engine"):
         ServeEngine(api, params, cfg, max_len=16, engine="continuous", device="cpu")
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        Trainer(TrainConfig(arch=cfg, seq_len=8, global_batch=2, steps=1), device="cpu")
+    trainer = Trainer(TrainConfig(arch=cfg, seq_len=8, global_batch=2, steps=1), device="cpu")
+    assert trainer.data_cfg.frames_dim == 0 and trainer.api.apply is not None
 
 
 @pytest.mark.parametrize("name,mode", [("zamba2-2.7b", "bika"), ("xlstm-125m", "qnn8")])

@@ -607,6 +607,11 @@ def _assert_tree_close(got, want, path, rtol, sum_bounds=None):
         for key in want:
             _assert_tree_close(got[key], want[key], f"{path}/{key}", rtol, sum_bounds)
         return
+    if isinstance(want, (list, tuple)):  # xLSTM's list of layers
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_tree_close(g, w, f"{path}/{i}", rtol, sum_bounds)
+        return
     g, w = got.detach().numpy(), np.asarray(want)
     assert g.shape == w.shape, (path, g.shape, w.shape)
     if sum_bounds and path in sum_bounds:
@@ -673,6 +678,8 @@ def _amax_grad_terms(api, params, batch, monkeypatch):
 def _leaves_of(tree):
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in _leaves_of(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _leaves_of(v)]
     return [tree]
 
 

@@ -95,6 +95,8 @@ def _tracked(params):
     def track(node, path):
         if isinstance(node, dict):
             return {k: track(v, f"{path}/{k}") for k, v in node.items()}
+        if isinstance(node, list):  # xLSTM's list of layers
+            return [track(v, f"{path}/{i}") for i, v in enumerate(node)]
         leaf = node.detach().requires_grad_(True)
         paths[id(leaf)] = path
         return leaf
@@ -541,10 +543,3 @@ def test_restart_is_bitwise_reproducible(arch, tmp_path):
         else:
             assert a == b
     assert o["step"] == 3
-
-
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m"])
-def test_recurrent_families_still_refused(arch):
-    cfg = get_smoke(arch, compute_mode="bika")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        Trainer(TrainConfig(arch=cfg, seq_len=8, global_batch=2, steps=1), device="cpu")
