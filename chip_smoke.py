@@ -122,6 +122,24 @@ any failure exits non-zero):
              count at M = 4 and 32.
    qnn route sweep — both routes at M = 16..128, gate/up and down: the
              times that set QNN_STREAM_MAX_M.
+   tooling — the static checker and the plan autotuner on the card
+             (phase_tooling): repro_torch.analysis.kernel_contracts over
+             every route x config x M with this build's -Xptxas -v output of
+             every entry function (each mapped to its kernel; registers,
+             shared memory, spill stores against their budgets), the card's
+             SM count and its occupancy for every plan: any finding fails;
+             one row per entry function. Then kernels.autotune's measured
+             search at one shape a path (TOOLING_SHAPES; kernel 11 at
+             smollm's decode case) against a temporary cache file: every
+             legal candidate timed (CUDA events, L2 flushed, median of 10),
+             its output held against the default plan's (bit-equal for 1,
+             2, 6, 7, 10; 1e-4 for 3-5, 8, 9; 2e-5 for 11; kernel 3's dx
+             equal to kernel 5's at every cluster size), the default's and
+             the winner's ms; a second resolution at each shape must come
+             from the file with nothing timed. The file is removed and the
+             cache cleared before the next phase. ``python3 chip_smoke.py
+             --only tooling`` builds and runs this phase alone (a partial
+             run: no result line).
 12. qnn8-serve — phases 4, profile (with kernel 10's device ms) and 5
              again in qnn8 mode at 16 of 32 layers: 112 kernel-10
              and 16 attention launches per tick, 0 elsewhere; the parity holds
@@ -174,10 +192,11 @@ any failure exits non-zero):
              the ring oracle (the attention layer alone, each decode step
              within 2e-5 of windowed dot_attention over every position so
              far, fp32 and int8 rings); card-vs-CPU parity of the short
-             drain's first batch (prefill + 4 decode steps) with activation
-             codes and expert choices held at genuine ties, each printed;
-             (1 of the 2 layers); one layer in qnn8 (kernel 10) and bnn
-             (kernel 7) from one train-form tree, a drain each twice;
+             drain's first batch with activation codes and expert choices
+             held at genuine ties, each printed (1 of the 2 layers, 2 of
+             the 4 requests, prefill + 2 decode steps); one layer in qnn8
+             (kernel 10) and bnn (kernel 7) from one train-form tree, a
+             drain each twice;
              nemotron-4-15b (LayerNorm,
              squared ReLU, G = 6) at full width, 2 layers, bika on the paged
              engine: a drain twice (12 kernel-1 and 2 kernel-11 launches a
@@ -261,7 +280,7 @@ any failure exits non-zero):
              fused, a split-backward and a profiled step (114 / 57
              launches, 57 each of kernels 3 and 4 split); in bnn (38 / 19
              / 19) and qnn8 at 6 layers, 3 steps each; xlstm-125m whole in
-             bika (102 / 51) and bnn, 3 steps each; then one train step of
+             bika (102 / 51) and bnn, 1 step each; then one train step of
              each family's SMOKE config card vs CPU in bika and bnn,
              Signs and STE masks held at genuine ties. ``python3
              chip_smoke.py --only train-recurrent`` runs the two alone (a
@@ -269,12 +288,14 @@ any failure exits non-zero):
 
 Earlier paths run at cut depths so that the whole script stays well inside
 its time limit: the card-vs-CPU parities, whose CPU sides are most of their
-phases' time (mixtral at 1 layer and 2 decode steps, the bika train step
+phases' time (mixtral at 1 layer, 2 of the batch's 4 requests and 2
+decode steps, the bika train step
 at 1 layer, zamba2 at 6, xlstm at 4), the checkpoint phase (8 of smollm's
 32 layers), the spec phase (8 of 32 layers), the bnn and qnn8 serve
 drains (16 of 32 layers), the zamba2 bika drains (18 of 54 layers; the
 54-layer forward runs in train-recurrent's gradient), the seamless bika
-drains and training (12 + 12 of 24 + 24 layers). The profiled drains read
+drains and training (12 + 12 of 24 + 24 layers), xlstm-125m's training
+(1 step in each mode). The profiled drains read
 the profiler's events directly and write no trace file.
 
 Before the last line come the card's name and power limit as nvidia-smi
@@ -294,13 +315,20 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+try:  # the H100's published peaks: one table with the kernel contracts
+    from repro_torch.hwsim import DEVICE_TERMS
+    _H100 = DEVICE_TERMS["h100_sxm"]
+except ImportError:  # the port is not beside this file: main() says so and fails
+    _H100 = {}
+
 SEED = 0
 N_SLOTS, MAX_LEN, BLOCK, CHUNK, NEW_TOKENS = 4, 128, 16, 32, 16
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and the float32
-# rate outside the tensor cores, which also stands in for the CAC's integer
-# compare/add pairs (no tensor-core form exists for them)
-HBM_BYTES_S = 3.35e12
-CUDA_CORE_OPS_S = 67e12
+# published H100 SXM peaks (NVIDIA data sheet, repro_torch.hwsim): HBM
+# bytes/s and the float32 rate outside the tensor cores, which also stands
+# in for the CAC's integer compare/add pairs (no tensor-core form exists
+# for them)
+HBM_BYTES_S = _H100.get("hbm_bw")
+CUDA_CORE_OPS_S = _H100.get("fp32_ops")
 ATTN_TOL = 2e-5
 PARITY_ATOL = 1e-3  # logits, once the activation codes agree; see phase_parity
 SPIN_CYCLES = 4_000_000  # ~2 ms at the H100's clock: longer than any call's enqueue
@@ -339,7 +367,7 @@ ROUTE_SWEEP_M = (16, 32, 33, 48, 64, 128)
 # +-1 products and their integer sums are exact on the tensor cores, so the
 # sign products' operations bound, and the SignSTE backward's (each term a
 # +-1 times g), is 2 M K N at the dense bf16 rate (data sheet)
-TENSOR_CORE_OPS_S = 989e12
+TENSOR_CORE_OPS_S = _H100.get("bf16_tensor_ops")
 BWD_PLANES = 3  # the backward kernels' bf16 planes of g, recorded beside the bound
 BNN_SIGN_TIE = 1e-5  # |x| within this of 0 on both sides: a Sign the devices may split
 BNN_WINDOW_TIE = 1e-5  # |x| within this of 1 on both sides: an STE mask they may split
@@ -349,7 +377,7 @@ BNN_WINDOW_TIE = 1e-5  # |x| within this of 1 on both sides: an STE mask they ma
 # 4-byte aligned; N = 33, 65, 130: w rows not either)
 QNN_SHAPES = [(m, k, n) for m in (N_SLOTS, 16, 32, 512) for k, n in PATH_KN]
 QNN_RAGGED = [(37, 100, 130), (129, 968, 65), (5, 99, 33)]
-INT8_TENSOR_OPS_S = 1979e12  # H100 SXM dense int8 tensor-core peak (data sheet)
+INT8_TENSOR_OPS_S = _H100.get("int8_tensor_ops")  # dense int8 tensor-core peak (data sheet)
 ACT_SCALE = 0.05  # LinearSpec.act_scale, the serve path's x_scale
 SPEC_K = 4  # the reference's benchmarked speculative window (dense <- qnn8)
 SPEC_TIE = 1e-4  # top-2 logit gap below which target-only and spec may part
@@ -1414,7 +1442,7 @@ def _serve(np, train, arch, quantized, dev, count_launches=False, label=None,
     with region:
         done = eng.run()
         sync()
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0  # repro: noqa-RPA005 -- sync is torch.cuda.synchronize
     counts = ops.launch_counts() if count_launches else None
     if held is not None:
         held.update(engine=eng, done=done)
@@ -4453,8 +4481,9 @@ RECURRENT_TRAIN_SHAPES = [
     (f"{ZAMBA} shared down", 512, 10240, 2560), (f"{XLSTM} mLSTM up, sLSTM wx", 512, 768, 3072),
     (f"{XLSTM} mLSTM q/k/v", 512, 1536, 1536), (f"{XLSTM} mLSTM down", 512, 1536, 768),
     (f"{XLSTM} sLSTM down", 512, 768, 768)]
-ZAMBA_STEP_LAYERS = 18  # the bika AdamW step: 3 of 9 groups (the whole state, ~91 GB, does not fit)
+ZAMBA_STEP_LAYERS = 6  # the bika AdamW step: 1 of 9 groups (the whole state, ~91 GB, does not fit)
 ZAMBA_TRAIN_LOWBIT_LAYERS = 6  # bnn and qnn8: one group, 38 / 19 / 19 launches a bnn step
+XLSTM_TRAIN_STEPS = 1  # xlstm-125m's bika and bnn steps (3 until the tooling phase came)
 
 
 def phase_train_recurrent_kernels(torch, np, dev, flush):
@@ -4475,7 +4504,7 @@ def phase_train_recurrent(torch, np, dev):
     Trainer in bika at ZAMBA_STEP_LAYERS (``phase_train_path``: 3 AdamW
     steps, a fused one, a split-backward one and a profiled one), in bnn
     and qnn8 at ZAMBA_TRAIN_LOWBIT_LAYERS; xlstm-125m whole in bika and bnn,
-    3 steps each; then one train step of each family's SMOKE config card
+    XLSTM_TRAIN_STEPS each; then one train step of each family's SMOKE config card
     vs CPU in bika and bnn (``phase_train_parity``, Signs and STE masks
     held at genuine ties). Each part's seconds go to ``out["seconds"]``."""
     from repro_torch.configs import get_config, get_smoke
@@ -4502,7 +4531,7 @@ def phase_train_recurrent(torch, np, dev):
              arch=get_config(ZAMBA, compute_mode=mode, n_layers=ZAMBA_TRAIN_LOWBIT_LAYERS))
     for mode in ("bika", "bnn"):
         part(f"xlstm_{mode}", phase_train_path, torch, np, dev, mode, tag="train-recurrent",
-             profiled=False, arch=get_config(XLSTM, compute_mode=mode))
+             profiled=False, n_steps=XLSTM_TRAIN_STEPS, arch=get_config(XLSTM, compute_mode=mode))
     for name in (ZAMBA, XLSTM):
         for mode in ("bika", "bnn"):
             hooks = _sign_hooks(torch) if mode == "bika" else _bnn_train_hooks(torch)
@@ -4513,13 +4542,150 @@ def phase_train_recurrent(torch, np, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the tooling phase: the kernel contracts on the card's build and occupancy,
+# and the measured plan autotuner
+# ---------------------------------------------------------------------------
+
+# one shape a path: the serve path's decode projection for the paths that
+# serve, the train step's gate/up (batch 4 x seq 128) for those that train;
+# kernel 11 at smollm's decode case (B 4, C 1, Hq 15, Hkv 5, D 64, bs 16, T 8)
+TOOLING_SHAPES = [("hw_fwd", (N_SLOTS, 960, 2560)), ("train_fwd", (512, 960, 2560)),
+                  ("train_bwd", (512, 960, 2560)), ("train_bwd_dw", (512, 960, 2560)),
+                  ("bnn", (512, 960, 2560)), ("bnn_packed", (N_SLOTS, 960, 2560)),
+                  ("bnn_bwd", (512, 960, 2560)), ("qnn8", (N_SLOTS, 960, 2560))]
+TOOLING_PAGED = (N_SLOTS, 1, 15, 5, 64, BLOCK, 8)
+TOOLING_ITERS, TOOLING_WARMUP = 10, 2
+# the kernels line's names -> the kernel numbers of ROADMAP Queue 2
+KERNEL_NUMBERS = {"cac_matmul": 1, "cac_train_fwd": 2, "cac_train_bwd_dx": 3,
+                  "cac_train_bwd_dw": 4, "cac_train_bwd_fused": 5, "bnn_matmul": 6,
+                  "bnn_packed_matmul": 7, "bnn_bwd_dx": 8, "bnn_bwd_dw": 9, "qnn_matmul": 10,
+                  "paged_attn": 11}
+
+
+def phase_tooling(torch, np, dev, logs):
+    """The kernel contracts over the zoo with this build's ``-Xptxas -v``
+    output of every entry function, the card's SM count and its occupancy
+    for every plan (any finding fails), one row per entry function; then
+    the measured autotuner at one shape a path (``TOOLING_SHAPES``, kernel
+    11 at ``TOOLING_PAGED``) against a temporary cache file: every
+    candidate's median ms, the default plan's and the winner's, every
+    candidate's output held against the default plan's; a second
+    resolution at each shape, from the file, must return the winner with
+    nothing timed. The file is removed and the in-memory cache cleared at
+    the end, so no later phase reads a tuned plan."""
+    from repro_torch.analysis import kernel_contracts as kc
+    from repro_torch.kernels import autotune
+
+    from repro_torch.kernels import build
+
+    tag = "tooling"
+    index = dev.index or 0
+    missing = [name for name in build.KERNEL_SOURCES if not logs.get(name, "").strip()]
+    if missing:
+        fail(f"{tag}: no -Xptxas -v output for {missing}: the contracts need every source's")
+    log = "\n".join(logs[name] for name in sorted(logs))
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "ptxas_h100.log"), "w") as fh:
+        fh.write(log)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    t0 = time.perf_counter()
+    rep = kc.run(ptxas_log=log, sms=sms, max_blocks=lambda path, shape, plan:
+                 autotune.card_max_blocks(path, shape, plan, index))
+    contracts_s = time.perf_counter() - t0
+    data = rep.data[kc.PASS]
+    for row in data["ptxas"]:
+        print(f"[{tag}] ptxas {row['stem']}<{','.join(map(str, row['targs']))}> kernels "
+              f"{row['kernels']}: {row['registers']} registers, {row['smem']} B static smem, "
+              f"spill stores {row['spill_stores']} B (budget {row.get('spill_budget', 0)}), "
+              f"loads {row['spill_loads']} B")
+    if not rep.ok:
+        print(rep.render())
+        fail(f"{tag}: {len(rep.findings)} kernel-contract finding(s)")
+    print(f"[{tag}] contracts: {len(data['ptxas'])} entry functions, {data['coverage']} route x "
+          f"config pairs, {len(data['entries'])} (route, arch, case) rows, {sms} SMs, "
+          f"0 findings, {contracts_s:.1f} s")
+
+    old_env = os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE")
+    path_file = os.path.join(ROOT, "build", f"autotune-tooling-{os.getpid()}.json")
+    os.makedirs(os.path.dirname(path_file), exist_ok=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = path_file
+    autotune.clear_cache()
+    rows = []
+    t0 = time.perf_counter()
+    try:
+        for path, shape in TOOLING_SHAPES + [("paged_attn", TOOLING_PAGED)]:
+            if path == "paged_attn":
+                rec = autotune.measured_paged_search(*shape, iters=TOOLING_ITERS,
+                                                     warmup=TOOLING_WARMUP, seed=SEED,
+                                                     index=index)
+            else:
+                rec = autotune.measured_search(path, *shape, iters=TOOLING_ITERS,
+                                               warmup=TOOLING_WARMUP, seed=SEED, index=index)
+            row = {k: rec[k] for k in ("path", "shape", "key", "default", "default_ms",
+                                       "winner", "winner_ms", "tolerance", "held")}
+            row["kernels"] = list(autotune.PATH_KERNELS[path])
+            row["candidates"] = [{"plan": c["plan"], "ms": c["ms"],
+                                  "max_abs_err": c["max_abs_err"], **(
+                                      {"half": c["half"]} if "half" in c else {})}
+                                 for c in rec["candidates"]]
+            row["winner_over_default"] = rec["winner_ms"] / rec["default_ms"]
+            row["max_abs_err"] = max(c["max_abs_err"] for c in rec["candidates"])
+            rows.append(row)
+            print(f"[{tag}] autotune {path} {shape}: {len(row['candidates'])} candidates "
+                  + ", ".join(f"{c['plan']}{'/' + c['half'] if 'half' in c else ''} "
+                              f"{c['ms']:.5f}" for c in row["candidates"])
+                  + f"; default {rec['default']} {rec['default_ms']:.5f} ms, winner "
+                  f"{rec['winner']} {rec['winner_ms']:.5f} ms ({row['winner_over_default']:.3f}"
+                  f" of the default); outputs within {rec['tolerance']} of the default plan's "
+                  f"(max {row['max_abs_err']:.3g})")
+        search_s = time.perf_counter() - t0
+        # the second resolution: from the file alone, nothing timed
+        autotune.clear_cache()
+        timed = autotune.timed_calls
+        hits = 0
+        for row in rows:
+            if row["path"] == "paged_attn":
+                got = autotune.get_paged_plan(*row["shape"], index=index)
+            elif row["path"] == "bnn_bwd":
+                got = {h: autotune.get_plan("bnn_bwd", *row["shape"], index, want_dx=h == "dx")
+                       for h in ("dx", "dw")}
+            else:
+                got = autotune.get_plan(row["path"], *row["shape"], index)
+            row["second_resolution"] = got
+            hits += got == row["winner"]
+        retimed = autotune.timed_calls - timed
+        invalid = autotune.invalid_cache_entries()
+        if hits != len(rows) or retimed or invalid:
+            fail(f"{tag}: the second resolution hit the cache at {hits} of {len(rows)} shapes, "
+                 f"{retimed} calls re-timed, invalid entries {invalid}")
+        with open(path_file) as fh:
+            stored = json.load(fh)
+        print(f"[{tag}] second resolution: {hits} of {len(rows)} shapes from the cache file "
+              f"({len(stored)} entries), {retimed} calls re-timed; search {search_s:.1f} s")
+    finally:
+        if os.path.exists(path_file):
+            os.remove(path_file)
+        if old_env is None:
+            os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = old_env
+        autotune.clear_cache()
+    return {"contracts": {"entry_functions": len(data["ptxas"]),
+                          "coverage": data["coverage"], "rows": len(data["entries"]),
+                          "findings": len(rep.findings), "sms": sms, "seconds": contracts_s,
+                          "ptxas": data["ptxas"]},
+            "autotune": rows, "cache_hits": hits, "retimed": retimed,
+            "search_seconds": search_s}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
     if argv and only not in ("paper", "moe", "recurrent", "encdec", "train-families",
-                             "train-recurrent"):
+                             "train-recurrent", "tooling"):
         fail(f"unknown arguments {argv}; the one option is --only "
-             f"paper|moe|recurrent|encdec|train-families|train-recurrent")
+             f"paper|moe|recurrent|encdec|train-families|train-recurrent|tooling")
     only_paper = only == "paper"
     try:
         import numpy as np
@@ -4533,13 +4699,24 @@ def main(argv=None) -> int:
     except ImportError as e:
         fail(f"the port's package is not beside this script ({e}); run from the repo root")
 
+    # every phase but the tooling one launches the plan rules' own plans: the
+    # autotune cache is a file of this checkout that does not exist, so no
+    # entry that an earlier search left in the user's cache changes a plan
+    from repro_torch.kernels import autotune
+
+    untuned = os.path.join(ROOT, "build", f"autotune-untuned-{os.getpid()}.json")
+    if os.path.exists(untuned):
+        os.remove(untuned)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = untuned
+    autotune.clear_cache()
+
     t_start = time.perf_counter()
     smi = smi_line()
     print(f"[device] {smi}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # repro: noqa-RPA005 -- wall seconds of the build and phases
     logs = {}
     paths = build.build_all(logs=logs)
     print(f"[build] {len(paths)} kernels built in {time.perf_counter() - t0:.2f} s: "
@@ -4661,6 +4838,16 @@ def main(argv=None) -> int:
         print(smi)
         print("partial run (--only train-recurrent): no result line")
         return 0
+    if only == "tooling":  # a partial run: no kernels line, no last line
+        clock = PhaseClock()
+        tooling = clock("tooling", phase_tooling, torch, np, dev, logs)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_tooling.json"), "w") as fh:
+            json.dump({"device": smi, "tooling": tooling, "phase_seconds": clock.seconds}, fh,
+                      indent=1, sort_keys=True, default=str)
+        print(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
+        print(smi)
+        print("partial run (--only tooling): no result line")
+        return 0
     clock = PhaseClock()
     device_ops = clock("device-ops", phase_device_ops, torch, np, dev)
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
@@ -4673,6 +4860,7 @@ def main(argv=None) -> int:
     qnn_rows = clock("qnn8-kernels", phase_qnn_kernels, torch, np, dev, flush)
     qnn_route_sweep = clock("qnn route sweep", phase_qnn_route_sweep, torch, np, dev, flush)
     del flush
+    tooling = clock("tooling", phase_tooling, torch, np, dev, logs)
     from repro_torch.configs import get_config
     from repro_torch.core.convert import tree_to_serve
 
@@ -4935,6 +5123,21 @@ def main(argv=None) -> int:
         entry["shapes"] = entry["shapes"] + [
             {"train_recurrent": r["where"], "M": r["M"], "K": r["K"], "N": r["N"], key: r[key]}
             for r in rec_train_kernels]
+    # the twelfth slice: each kernel's entry functions under the contracts
+    # (registers, spill stores, findings) and the autotune row of its path
+    for entry in kernels:
+        number = KERNEL_NUMBERS[entry["name"]]
+        fns = [r for r in tooling["contracts"]["ptxas"] if number in r["kernels"]]
+        if not fns:
+            fail(f"kernel {number} ({entry['name']}) has no entry function in the ptxas log")
+        entry["contracts"] = {"entry_functions": len(fns),
+                              "registers": max(r["registers"] for r in fns),
+                              "spill_stores": max(r["spill_stores"] for r in fns),
+                              "findings": tooling["contracts"]["findings"]}
+        entry["autotune"] = next(
+            {k: r[k] for k in ("path", "shape", "default", "default_ms", "winner", "winner_ms",
+                               "winner_over_default", "max_abs_err", "tolerance")}
+            for r in tooling["autotune"] if number in r["kernels"])
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump({"device": smi, "kernels": kernels, "timing_floor_ms": timing_floor,
@@ -4949,12 +5152,13 @@ def main(argv=None) -> int:
                    "encdec": encdec, "encdec_kernels": encdec_kernels,
                    "train_families": families, "train_families_kernels": fam_kernels,
                    "train_recurrent": rec_train, "train_recurrent_kernels": rec_train_kernels,
-                   "phase_seconds": clock.seconds},
+                   "tooling": tooling, "phase_seconds": clock.seconds},
                   fh, indent=1, sort_keys=True,
                   default=str)
     print(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     print(smi)
     print(json.dumps({"kernels": kernels}, sort_keys=True))
+    # repro: noqa-RPA004 -- the result line, "ok" first as its contract shows it
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -2,8 +2,8 @@
 
 Every projection mode implements one contract — ``init_train`` /
 ``init_serve`` / ``to_serve`` / ``train_param_keys`` / ``apply_train`` /
-``apply_serve`` / ``kernel_route`` —
-and ``nn/linear.py`` dispatches on ``LinearSpec.mode`` through the registry.
+``apply_serve`` / ``kernel_route`` / ``autotune_path`` / ``autotune_key``
+— and ``nn/linear.py`` dispatches on ``LinearSpec.mode`` through the registry.
 Registered: ``dense``, ``bika``, ``bnn`` and ``qnn8``.
 
 Parameters are plain dicts of tensors with the reference's ``(K, N)`` /
@@ -25,6 +25,7 @@ __all__ = [
     "LinearSpec",
     "QuantBackend",
     "register",
+    "registered_backends",
     "get_backend",
     "pack_signs",
     "pad_contraction",
@@ -161,6 +162,21 @@ class QuantBackend:
         takes in ``phase`` (None: plain PyTorch)."""
         return None
 
+    def autotune_path(self, spec, phase: str = "train") -> Optional[str]:
+        """The ``kernels.autotune`` path the route's forward resolves its
+        plan under (None where there is no route)."""
+        return None
+
+    def autotune_key(self, spec, phase: str, m: int, k: int, n: int,
+                     backend: Optional[str] = None) -> Optional[str]:
+        """The cache key the route's plan resolves under at (m, k, n)."""
+        path = self.autotune_path(spec, phase)
+        if path is None:
+            return None
+        from repro_torch.kernels import autotune
+
+        return autotune.cache_key(path, m, k, n, backend)
+
 
 _REGISTRY: Dict[str, QuantBackend] = {}
 
@@ -168,6 +184,11 @@ _REGISTRY: Dict[str, QuantBackend] = {}
 def register(backend: QuantBackend, *, name: Optional[str] = None) -> QuantBackend:
     _REGISTRY[name or backend.name] = backend
     return backend
+
+
+def registered_backends() -> Dict[str, QuantBackend]:
+    """A copy of the registry: ``{mode name: backend}``."""
+    return dict(_REGISTRY)
 
 
 def get_backend(name: str) -> QuantBackend:
@@ -275,6 +296,9 @@ class BikaBackend(QuantBackend):
     def kernel_route(self, spec, phase="train"):
         return "cac_train" if phase == "train" else "cac_hw"
 
+    def autotune_path(self, spec, phase="train"):
+        return "train_fwd" if phase == "train" else "hw_fwd"
+
     def apply_serve(self, params, x, spec):
         """Hardware-form CAC projection. Every call goes through
         ``kernels.ops.cac_matmul`` whatever ``spec.impl`` says: on CUDA that
@@ -381,6 +405,9 @@ class BnnBackend(QuantBackend):
             return "bnn_train"
         return "bnn_packed" if spec.pack_signs else "bnn"
 
+    def autotune_path(self, spec, phase="train"):
+        return "bnn_packed" if phase != "train" and spec.pack_signs else "bnn"
+
 
 class Qnn8Backend(QuantBackend):
     """The 8-bit integer baseline: train form ``{w, amax[, b]}`` (fake-quant
@@ -447,6 +474,9 @@ class Qnn8Backend(QuantBackend):
         return y
 
     def kernel_route(self, spec, phase="train"):
+        return None if phase == "train" else "qnn8"
+
+    def autotune_path(self, spec, phase="train"):
         return None if phase == "train" else "qnn8"
 
 

@@ -44,7 +44,7 @@ import functools
 
 import torch
 
-from . import build, ref
+from . import autotune, build, ref
 from .cac_matmul import _on_card, card_stream_plan, stream_plan
 
 __all__ = [
@@ -261,46 +261,52 @@ def _fwd_call(caller, x: torch.Tensor, w: torch.Tensor, launch) -> torch.Tensor:
     return y
 
 
-def bnn_matmul_kernel_call(x: torch.Tensor, w: torch.Tensor, route=None) -> torch.Tensor:
+def bnn_matmul_kernel_call(x: torch.Tensor, w: torch.Tensor, route=None,
+                           plan=None) -> torch.Tensor:
     """Launch kernel 6: x float32 (M, K), w float32 or int8 (K, N) ->
-    (M, N) float32 sign(x) @ sign(w), exact integers, on the route
-    ``fwd_plan`` picks by M (``route`` forces "stream" or "tc"). Adds one
-    to ``bnn_matmul_kernel_call.launches`` per call (the tensor-core route
-    is two kernels, a sign pass and the product)."""
+    (M, N) float32 sign(x) @ sign(w), exact integers, by the plan
+    ``autotune.get_plan("bnn", ...)`` resolves: by default the route
+    ``fwd_plan`` picks by M (``route`` forces "stream" or "tc"; ``plan``
+    overrides both). Adds one to ``bnn_matmul_kernel_call.launches`` per
+    call (the tensor-core route is two kernels, a sign pass and the
+    product)."""
     _check_fwd(x, w, packed=False)
     kind = _W_KIND[w.dtype]
 
     def launch(x, w, y, m, k, n, stream):
-        plan = _card_fwd_plan(x.device.index, m, k, n, w.dtype, route)
-        if plan[0] == "stream":
+        got = autotune.get_plan("bnn", m, k, n, x.device.index, plan, w_dtype=w.dtype,
+                                route=route)
+        if got[0] == "stream":
             return _lib("bnn_fwd_stream_launch", 3, 7)(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                                                       m, n, k, kind, *plan[1:], stream)
+                                                       m, n, k, kind, *got[1:], stream)
         kp = -(-k // 8) * 8
         sgn = torch.empty(n * kp, dtype=torch.int16, device=x.device)  # sign(w)^T as bf16
         return _lib("bnn_fwd_tc_launch", 4, 7)(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                                               sgn.data_ptr(), m, n, k, kind, *plan[1:], stream)
+                                               sgn.data_ptr(), m, n, k, kind, *got[1:], stream)
 
     return _fwd_call(bnn_matmul_kernel_call, x, w, launch)
 
 
-def bnn_packed_matmul_kernel_call(x: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
+def bnn_packed_matmul_kernel_call(x: torch.Tensor, wp: torch.Tensor,
+                                  plan=None) -> torch.Tensor:
     """Launch kernel 7: x float32 (M, K), wp uint8 bitplanes (K/8, N) ->
     (M, N) float32 sign(x) @ unpack(wp), exact integers, on the streaming
-    template (``cac_matmul.stream_plan`` with ``PACKED_MT``). Adds one to
-    ``bnn_packed_matmul_kernel_call.launches`` per launch."""
+    template by ``autotune.get_plan("bnn_packed", ...)``
+    (``cac_matmul.stream_plan`` with ``PACKED_MT`` by default; ``plan``
+    overrides it). Adds one to ``bnn_packed_matmul_kernel_call.launches``
+    per launch."""
     _check_fwd(x, wp, packed=True)
 
     def launch(x, wp, y, m, k, n, stream):
-        plan = card_stream_plan(x.device.index, m, k, n, "bnn_matmul", "packed_max_blocks",
-                                PACKED_MT)
+        got = autotune.get_plan("bnn_packed", m, k, n, x.device.index, plan)
         return _lib("bnn_packed_launch", 3, 6)(x.data_ptr(), wp.data_ptr(), y.data_ptr(), m, n,
-                                               k, *plan, stream)
+                                               k, *got, stream)
 
     return _fwd_call(bnn_packed_matmul_kernel_call, x, wp, launch)
 
 
 def _bwd_call(caller, x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-              want_dx: bool) -> torch.Tensor:
+              want_dx: bool, plan=None) -> torch.Tensor:
     _check_bwd(x, w, g)
     x, w, g = _on_card(caller.__name__, x, w, g)
     m, k = x.shape
@@ -310,7 +316,8 @@ def _bwd_call(caller, x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
         return out
     if (n if want_dx else m) == 0:
         return out.zero_()
-    bn, splits, per = _card_plan(x.device.index, m, k, n, want_dx)
+    bn, splits, per = autotune.get_plan("bnn_bwd", m, k, n, x.device.index, plan,
+                                        want_dx=want_dx)
     t = n if want_dx else m
     sgn = torch.empty(k * -(-t // 8) * 8, dtype=torch.int16, device=x.device)  # +-1 as bf16
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -323,16 +330,20 @@ def _bwd_call(caller, x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     return out
 
 
-def bnn_bwd_dx_call(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Launch kernel 8: dx (M, K) = (g @ sign(w)^T) * 1[|x| <= 1]. Adds one
-    to ``bnn_bwd_dx_call.launches`` per launch."""
-    return _bwd_call(bnn_bwd_dx_call, x, w, g, want_dx=True)
+def bnn_bwd_dx_call(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                    plan=None) -> torch.Tensor:
+    """Launch kernel 8: dx (M, K) = (g @ sign(w)^T) * 1[|x| <= 1], by the
+    dx half of ``autotune.get_plan("bnn_bwd", ...)`` (``plan`` overrides
+    it). Adds one to ``bnn_bwd_dx_call.launches`` per launch."""
+    return _bwd_call(bnn_bwd_dx_call, x, w, g, True, plan)
 
 
-def bnn_bwd_dw_call(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Launch kernel 9: dw (K, N) = (sign(x)^T @ g) * 1[|w| <= 1]. Adds one
-    to ``bnn_bwd_dw_call.launches`` per launch."""
-    return _bwd_call(bnn_bwd_dw_call, x, w, g, want_dx=False)
+def bnn_bwd_dw_call(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                    plan=None) -> torch.Tensor:
+    """Launch kernel 9: dw (K, N) = (sign(x)^T @ g) * 1[|w| <= 1], by the
+    dw half of ``autotune.get_plan("bnn_bwd", ...)`` (``plan`` overrides
+    it). Adds one to ``bnn_bwd_dw_call.launches`` per launch."""
+    return _bwd_call(bnn_bwd_dw_call, x, w, g, False, plan)
 
 
 for _fn in (bnn_matmul_kernel_call, bnn_packed_matmul_kernel_call, bnn_bwd_dx_call,

@@ -6,10 +6,11 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles with
 
 into ``build/kernels/lib<name>-<hash>.so`` at the repository root (the
 hash is of the source and the shared ``*.cuh`` headers, so an edited kernel
-rebuilds). No ``--use_fast_math``:
-the paged-attention tolerance relies on accurate ``expf``, and the training
-CAC on IEEE-rounded ``__fmul_rn``/``__fadd_rn``. Nothing is
-built at import time; ``load(name)`` builds on first use and ``build_all``
+rebuilds), with ``-Xptxas=-v``, whose output is kept beside the library as
+``lib<name>-<hash>.ptxas.log`` (a library without it is built again).
+No ``--use_fast_math``: the paged-attention tolerance relies on accurate
+``expf``, and the training CAC on IEEE-rounded ``__fmul_rn``/``__fadd_rn``.
+Nothing is built at import time; ``load(name)`` builds on first use and ``build_all``
 compiles every source in parallel (one ``nvcc`` each, all started together).
 """
 from __future__ import annotations
@@ -61,22 +62,28 @@ def _command(name: str, out: str) -> List[str]:
     return [_nvcc(), *NVCC_FLAGS, "-o", out, os.path.join(CSRC, f"{name}.cu")]
 
 
+def _log_path(lib: str) -> str:
+    """The ``-Xptxas=-v`` output kept beside a library: ``lib<name>-<hash>.ptxas.log``."""
+    return lib[:-len(".so")] + ".ptxas.log"
+
+
 def build_all(names=KERNEL_SOURCES, *, logs: Optional[Dict[str, str]] = None
               ) -> Dict[str, str]:
     """Compile every named source that is not built yet, all in parallel.
     Returns ``{name: library path}``; raises with nvcc's output on failure.
-    With ``logs``, compiles with ``-Xptxas=-v`` and stores each compiled
-    source's output there (registers, shared memory and spills per kernel)."""
+    Every source compiles with ``-Xptxas=-v``, whose output (registers,
+    shared memory and spills per kernel) is kept beside its library; with
+    ``logs``, each named source's output is stored there, whether it was
+    compiled now or before."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     paths = {}
     for name in names:
         out = _lib_path(name)
         paths[name] = out
-        if not os.path.exists(out):
+        if not (os.path.exists(out) and os.path.exists(_log_path(out))):
             cmd = _command(name, out + ".tmp")
-            if logs is not None:
-                cmd.insert(1, "-Xptxas=-v")
+            cmd.insert(1, "-Xptxas=-v")
             procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                  stderr=subprocess.STDOUT, text=True))
     errors = []
@@ -85,11 +92,16 @@ def build_all(names=KERNEL_SOURCES, *, logs: Optional[Dict[str, str]] = None
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
             continue
+        with open(_log_path(out) + ".tmp", "w") as fh:
+            fh.write(log)
+        os.replace(_log_path(out) + ".tmp", _log_path(out))
         os.replace(out + ".tmp", out)
-        if logs is not None:
-            logs[name] = log
     if errors:
         raise RuntimeError("\n".join(errors))
+    if logs is not None:
+        for name, out in paths.items():
+            with open(_log_path(out)) as fh:
+                logs[name] = fh.read()
     return paths
 
 

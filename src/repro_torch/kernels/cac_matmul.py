@@ -37,7 +37,7 @@ from typing import Tuple
 
 import torch
 
-from . import build, ref
+from . import autotune, build, ref
 
 __all__ = [
     "STREAM_BN",
@@ -199,11 +199,12 @@ def _lib():
 
 
 def cac_matmul_kernel_call(x_int: torch.Tensor, tau: torch.Tensor,
-                           s_packed: torch.Tensor) -> torch.Tensor:
+                           s_packed: torch.Tensor, plan=None) -> torch.Tensor:
     """Launch the CUDA CAC kernel on PyTorch's current stream.
     x_int (M, K') int8, tau (K', N) int8, s_packed (K'/8, N) uint8 ->
-    (M, N) float32. Raises on a CPU tensor or a failed launch; adds one to
-    ``cac_matmul_kernel_call.launches`` per launch."""
+    (M, N) float32, by the plan ``autotune.get_plan("hw_fwd", ...)``
+    resolves (``plan`` overrides it). Raises on a CPU tensor or a failed
+    launch; adds one to ``cac_matmul_kernel_call.launches`` per launch."""
     _check(x_int, tau, s_packed)
     for t in (x_int, tau, s_packed):
         if not t.is_cuda:
@@ -218,7 +219,8 @@ def cac_matmul_kernel_call(x_int: torch.Tensor, tau: torch.Tensor,
         return y.zero_()
     stream = torch.cuda.current_stream(x_int.device).cuda_stream
     err = _lib()(x_int.data_ptr(), tau.data_ptr(), s_packed.data_ptr(), y.data_ptr(),
-                 m, n, k, *card_stream_plan(x_int.device.index, m, k, n), stream)
+                 m, n, k, *autotune.get_plan("hw_fwd", m, k, n, x_int.device.index, plan),
+                 stream)
     if err != 0:
         raise RuntimeError(f"cac_matmul kernel launch failed: CUDA error {err}")
     cac_matmul_kernel_call.launches += 1
@@ -427,9 +429,11 @@ def _on_card(what: str, *ts: torch.Tensor):
     return [t.contiguous() for t in ts]
 
 
-def cac_train_fwd_call(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+def cac_train_fwd_call(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
+                       plan=None) -> torch.Tensor:
     """Launch kernel 2: (M, N) float32 y = sum_k Sign(x w + beta), exact
-    integers, K split by ``card_train_fwd_plan``. Adds one to
+    integers, K split by ``autotune.get_plan("train_fwd", ...)``
+    (``card_train_fwd_plan`` by default; ``plan`` overrides it). Adds one to
     ``cac_train_fwd_call.launches`` per launch."""
     _check_train(x, w, beta)
     x, w, beta = _on_card("cac_train_fwd_call", x, w, beta)
@@ -440,7 +444,7 @@ def cac_train_fwd_call(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor) -> 
         return y
     if k == 0:
         return y.zero_()
-    splits, _ = card_train_fwd_plan(x.device.index, m, k, n)
+    splits, _ = autotune.get_plan("train_fwd", m, k, n, x.device.index, plan)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _train_lib("cac_train_fwd_launch")(x.data_ptr(), w.data_ptr(), beta.data_ptr(),
                                              y.data_ptr(), m, n, k, splits, stream)
@@ -450,7 +454,7 @@ def cac_train_fwd_call(x: torch.Tensor, w: torch.Tensor, beta: torch.Tensor) -> 
     return y
 
 
-def _bwd_call(fn, x, w, beta, g, want_dx: bool, want_dw: bool):
+def _bwd_call(fn, x, w, beta, g, want_dx: bool, want_dw: bool, plan=None):
     _check_train(x, w, beta, g)
     x, w, beta, g = _on_card(fn.__name__, x, w, beta, g)
     m, k = x.shape
@@ -463,11 +467,12 @@ def _bwd_call(fn, x, w, beta, g, want_dx: bool, want_dw: bool):
     ops = [x.data_ptr(), w.data_ptr(), beta.data_ptr(), g.data_ptr()]
     outs = [t.data_ptr() for t in (dx, dw, db) if t is not None]
     index, stream = x.device.index, torch.cuda.current_stream(x.device).cuda_stream
-    if want_dx:  # kernel 5, or 3 at kernel 5's cluster size
+    if want_dx:  # kernel 5, or 3 at kernel 5's cluster size: one path, one plan
         name = "cac_train_bwd_fused_launch" if want_dw else "cac_train_bwd_dx_launch"
-        plan = (card_train_bwd_plan(index, m, k, n),)
+        plan = (autotune.get_plan("train_bwd", m, k, n, index, plan),)
     else:
-        name, plan = "cac_train_bwd_dw_launch", card_train_bwd_dw_plan(index, m, k, n)
+        name = "cac_train_bwd_dw_launch"
+        plan = autotune.get_plan("train_bwd_dw", m, k, n, index, plan)
     err = _train_lib(name)(*ops, *outs, m, n, k, *plan, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {err}")
@@ -475,26 +480,29 @@ def _bwd_call(fn, x, w, beta, g, want_dx: bool, want_dw: bool):
     return dx, dw, db
 
 
-def cac_train_bwd_dx_call(x, w, beta, g) -> torch.Tensor:
-    """Launch kernel 3: dx (M, K), the N tiles split by
-    ``card_train_bwd_plan``, as kernel 5's; bit-repeatable. Adds one to
-    ``.launches`` per launch."""
-    return _bwd_call(cac_train_bwd_dx_call, x, w, beta, g, True, False)[0]
+def cac_train_bwd_dx_call(x, w, beta, g, plan=None) -> torch.Tensor:
+    """Launch kernel 3: dx (M, K), the N tiles split by the cluster size
+    ``autotune.get_plan("train_bwd", ...)`` resolves, kernel 5's
+    (``card_train_bwd_plan`` by default; ``plan`` overrides it);
+    bit-repeatable. Adds one to ``.launches`` per launch."""
+    return _bwd_call(cac_train_bwd_dx_call, x, w, beta, g, True, False, plan)[0]
 
 
-def cac_train_bwd_dw_call(x, w, beta, g) -> Tuple[torch.Tensor, torch.Tensor]:
+def cac_train_bwd_dw_call(x, w, beta, g, plan=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel 4: (dw, dbeta), each (K, N), the N tiles split by
-    ``card_train_bwd_dw_plan``; bit-repeatable. Adds one to ``.launches``
-    per launch."""
-    _, dw, db = _bwd_call(cac_train_bwd_dw_call, x, w, beta, g, False, True)
+    ``autotune.get_plan("train_bwd_dw", ...)`` (``card_train_bwd_dw_plan``
+    by default; ``plan`` overrides it); bit-repeatable. Adds one to
+    ``.launches`` per launch."""
+    _, dw, db = _bwd_call(cac_train_bwd_dw_call, x, w, beta, g, False, True, plan)
     return dw, db
 
 
-def cac_train_bwd_fused_call(x, w, beta, g):
+def cac_train_bwd_fused_call(x, w, beta, g, plan=None):
     """Launch kernel 5: (dx, dw, dbeta) from one mask recompute, the N tiles
-    split by ``card_train_bwd_plan``; bit-repeatable. Adds one to
+    split by ``autotune.get_plan("train_bwd", ...)`` (``card_train_bwd_plan``
+    by default; ``plan`` overrides it); bit-repeatable. Adds one to
     ``.launches`` per launch."""
-    return _bwd_call(cac_train_bwd_fused_call, x, w, beta, g, True, True)
+    return _bwd_call(cac_train_bwd_fused_call, x, w, beta, g, True, True, plan)
 
 
 for _fn in (cac_train_fwd_call, cac_train_bwd_dx_call, cac_train_bwd_dw_call,

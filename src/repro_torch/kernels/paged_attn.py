@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build
+from . import autotune, build
 
 __all__ = ["attn_plan", "attn_smem_bytes", "card_max_blocks", "card_plan",
            "paged_attn_kernel_call"]
@@ -26,7 +26,8 @@ __all__ = ["attn_plan", "attn_smem_bytes", "card_max_blocks", "card_plan",
 MAX_WARPS = 8
 SPLITS = 8          # the portable cluster size
 MAX_SPLITS = 16     # a non-portable cluster: T > 8, where the grid stays one wave
-QTILE = 8           # query tokens a tile, at most
+QTILE = 8           # query tokens a tile, at most, in the kernel's own plan
+MAX_QTILE = 32      # a caller's plan: a warp reduces the tile's positions
 MAX_D = 256
 MAX_BS = 128
 SMS = 132                 # the H100's SMs: the plan's one wave
@@ -124,13 +125,10 @@ def attn_plan(b: int, c: int, hq: int, hkv: int, d: int, bs: int, t: int) -> Tup
 
 def _lib():
     lib = build.load("paged_attn")
-    fn = lib.paged_attn_launch
+    fn = lib.paged_attn_launch_plan
     if fn.argtypes is None:  # declare once: pointers must not pass as 32-bit ints
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.paged_attn_launch_plan.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
-                                               + [ctypes.c_void_p])
-        lib.paged_attn_launch_plan.restype = ctypes.c_int
         lib.paged_attn_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
         lib.paged_attn_plan.restype = ctypes.c_int
         lib.paged_attn_max_blocks.argtypes = [ctypes.c_int] * 10
@@ -165,10 +163,13 @@ def paged_attn_kernel_call(
 ) -> torch.Tensor:
     """q (B, C, Hq, D) f32; k/v one pool layer (n_phys, bs, Hkv, D), f32 or
     int8 with (n_phys, bs, Hkv, 1) f32 scales; tables (B, T) int32; q_pos
-    (B, C) int32 -> (B, C, Hq, D) f32. Launches on PyTorch's current stream;
-    raises on a CPU tensor or a failed launch; adds one to
-    ``paged_attn_kernel_call.launches`` per launch. ``plan`` = (q_tile,
-    splits) overrides ``attn_plan`` (sweeps; splits up to 16)."""
+    (B, C) int32 -> (B, C, Hq, D) f32, by the (q_tile, splits) that
+    ``autotune.get_paged_plan`` resolves (``attn_plan``, the compiled
+    kernel's own rule, by default; ``plan`` overrides it: sweeps, splits up
+    to 16, refused by the launcher where the kernel does not take it).
+    Launches on PyTorch's current stream; raises on a CPU tensor, a shape
+    the kernel does not take or a failed launch; adds one to
+    ``paged_attn_kernel_call.launches`` per launch."""
     b, c, hq, d = q.shape
     n_phys, bs, hkv, dk = k.shape
     quantized = k_scale is not None
@@ -194,8 +195,8 @@ def paged_attn_kernel_call(
     if not all(t.is_cuda for t in operands):
         raise ValueError("paged_attn_kernel_call needs CUDA tensors")
     t_len = tables.shape[1]
-    if plan is None:
-        attn_plan(b, c, hq, hkv, d, bs, t_len)  # raises for a shape the kernel does not take
+    # raises for a shape the kernel does not take
+    q_tile, splits = autotune.get_paged_plan(b, c, hq, hkv, d, bs, t_len, q.device.index, plan)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     tables = tables.to(torch.int32).contiguous()
     q_pos = q_pos.to(torch.int32).contiguous()
@@ -208,10 +209,7 @@ def paged_attn_kernel_call(
             ks.data_ptr() if quantized else None, vs.data_ptr() if quantized else None,
             tables.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
             b, c, hq, hkv, d, bs, t_len, int(quantized))
-    if plan is None:
-        err = lib.paged_attn_launch(*args, stream)
-    else:
-        err = lib.paged_attn_launch_plan(*args, int(plan[0]), int(plan[1]), stream)
+    err = lib.paged_attn_launch_plan(*args, int(q_tile), int(splits), stream)
     if err != 0:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA error {err}")
     paged_attn_kernel_call.launches += 1

@@ -26,7 +26,7 @@ import functools
 
 import torch
 
-from . import build, ref
+from . import autotune, build, ref
 from .cac_matmul import _on_card, card_stream_plan, stream_plan
 
 __all__ = ["QNN_STREAM_MAX_M", "qnn_matmul_kernel_call", "qnn_matmul_plain", "qnn_plan"]
@@ -101,11 +101,13 @@ _STREAM_ARGS = [_P, _P, _P, ctypes.c_float, _P] + [_I] * 6 + [_P]
 
 
 def qnn_matmul_kernel_call(x_int: torch.Tensor, w_int: torch.Tensor, w_scale: torch.Tensor,
-                           x_scale: float, route=None) -> torch.Tensor:
+                           x_scale: float, route=None, plan=None) -> torch.Tensor:
     """Launch kernel 10: x_int int8 (M, K), w_int int8 (K, N), w_scale
     float32 (N,) or (1, N), x_scale a float (taken as float32) -> (M, N)
-    float32, on the route ``qnn_plan`` picks by M (``route`` forces "stream"
-    or "tile"). Adds one to ``qnn_matmul_kernel_call.launches`` per launch."""
+    float32, by the plan ``autotune.get_plan("qnn8", ...)`` resolves: by
+    default the route ``qnn_plan`` picks by M (``route`` forces "stream" or
+    "tile"; ``plan`` overrides both). Adds one to
+    ``qnn_matmul_kernel_call.launches`` per launch."""
     _check(x_int, w_int, w_scale)
     x_int, w_int, w_scale = _on_card("qnn_matmul_kernel_call", x_int, w_int, w_scale)
     m, k = x_int.shape
@@ -115,7 +117,7 @@ def qnn_matmul_kernel_call(x_int: torch.Tensor, w_int: torch.Tensor, w_scale: to
         return y
     if k == 0:
         return y.zero_()
-    plan = _card_plan(x_int.device.index, m, k, n, route)
+    plan = autotune.get_plan("qnn8", m, k, n, x_int.device.index, plan, route=route)
     stream = torch.cuda.current_stream(x_int.device).cuda_stream
     ptrs = (x_int.data_ptr(), w_int.data_ptr(), w_scale.data_ptr(), float(x_scale), y.data_ptr())
     if plan[0] == "stream":

@@ -229,7 +229,9 @@ class ServeEngine:
         n_steps = max(1, min(n_steps, self.max_len - s + 1))
         need = np.array([r.max_new_tokens for r in reqs])
         eos = np.array([-1 if r.eos_id is None else r.eos_id for r in reqs])
-        cur = tok[:, 0].cpu().numpy()  # the host streams token ids: one sync a step
+        # repro: noqa-RPA001 -- the host streams token ids: one sync a step (the
+        # prefill's token); Queue 1 item 1 keeps the tokens on the device
+        cur = tok[:, 0].cpu().numpy()
         outs = [cur]
         finished = (cur == eos) | (need <= 1)
         self._stream(reqs, cur, np.zeros(len(reqs), bool), 0, need)
@@ -238,7 +240,7 @@ class ServeEngine:
                 break
             logits, cache = self.api.decode_step(self.params, tok, cache, s + t - 1)
             tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-            cur = tok[:, 0].cpu().numpy()
+            cur = tok[:, 0].cpu().numpy()  # repro: noqa-RPA001 -- one sync a step; Queue 1 item 1
             self._stream(reqs, cur, finished, t, need)
             outs.append(cur)
             finished = finished | (cur == eos) | (t + 1 >= need)

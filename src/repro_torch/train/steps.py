@@ -92,6 +92,8 @@ def make_train_step(
     def train_step(params, opt_state, batch):
         grads, metrics = compute_grads(params, batch)
         gnorm = global_norm(grads)
+        # repro: noqa-RPA001 -- the non-finite check on the host, one sync a step;
+        # Queue 1 item 1 moves it to the device (the reference's jnp.where)
         ok = bool(torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm))
         metrics["skipped"] = torch.tensor(0.0 if ok else 1.0)
         if not ok:  # keep the step counter advancing on a skipped update

@@ -73,7 +73,8 @@ def main(argv) -> int:
             f"{v['max_over_m_tol']:.3f} of m_tol" for key, v in row.items()
             if isinstance(v, dict)))
         del x, w, beta, g, got, want
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "src": src, "rows": rows}))
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "src": src, "rows": rows},
+                     sort_keys=True))
     return 0
 
 

@@ -52,7 +52,13 @@ through kernel 1 (padded to K' = 32) to the plain integers. At
 mixtral-8x22b's expert-queue training shapes (M = 160 rows, K = 6144 and
 16384) kernels 2 and 6 are bit-exact and kernels 5, 8 and 9 within 1e-4
 and repeatable, and a two-expert MoE layer's gradient (router, gates, aux
-loss, both gathers, the experts' kernels) repeats bit for bit."""
+loss, both gathers, the experts' kernels) repeats bit for bit. The plan
+autotuner resolves, with no cache, to every card_* plan function; its
+measured search holds every candidate's output and a second resolution
+returns the stored winner; and a tuned cluster size reaches kernels 3 and
+5 alike, so a tuned split step's gradients equal a tuned fused step's."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -70,6 +76,24 @@ from repro_torch.kernels import qnn_matmul as qnn
 from repro_torch.kernels import ref
 from repro_torch.kernels.cac_matmul import cac_matmul_kernel_call, cac_matmul_plain
 from repro_torch.kernels.paged_attn import paged_attn_kernel_call
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _untuned_plans(tmp_path_factory):
+    """Every test here launches the plan rules' own plans: the autotune
+    cache is a file that does not exist, whatever the user's cache holds
+    (a test that tunes sets its own file, ``tune_cache``)."""
+    from repro_torch.kernels import autotune
+
+    old = os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(tmp_path_factory.mktemp("plans") / "none.json")
+    autotune.clear_cache()
+    yield
+    if old is None:
+        os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
+    else:
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = old
+    autotune.clear_cache()
 
 
 @pytest.fixture
@@ -901,4 +925,102 @@ def test_recurrent_smoke_train_step_on_card(cuda, monkeypatch, name, mode):
         assert np.isfinite(float(met["loss"])) and float(met["skipped"]) == 0.0
         runs.append(tree_leaves({"params": params, "m": opt["m"], "v": opt["v"]}))
     for a, b in zip(*runs):
+        assert bits_equal(a, b)
+
+
+@pytest.fixture
+def tune_cache(tmp_path, monkeypatch):
+    """A fresh autotune cache file under tmp_path, for the test's life."""
+    from repro_torch.kernels import autotune
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune_torch.json"))
+    autotune.clear_cache()
+    yield tmp_path / "autotune_torch.json"
+    autotune.clear_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4, 960, 2560), (32, 2560, 960), (512, 960, 2560),
+                                   (160, 6144, 16384), (129, 968, 65)])
+def test_get_plan_without_cache_is_the_card_plan_on_card(cuda, tune_cache, m, k, n):
+    """With no cache entry and no override, every path resolves to today's
+    card_* plan function: the wrappers launch the plans they launched
+    before the autotuner existed."""
+    from repro_torch.kernels import autotune
+
+    i = cuda.index or 0
+    want = {
+        "hw_fwd": cac.card_stream_plan(i, m, k, n),
+        "train_fwd": cac.card_train_fwd_plan(i, m, k, n),
+        "train_bwd": cac.card_train_bwd_plan(i, m, k, n),
+        "train_bwd_dw": cac.card_train_bwd_dw_plan(i, m, k, n),
+        "bnn_packed": cac.card_stream_plan(i, m, k, n, "bnn_matmul", "packed_max_blocks",
+                                           bnn.PACKED_MT),
+        "qnn8": qnn._card_plan(i, m, k, n),
+    }
+    for path, plan in want.items():
+        assert autotune.get_plan(path, m, k, n, i) == plan, path
+    for w_dtype in (torch.int8, torch.float32):
+        assert autotune.get_plan("bnn", m, k, n, i, w_dtype=w_dtype) == bnn._card_fwd_plan(
+            i, m, k, n, w_dtype)
+    for want_dx in (True, False):
+        assert autotune.get_plan("bnn_bwd", m, k, n, i, want_dx=want_dx) == bnn._card_plan(
+            i, m, k, n, want_dx)
+    assert autotune.get_paged_plan(4, 1, 15, 5, 64, 16, 8, i) == pa.card_plan(
+        4, 1, 15, 5, 64, 16, 8)[:2]
+    assert not tune_cache.exists()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,shape", [("hw_fwd", (4, 960, 960)), ("train_bwd_dw", (64, 96, 200)),
+                                        ("bnn_bwd", (64, 96, 200))])
+def test_measured_plan_holds_its_outputs_on_card(cuda, tune_cache, path, shape):
+    """The measured search times every legal candidate, holds each output
+    against the default plan's (it raises where one does not hold), stores
+    the winner, and a second resolution returns it from the file."""
+    from repro_torch.kernels import autotune
+
+    i = cuda.index or 0
+    rec = autotune.measured_search(path, *shape, iters=3, warmup=1, index=i)
+    assert rec["held"] and rec["candidates"]
+    if rec["tolerance"] == 0:  # integer outputs: every candidate bit-equal to the default
+        assert all(c["max_abs_err"] == 0 for c in rec["candidates"])
+    assert tune_cache.exists()
+    autotune.clear_cache()
+    timed = autotune.timed_calls
+    if path == "bnn_bwd":
+        got = {h: autotune.get_plan(path, *shape, i, want_dx=h == "dx") for h in ("dx", "dw")}
+    else:
+        got = autotune.get_plan(path, *shape, i)
+    assert got == rec["winner"] and autotune.timed_calls == timed
+    assert autotune.invalid_cache_entries() == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(512, 960, 2560), (37, 100, 130)])
+def test_tuned_split_step_equals_tuned_fused_step_on_card(cuda, tune_cache, m, k, n):
+    """Kernels 3 and 5 resolve through one path (train_bwd): a cached
+    cluster size other than the default reaches both, and the split step's
+    gradients then equal the fused step's bit for bit."""
+    from repro_torch.kernels import autotune, ops
+
+    i = cuda.index or 0
+    default = cac.card_train_bwd_plan(i, m, k, n)
+    other = [c for c in autotune.candidate_plans("train_bwd", m, k, n, i) if c != default]
+    assert other, "a shape with more than one legal cluster size"
+    autotune._store_cache(autotune.cache_key("train_bwd", m, k, n, "cuda"),
+                          autotune.plan_to_fields("train_bwd", other[0]))
+    assert autotune.get_plan("train_bwd", m, k, n, i) == other[0]
+    rng = np.random.default_rng(m + k + n)
+    x, w, beta, g = (torch.from_numpy(a).to(cuda) for a in cac_train_case(rng, m, k, n))
+    grads = {}
+    for fused in (True, False):
+        xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, beta))
+        ops.reset_launches()
+        ops.cac_train_matmul(xs, ws, bs, fused_bwd=fused).backward(g)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts["cac_train_bwd_fused" if fused else "cac_train_bwd_dx"] == 1
+        grads[fused] = (xs.grad, ws.grad, bs.grad)
+    for a, b in zip(grads[True], grads[False]):
         assert bits_equal(a, b)
