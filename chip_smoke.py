@@ -200,7 +200,7 @@ any failure exits non-zero):
              nemotron-4-15b (LayerNorm,
              squared ReLU, G = 6) at full width, 2 layers, bika on the paged
              engine: a drain twice (12 kernel-1 and 2 kernel-11 launches a
-             tick) and its 2-layer parity. Wall seconds and peak memory of
+             tick) and its parity at 1 layer. Wall seconds and peak memory of
              every drain. ``python3 chip_smoke.py --only moe`` runs the two
              alone (a partial run: no result line).
 16. recurrent — the hybrid and xLSTM families (phase_recurrent_kernels,
@@ -285,6 +285,27 @@ any failure exits non-zero):
              Signs and STE masks held at genuine ties. ``python3
              chip_smoke.py --only train-recurrent`` runs the two alone (a
              partial run: no result line).
+20. tp      — tensor-parallel serving (phase_tp_kernels, phase_tp): (a)
+             kernels 1, 7 and 10 on each tp = 2 rank's column block of
+             nemotron-4-15b's four projections (``TP_KN``, M = 4),
+             bit-exact and equal to the whole call's columns, timed beside
+             plain, a library call and the bound; the tied head's product
+             on a rank's vocab rows equal to the whole product's columns;
+             kernel 11 on a rank's heads (Hq 24, Hkv 4, D 128), decode and
+             a chunk, fp32 and int8, at the unsharded call's plan, each head
+             bit-equal to the whole call's. (b) nemotron-4-15b bika
+             (packed) at full width, MOE_LAYERS layers, paged engine, tp = 2
+             as two gloo ranks sharing the card (``spawn_ranks``: a
+             FileStore under build/, a timeout on every collective, a
+             deadline on the session): drain tokens, the first prefill and
+             decode logits (gathered) and each rank's kernel 1 and 11
+             launches equal to the moe phase's single-process drain's; the
+             collectives a tick, each rank's resident param and KV bytes
+             and the drains' wall seconds beside the single process's. (c)
+             The same in qnn8 at TP_QNN_LAYERS layer (kernel 10) against a
+             single-process drain here. (d) This process as a one-rank NCCL
+             group through the same qnn8 drain. ``python3 chip_smoke.py --only tp`` runs
+             it alone (the bika reference drained here; a partial run).
 
 Earlier paths run at cut depths so that the whole script stays well inside
 its time limit: the card-vs-CPU parities, whose CPU sides are most of their
@@ -1414,13 +1435,34 @@ def _requests(np, vocab):
     return [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)]
 
 
+def _record_logits(eng, log):
+    """Keep the first two prefill-chunk and decode logits of a paged
+    engine's drain in ``log["prefill"]`` / ``log["decode"]`` (on the host)."""
+    sched = eng.scheduler
+    log.setdefault("prefill", [])
+    log.setdefault("decode", [])
+
+    def wrap(kind, fn):
+        def call(*a, **kw):
+            logits, cache = fn(*a, **kw)
+            if len(log[kind]) < 2:
+                log[kind].append(logits.detach().cpu().numpy())
+            return logits, cache
+        return call
+
+    api = sched.api._replace(prefill_chunk=wrap("prefill", sched.api.prefill_chunk),
+                             decode_paged=wrap("decode", sched.api.decode_paged))
+    sched.api = sched.prefill.api = api
+
+
 def _serve(np, train, arch, quantized, dev, count_launches=False, label=None,
-           engine="paged", held=None, **spec):
+           engine="paged", held=None, record=None, **spec):
     """One drain of the 8 requests through ``ServeEngine.from_trained`` (the
     train -> serve conversion runs each time, outside the timed drain);
     ``label`` names the drain in a profile; ``spec`` passes ``spec_draft``
-    and ``spec_k`` (or the tracer, registry and profile_sample);
-    ``held`` (a dict) gets the engine and the finished requests."""
+    and ``spec_k`` (or the tracer, registry and profile_sample, or the
+    mesh); ``held`` (a dict) gets the engine and the finished requests;
+    ``record`` (a dict, paged engine) the first logits (``_record_logits``)."""
     import contextlib
 
     import torch
@@ -1431,6 +1473,8 @@ def _serve(np, train, arch, quantized, dev, count_launches=False, label=None,
     eng = ServeEngine.from_trained(train, arch, engine=engine, n_slots=N_SLOTS,
                                    max_len=MAX_LEN, kv_block_size=BLOCK, prefill_chunk=CHUNK,
                                    quantized_kv=quantized, device=dev, **spec)
+    if record is not None:
+        _record_logits(eng, record)
     for r in _requests(np, arch.vocab):
         eng.submit(r)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -1876,10 +1920,10 @@ def _bnn_sign_hooks(torch, route_name):
     return install, restore, report
 
 
-def phase_parity(torch, np, arch, serve_params, dev, hooks, tag="parity"):
+def phase_parity(torch, np, arch, serve_params, dev, hooks, tag="parity", layers=2):
     """Prefill a 19-token prompt (one 32-token chunk) and decode 4 steps for
     4 rows (one parked) on the card and on the CPU, the same serve weights
-    cut to 2 layers, the CPU through the plain versions.
+    cut to ``layers`` layers, the CPU through the plain versions.
 
     The CAC sums are exact integers on both sides, but the float parts
     (RMSNorm, SiLU, the attention kernel against its plain version) differ by
@@ -1898,10 +1942,10 @@ def phase_parity(torch, np, arch, serve_params, dev, hooks, tag="parity"):
     from repro_torch.models import build_model
     from repro_torch.models.lm import split_layers
 
-    arch2 = arch.replace(n_layers=2)
+    arch2 = arch.replace(n_layers=layers)
     api = build_model(arch2, phase="serve")
     p2 = dict(serve_params)
-    p2["layers"] = _slice_layers(serve_params["layers"], 2)
+    p2["layers"] = _slice_layers(serve_params["layers"], layers)
     rng = np.random.RandomState(SEED + 5)
     prompt = rng.randint(0, arch.vocab, 19).astype(np.int32)
     toks = np.zeros((1, CHUNK), np.int32)
@@ -1966,7 +2010,8 @@ def phase_parity(torch, np, arch, serve_params, dev, hooks, tag="parity"):
             if int(gr.argmax()) != int(cr.argmax()):
                 fail(f"{tag} step {i} row {r}: greedy tokens differ between card and CPU")
     held = report()
-    print(f"[{tag}] {arch.compute_mode}, 2 layers at full width: prefill + 4 decode steps, "
+    print(f"[{tag}] {arch.compute_mode}, {layers} layers at full width: prefill + 4 decode "
+          f"steps, "
           f"card vs CPU plain path: max |dlogit| = {worst:.3e} (tolerance {PARITY_ATOL}); "
           f"greedy tokens equal on {compared} of {compared + ties} rows ({ties} "
           f"within-tolerance ties); {held}")
@@ -3155,6 +3200,7 @@ MOE_LONG_PROMPTS = (4090, 4200)  # wraps the ring during decode; folds at prefil
 MOE_PARITY_STEPS = 4
 MOE_PARITY_LAYERS = 1  # mixtral's card-vs-CPU parity: 1 of the 2 served layers
 MOE_PARITY_LAYER_STEPS = 2  # and 2 decode steps after its prefill
+NEMOTRON_PARITY_LAYERS = 1  # nemotron's card-vs-CPU parity: 1 of the 2 served layers
 ROUTE_TIE = 1e-6  # gates this close: an expert choice the two devices may order either way
 # mixtral-8x22b's kernel-1 shapes, (where, M, K, N): an expert's gate/up and
 # down at decode (capacity 1), at the short drain's first prefill (4 rows of
@@ -3560,7 +3606,8 @@ def phase_moe(torch, np, dev):
     then one layer in qnn8 (kernel 10) and bnn packed (kernel 7) from one
     train-form tree, a short drain each twice; then nemotron-4-15b at full
     width, MOE_LAYERS layers, bika on the paged engine: the short drain twice
-    (2 x 6 kernel-1 and 2 kernel-11 launches a tick) and its 2-layer parity."""
+    (2 x 6 kernel-1 and 2 kernel-11 launches a tick) and its parity at
+    NEMOTRON_PARITY_LAYERS layer."""
     import gc
 
     from repro_torch.configs import get_config
@@ -3677,8 +3724,13 @@ def phase_moe(torch, np, dev):
     train = build_model(narch, phase="train").init(gen, device=dev)
     nem = []
     for run in range(2):
-        outs, counts, wall, summ = _serve(np, train, narch, False, dev, count_launches=True)
+        held, log = {}, {}
+        outs, counts, wall, summ = _serve(np, train, narch, False, dev, count_launches=True,
+                                          held=held, record=log if run == 0 else None)
         _check_serve_launches(narch, "cac_hw", counts, summ)
+        if run == 0:  # the tp phase's single-process reference
+            out["nemotron_ref"] = _drain_record(outs, counts, wall, summ, held, log)
+        held.clear()  # the engine goes before the next drain builds its own
         nem.append(outs)
         ticks = summ["decode_steps"] + summ["prefill_chunks"]
         print(f"[moe-nemotron] nemotron-4-15b bika packed, {narch.n_layers} layers, paged: "
@@ -3695,7 +3747,8 @@ def phase_moe(torch, np, dev):
     gc.collect()
     torch.cuda.empty_cache()
     out["nemotron_parity"] = phase_parity(torch, np, narch, serve_params, dev,
-                                          _code_hooks(torch), tag="moe-nemotron-parity")
+                                          _code_hooks(torch), tag="moe-nemotron-parity",
+                                          layers=NEMOTRON_PARITY_LAYERS)
     del serve_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4679,13 +4732,337 @@ def phase_tooling(torch, np, dev, logs):
             "search_seconds": search_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: tensor-parallel serving (nemotron-4-15b at tp = 2 on one card)
+# ---------------------------------------------------------------------------
+
+TP = 2
+# nemotron-4-15b's projections, (K, N) of the unsharded call; a tp = 2 rank
+# holds N / 2 of each: q/o (6144, 3072), k/v (6144, 512), up (6144, 12288),
+# down (24576, 3072)
+TP_KN = [("q/o", 6144, 6144), ("k/v", 6144, 1024), ("up", 6144, 24576), ("down", 24576, 6144)]
+TP_HEADS = (48, 8, 128)  # nemotron-4-15b's Hq, Hkv, D: a rank's 24 and 4 at tp = 2
+TP_TIMEOUT_S = 300.0  # a collective waiting on a dead peer raises after this
+TP_DEADLINE_S = 600.0  # a whole rank session
+TP_QNN_LAYERS = 1
+
+
+def phase_tp_kernels(torch, np, dev, flush):
+    """(a) Kernels 1, 7 and 10 on each tp = 2 rank's column block of
+    nemotron-4-15b's four projections at decode (M = N_SLOTS): bit-exact
+    against the plain version and equal to the whole call's columns, timed
+    beside plain, a library call and the bound. Kernel 11 on each rank's
+    heads (Hq 24, Hkv 4, D 128, G 6), decode and a chunk, fp32 and int8,
+    given the unsharded head counts: at the unsharded call's plan, each head
+    bit-equal to the whole call's, timed likewise. No model is built."""
+    from repro_torch.core.backend import pack_signs, unpack_signs
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import bnn_matmul as bnn
+    from repro_torch.kernels.cac_matmul import cac_matmul_kernel_call, cac_matmul_plain
+    from repro_torch.kernels.paged_attn import paged_attn_kernel_call
+    from repro_torch.kernels.qnn_matmul import qnn_matmul_kernel_call, qnn_matmul_plain
+    from repro_torch.kernels.ref import paged_attention_ref
+
+    rng = np.random.default_rng(SEED + 30)
+    m = N_SLOTS
+    rows = []
+    for where, k, n in TP_KN:
+        half = n // TP
+        x = torch.from_numpy(rng.integers(-128, 128, size=(m, k)).astype(np.int8)).to(dev)
+        tau = torch.from_numpy(rng.integers(-128, 128, size=(k, n)).astype(np.int8)).to(dev)
+        sp = pack_signs(torch.from_numpy(np.where(rng.random((k, n)) < 0.5, 1, -1)
+                                         .astype(np.int8))).to(dev)
+        xf, _w, _g = _bnn_operands(np, rng, m, k, 8)
+        xf = torch.from_numpy(xf).to(dev)
+        xq, wq, ws = (torch.from_numpy(a).to(dev) for a in _qnn_operands(np, rng, m, k, n))
+        cases = (
+            ("cac_matmul", cac_matmul_kernel_call, cac_matmul_plain,
+             lambda c: (x, tau[:, c].contiguous(), sp[:, c].contiguous()),
+             lambda: m * k + k * half + k * half // 8 + 4 * m * half,
+             CUDA_CORE_OPS_S, None),
+            ("bnn_packed_matmul", bnn.bnn_packed_matmul_kernel_call,
+             bnn.bnn_packed_matmul_plain, lambda c: (xf, sp[:, c].contiguous()),
+             lambda: 4 * m * k + k * half // 8 + 4 * m * half, TENSOR_CORE_OPS_S,
+             lambda a: _sign_matmul(torch, a[0], unpack_signs(a[1], k))),
+            ("qnn_matmul", qnn_matmul_kernel_call, qnn_matmul_plain,
+             lambda c: (xq, wq[:, c].contiguous(), ws[c].contiguous(), ACT_SCALE),
+             lambda: m * k + k * half + 4 * half + 4 * m * half, INT8_TENSOR_OPS_S,
+             lambda a: _int_mm_yardstick(torch, *a[:3])[0]),
+        )
+        for name, fn, plain, operands, nbytes, rate, library in cases:
+            whole = fn(*operands(slice(None)))
+            for r in range(TP):
+                cols = slice(r * half, (r + 1) * half)
+                args = operands(cols)
+                got = fn(*args)
+                want = plain(*args)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if err != 0.0 or not torch.equal(got, whole[:, cols]):
+                    fail(f"[tp-kernels] {name} {where} rank {r} (K={k}, N={half}): max "
+                         f"|kernel - plain| = {err}, equal to the whole call's columns "
+                         f"{torch.equal(got, whole[:, cols])}")
+            row = {"kernel": name, "where": f"nemotron-4-15b {where}, a tp={TP} rank", "M": m,
+                   "K": k, "N": half, "max_abs_err": err,
+                   "ms": time_ms(torch, lambda: fn(*args), flush=flush),
+                   "plain_ms": time_ms(torch, lambda: plain(*args), iters=3, flush=flush)}
+            row["bound_ms"], row["bound_by"] = _bound(nbytes(), 2.0 * m * k * half, rate)
+            row["library_ms"] = (time_ms(torch, library(args), flush=flush)
+                                 if library is not None else None)
+            rows.append(row)
+            print(f"[tp-kernels] {name} {where} (K={k}, N={half}) both ranks bit-exact and "
+                  f"equal to the whole call's columns; ms={row['ms']:.5f} "
+                  f"plain_ms={row['plain_ms']:.5f} bound_ms={row['bound_ms']:.6f} "
+                  f"({row['bound_by']}) library_ms={row['library_ms']}")
+        del x, tau, sp, xf, xq, wq, ws
+    # the tied head (a float product, not a kernel): a rank's vocab rows give
+    # the whole product's columns bit for bit, which the logits' gather needs
+    vocab, dm = 256000, TP_KN[0][1]
+    table = torch.randn((vocab, dm), device=dev, generator=torch.Generator(device=dev)
+                        .manual_seed(SEED + 31)) * 0.02
+    for m_head in (1, N_SLOTS, CHUNK):
+        xh = torch.randn((m_head, dm), device=dev)
+        whole = xh @ table.t()
+        half = vocab // TP
+        equal = all(torch.equal(xh @ table[r * half:(r + 1) * half].t(),
+                                whole[:, r * half:(r + 1) * half]) for r in range(TP))
+        if not equal:
+            fail(f"[tp-kernels] the tied head at M={m_head}: a rank's vocab rows do not give "
+                 f"the whole product's columns bit for bit")
+        rows.append({"kernel": "tied_head", "M": m_head, "K": dm, "N": half, "equal": equal})
+        print(f"[tp-kernels] tied head x @ table.T at M={m_head}, a rank's {half} of {vocab} "
+              f"rows: equal to the whole product's columns bit for bit")
+    del table, xh, whole
+    hq, hkv, d = TP_HEADS
+    for case, b, c in (("decode", N_SLOTS, 1), ("chunk", 1, CHUNK)):
+        t = MAX_LEN // BLOCK
+        for quantized in (False, True):
+            q, k, v, tables, q_pos, ks, vs = _paged_case(torch, np, rng, dev, b, c, t,
+                                                         quantized, hq=hq, hkv=hkv, d=d)
+            whole = paged_attn_kernel_call(q, k, v, tables, q_pos, k_scale=ks, v_scale=vs)
+            plan = autotune.get_paged_plan(b, c, hq, hkv, d, BLOCK, t, dev.index)
+            own = autotune.get_paged_plan(b, c, hq // TP, hkv // TP, d, BLOCK, t, dev.index)
+            for r in range(TP):
+                qh = slice(r * hq // TP, (r + 1) * hq // TP)
+                kh = slice(r * hkv // TP, (r + 1) * hkv // TP)
+                pool = [None if a is None else a[:, :, kh].contiguous() for a in (k, v, ks, vs)]
+                qr = q[:, :, qh].contiguous()
+                args = (qr, pool[0], pool[1], tables, q_pos)
+                got = ops.paged_attention(*args, k_scale=pool[2], v_scale=pool[3],
+                                          heads=(hq, hkv))
+                want = paged_attention_ref(*args, pool[2], pool[3])
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if not err <= ATTN_TOL or not _bits_equal(torch, got, whole[:, :, qh]):
+                    fail(f"[tp-kernels] paged_attn {case} int8={quantized} rank {r}: max "
+                         f"|kernel - plain| = {err}, heads equal to the whole call's "
+                         f"{_bits_equal(torch, got, whole[:, :, qh])}")
+            row = {"kernel": "paged_attn", "where": f"nemotron-4-15b {case}, a tp={TP} rank",
+                   "B": b, "C": c, "T": t, "Hq": hq // TP, "Hkv": hkv // TP, "D": d,
+                   "int8": quantized, "max_abs_err": err,
+                   "plan": {"unsharded": list(plan), "own": list(own)},
+                   "ms": time_ms(torch, lambda: ops.paged_attention(
+                       *args, k_scale=pool[2], v_scale=pool[3], heads=(hq, hkv)), flush=flush),
+                   "plain_ms": time_ms(torch, lambda: paged_attention_ref(
+                       *args, pool[2], pool[3]), iters=3, flush=flush),
+                   "library_ms": time_ms(torch, lambda: _sdpa_yardstick(
+                       torch, *args, pool[2], pool[3]), flush=flush)}
+            row["bound_ms"], row["bound_by"] = _attn_bound(qr, pool[0], tables, q_pos,
+                                                           quantized)
+            rows.append(row)
+            print(f"[tp-kernels] paged_attn {case} B={b} C={c} Hq={hq // TP} Hkv={hkv // TP} "
+                  f"D={d} int8={quantized}: both ranks' heads bit-equal to the whole call's "
+                  f"at its plan {tuple(plan)} (a rank's own would be {tuple(own)}); max_abs_err "
+                  f"{err:.3e} ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+                  f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
+                  f"library_ms={row['library_ms']:.5f}")
+    return rows
+
+
+def _sign_matmul(torch, x, w):
+    """The library yardstick of a sign product: torch.matmul on +-1 float32."""
+    xs, wf = torch.where(x >= 0, 1.0, -1.0), w.float()
+    return lambda: xs @ wf
+
+
+def _drain_record(outs, counts, wall, summ, held, log):
+    """What the tp phase compares of a drain: tokens, first logits, launches,
+    ticks, resident param and KV bytes, wall seconds, collectives."""
+    from repro_torch.distributed import comm
+    from repro_torch.nn.module import param_bytes
+
+    eng = held["engine"]
+    return {"tokens": outs, "prefill": log["prefill"], "decode": log["decode"],
+            "launches": counts, "wall_s": wall,
+            "ticks": summ["decode_steps"] + summ["prefill_chunks"],
+            "param_bytes": param_bytes(eng.params), "kv_bytes": eng.scheduler.kv.pool_bytes,
+            "collectives": comm.collective_counts()}
+
+
+def _tp_arch(mode, layers):
+    from repro_torch.configs import get_config
+
+    return get_config("nemotron-4-15b", n_layers=layers, compute_mode=mode,
+                      pack_signs=mode == "bika", remat=False, paged_attn_route="fused")
+
+
+def _tp_drain(torch, np, dev, mode, layers, seed, mesh=None):
+    """One nemotron-4-15b drain of the 8 requests (paged engine) from a
+    train-form tree of ``seed``: single-process, or a rank of ``mesh``
+    (each rank builds the whole tree and keeps its shard)."""
+    import gc
+
+    from repro_torch.distributed import comm
+    from repro_torch.models import build_model
+
+    arch = _tp_arch(mode, layers)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    train = build_model(arch, phase="train").init(gen, device=dev)
+    held, log = {}, {}
+    route = "cac_hw" if mode == "bika" else "qnn8"
+    comm.reset_collectives()
+    outs, counts, wall, summ = _serve(np, train, arch, False, dev, count_launches=True,
+                                      held=held, record=log, mesh=mesh)
+    _check_serve_launches(arch, route, counts, summ)
+    rec = _drain_record(outs, counts, wall, summ, held, log)
+    rec["peak_gb"] = _gb(torch.cuda.max_memory_allocated())
+    del train, held
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _tp_rank(rank, world, jobs):
+    """A spawned rank of the tp phase: each job (mode, layers, seed) drained
+    under a (1, world) mesh of the group ``spawn_ranks`` made. Rank > 0
+    drops its logits (rank 0's are compared)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.meshes import make_mesh
+
+    mesh = make_mesh((1, world), ("data", "model"))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = []
+    for mode, layers, seed in jobs:
+        torch.cuda.reset_peak_memory_stats()
+        rec = _tp_drain(torch, np, dev, mode, layers, seed, mesh=mesh)
+        if rank:
+            rec["prefill"] = rec["decode"] = None
+        out.append(rec)
+    return out
+
+
+def _tp_compare(tag, ref, ranks, logits=True):
+    """Tokens (and first logits, bit for bit) of every rank against the
+    single process; kernel launches a rank equal to the single process's."""
+    for r, rec in enumerate(ranks):
+        if rec["tokens"] != ref["tokens"]:
+            fail(f"[{tag}] rank {r}'s tokens differ from the single-process drain's")
+        if rec["launches"] != ref["launches"]:
+            fail(f"[{tag}] rank {r}'s launches {rec['launches']} != single-process "
+                 f"{ref['launches']}")
+    if logits:
+        for kind in ("prefill", "decode"):
+            for i, (a, b) in enumerate(zip(ranks[0][kind], ref[kind])):
+                if not _bytes_equal(a, b):
+                    fail(f"[{tag}] rank 0's {kind} logits {i} differ from the single-process "
+                         f"drain's")
+
+
+def _bytes_equal(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def phase_tp(torch, np, dev, ref=None):
+    """(b) nemotron-4-15b bika (packed) at full width, MOE_LAYERS layers, paged
+    engine, tp = 2 as two gloo ranks on the one card (NCCL takes no two
+    ranks on one card): drain tokens, first prefill and decode logits (the
+    gathered ones, bit for bit) and each rank's kernel 1 and 11 launches
+    equal to the single-process drain's (``ref``: the moe phase's, made
+    here when absent); collectives a tick, each rank's resident param and
+    KV bytes and the drains' wall seconds printed. (c) The same at
+    TP_QNN_LAYERS layer in qnn8 (kernel 10): tokens and logits equal. (d)
+    This process as a one-rank NCCL group through the same path (the qnn8
+    drain), before the gloo ranks start."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.meshes import init_process, make_mesh
+    from repro_torch.distributed.spawn import spawn_ranks
+
+    out = {"cut": f"nemotron-4-15b: {MOE_LAYERS} layers in bika, {TP_QNN_LAYERS} in qnn8 "
+                  f"(published 32); every width as published"}
+    print(f"[tp] {smi_line()}; {out['cut']}")
+    if ref is None:
+        torch.cuda.reset_peak_memory_stats()
+        ref = _tp_drain(torch, np, dev, "bika", MOE_LAYERS, SEED + 2)
+    torch.cuda.reset_peak_memory_stats()
+    qref = _tp_drain(torch, np, dev, "qnn8", TP_QNN_LAYERS, SEED + 3)
+    store = tempfile.mkdtemp(prefix="tp-", dir=os.path.join(ROOT, "build"))
+    try:
+        # (d) this process as the one rank of an NCCL group
+        t0 = time.perf_counter()
+        init_process(0, 1, os.path.join(store, "nccl"), "nccl", timeout_s=TP_TIMEOUT_S)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            nccl = _tp_drain(torch, np, dev, "qnn8", TP_QNN_LAYERS, SEED + 3,
+                             mesh=make_mesh((1, 1), ("data", "model")))
+        finally:
+            dist.destroy_process_group()
+        t_nccl = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b), (c): two gloo ranks sharing the card
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_tp_rank, TP, store,
+                            ([("bika", MOE_LAYERS, SEED + 2), ("qnn8", TP_QNN_LAYERS, SEED + 3)],),
+                            backend="gloo", timeout_s=TP_TIMEOUT_S, deadline_s=TP_DEADLINE_S)
+        t_gloo = time.perf_counter() - t0
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"[tp] a rank session failed: {e}")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    bika = [r[0] for r in ranks]
+    qnn = [r[1] for r in ranks]
+    _tp_compare("tp-bika", ref, bika)
+    _tp_compare("tp-qnn8", qref, qnn)
+    _tp_compare("tp-nccl", qref, [nccl])
+    for tag, single, recs in (("tp-bika", ref, bika), ("tp-qnn8", qref, qnn),
+                              ("tp-nccl", qref, [nccl])):
+        per_tick = {k: v / recs[0]["ticks"] for k, v in recs[0]["collectives"].items()}
+        print(f"[{tag}] {len(recs)} rank(s): tokens and first prefill and decode logits "
+              f"equal to the single process's, bit for bit; launches a rank "
+              f"{recs[0]['launches']}; {recs[0]['ticks']} ticks, "
+              f"collectives a tick {per_tick}; resident params a rank "
+              + ", ".join(f"{_gb(r['param_bytes']):.3f}" for r in recs)
+              + f" GB (single {_gb(single['param_bytes']):.3f}), KV pool a rank "
+              + ", ".join(f"{r['kv_bytes'] / 2**20:.2f}" for r in recs)
+              + f" MiB (single {single['kv_bytes'] / 2**20:.2f}); drain wall "
+              + ", ".join(f"{r['wall_s']:.3f}" for r in recs)
+              + f" s (single {single['wall_s']:.3f}); peak a rank "
+              + ", ".join(f"{r['peak_gb']:.2f}" for r in recs) + " GB")
+        out[tag] = {"ranks": [{k: v for k, v in r.items() if k not in ("prefill", "decode")}
+                              for r in recs],
+                    "single": {k: v for k, v in single.items()
+                               if k not in ("prefill", "decode", "tokens")},
+                    "collectives_per_tick": per_tick}
+    out["session_s"] = {"gloo_2_ranks": t_gloo, "nccl_1_rank": t_nccl}
+    print(f"[tp] rank sessions: 2 gloo ranks {t_gloo:.1f} s (bika + qnn8, process start-up "
+          f"included), this process as 1 NCCL rank {t_nccl:.1f} s (qnn8)")
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
     if argv and only not in ("paper", "moe", "recurrent", "encdec", "train-families",
-                             "train-recurrent", "tooling"):
+                             "train-recurrent", "tooling", "tp"):
         fail(f"unknown arguments {argv}; the one option is --only "
-             f"paper|moe|recurrent|encdec|train-families|train-recurrent|tooling")
+             f"paper|moe|recurrent|encdec|train-families|train-recurrent|tooling|tp")
     only_paper = only == "paper"
     try:
         import numpy as np
@@ -4838,6 +5215,21 @@ def main(argv=None) -> int:
         print(smi)
         print("partial run (--only train-recurrent): no result line")
         return 0
+    if only == "tp":  # a partial run: no kernels line, no last line
+        clock = PhaseClock()
+        flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+        tp_kernels = clock("tp-kernels", phase_tp_kernels, torch, np, dev, flush)
+        del flush
+        tp = clock("tp", phase_tp, torch, np, dev)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_tp.json"), "w") as fh:
+            json.dump({"device": smi, "tp": tp, "tp_kernels": tp_kernels,
+                       "phase_seconds": clock.seconds}, fh, indent=1, sort_keys=True,
+                      default=str)
+        print(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
+        print(smi)
+        print("partial run (--only tp): no result line")
+        return 0
     if only == "tooling":  # a partial run: no kernels line, no last line
         clock = PhaseClock()
         tooling = clock("tooling", phase_tooling, torch, np, dev, logs)
@@ -4894,8 +5286,10 @@ def main(argv=None) -> int:
                         flush)
     rec_train_kernels = clock("train-recurrent-kernels", phase_train_recurrent_kernels, torch,
                               np, dev, flush)
+    tp_kernels = clock("tp-kernels", phase_tp_kernels, torch, np, dev, flush)
     del flush
     moe = clock("moe", phase_moe, torch, np, dev)
+    tp = clock("tp", phase_tp, torch, np, dev, moe.pop("nemotron_ref"))
     recurrent = clock("recurrent", phase_recurrent, torch, np, dev)
     encdec = clock("encdec", phase_encdec, torch, np, dev)
     families = clock("train-families", phase_train_families, torch, np, dev)
@@ -5123,6 +5517,19 @@ def main(argv=None) -> int:
         entry["shapes"] = entry["shapes"] + [
             {"train_recurrent": r["where"], "M": r["M"], "K": r["K"], "N": r["N"], key: r[key]}
             for r in rec_train_kernels]
+    # the thirteenth slice: kernels 1, 11 (bika) and 10 (qnn8) on the tensor-
+    # parallel path a rank, and their rows at a rank's shapes
+    tp_route = {"cac_matmul": ("tp-bika", "cac_hw"), "paged_attn": ("tp-bika", "paged_attn"),
+                "qnn_matmul": ("tp-qnn8", "qnn8")}
+    for entry in kernels:
+        if entry["name"] in tp_route:
+            tag, count = tp_route[entry["name"]]
+            entry["tp_launches"] = {
+                f"nemotron-4-15b {tag[3:]} drain, tp={TP}, rank {r}": rec["launches"][count]
+                for r, rec in enumerate(tp[tag]["ranks"])}
+        if entry["name"] in ("cac_matmul", "bnn_packed_matmul", "qnn_matmul", "paged_attn"):
+            entry["shapes"] = entry["shapes"] + [r for r in tp_kernels
+                                                 if r["kernel"] == entry["name"]]
     # the twelfth slice: each kernel's entry functions under the contracts
     # (registers, spill stores, findings) and the autotune row of its path
     for entry in kernels:
@@ -5152,6 +5559,7 @@ def main(argv=None) -> int:
                    "encdec": encdec, "encdec_kernels": encdec_kernels,
                    "train_families": families, "train_families_kernels": fam_kernels,
                    "train_recurrent": rec_train, "train_recurrent_kernels": rec_train_kernels,
+                   "tp": tp, "tp_kernels": tp_kernels,
                    "tooling": tooling, "phase_seconds": clock.seconds},
                   fh, indent=1, sort_keys=True,
                   default=str)

@@ -81,8 +81,9 @@ RULES: Dict[str, Tuple[str, str]] = {
 # Functions that run once per decode tick, static-engine step or train step.
 # Module key is a path suffix.
 HOT_TICK_FUNCTIONS: Dict[str, Set[str]] = {
-    "serve/scheduler.py": {"tick", "_run_tick", "_admit_one", "_admit", "_run_spec_tick"},
-    "serve/engine.py": {"step_batch"},
+    "serve/scheduler.py": {"tick", "_tick", "_run_tick", "_admit_one", "_admit",
+                           "_run_spec_tick"},
+    "serve/engine.py": {"step_batch", "_step_batch"},
     "train/steps.py": {"train_step"},
 }
 

@@ -12,6 +12,10 @@ No ``--use_fast_math``: the paged-attention tolerance relies on accurate
 ``expf``, and the training CAC on IEEE-rounded ``__fmul_rn``/``__fadd_rn``.
 Nothing is built at import time; ``load(name)`` builds on first use and ``build_all``
 compiles every source in parallel (one ``nvcc`` each, all started together).
+Each process compiles to temporary names of its own (its pid) and renames
+them into place atomically, so ranks that reach a first build together
+each finish a whole library and never clobber one another's; the
+launchers build before they spawn ranks.
 """
 from __future__ import annotations
 
@@ -78,11 +82,12 @@ def build_all(names=KERNEL_SOURCES, *, logs: Optional[Dict[str, str]] = None
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     paths = {}
+    tmp = f".{os.getpid()}.tmp"  # per process: ranks that build at once never share one
     for name in names:
         out = _lib_path(name)
         paths[name] = out
         if not (os.path.exists(out) and os.path.exists(_log_path(out))):
-            cmd = _command(name, out + ".tmp")
+            cmd = _command(name, out + tmp)
             cmd.insert(1, "-Xptxas=-v")
             procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                  stderr=subprocess.STDOUT, text=True))
@@ -92,10 +97,10 @@ def build_all(names=KERNEL_SOURCES, *, logs: Optional[Dict[str, str]] = None
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
             continue
-        with open(_log_path(out) + ".tmp", "w") as fh:
+        with open(_log_path(out) + tmp, "w") as fh:
             fh.write(log)
-        os.replace(_log_path(out) + ".tmp", _log_path(out))
-        os.replace(out + ".tmp", out)
+        os.replace(_log_path(out) + tmp, _log_path(out))
+        os.replace(out + tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     if logs is not None:

@@ -10,14 +10,27 @@ kernel calls (``cac_matmul_kernel_call.launches``,
 ``paged_attn_kernel_call.launches``, ``cac_train_fwd_call.launches``,
 ``bnn_matmul_kernel_call.launches``, ``qnn_matmul_kernel_call.launches``, ...);
 ``launch_counts``/``reset_launches`` read and zero them.
+
+Tensor parallelism (the reference's ``_tp_mesh`` / ``_tp_shard_call``
+routes, in explicit SPMD: ``distributed.tp``): a rank holds its N/tp
+columns of every column-parallel weight, so ``cac_matmul``,
+``bnn_matmul``, ``bnn_matmul_packed`` and ``qnn_matmul`` run the unchanged
+kernel on those columns and return them, the activations whole on every
+rank; no reduction is split, so the columns equal the single-process
+call's bit for bit. A weight whose N does not divide tp is whole on every
+rank, and the same kernel runs on all of N (the reference falls back to
+its XLA oracle there). ``paged_attention`` runs a rank's Hq/tp query and
+Hkv/tp kv heads; given the unsharded head counts (``heads``) it launches
+kernel 11 at the unsharded call's plan, so that each head's splits merge
+in the order of one process's call.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import ref
+from . import autotune, ref
 from . import bnn_matmul as _bnn
 from . import cac_matmul as _cac
 from .cac_matmul import cac_matmul_kernel_call, cac_matmul_plain
@@ -61,13 +74,23 @@ def paged_attention(
     *,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    heads: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Fused block-table attention: q (B, C, Hq, D); k/v one pool layer
     (n_phys, bs, Hkv, D); tables (B, T) int32; q_pos (B, C) int32. With
-    scales the int8 pool is dequantized inside the walk."""
-    if q.is_cuda:
-        return paged_attn_kernel_call(q, k, v, tables, q_pos, k_scale=k_scale, v_scale=v_scale)
-    return ref.paged_attention_ref(q, k, v, tables, q_pos, k_scale, v_scale)
+    scales the int8 pool is dequantized inside the walk. ``heads`` = (Hq,
+    Hkv) of the unsharded call, where q and the pool hold a
+    tensor-parallel rank's block of them: the kernel takes that call's
+    (q_tile, splits), which ``attn_plan`` sizes from B x Hkv."""
+    if not q.is_cuda:
+        return ref.paged_attention_ref(q, k, v, tables, q_pos, k_scale, v_scale)
+    plan = None
+    b, c, hq, d = q.shape
+    if heads is not None and tuple(heads) != (hq, k.shape[2]):
+        plan = autotune.get_paged_plan(b, c, heads[0], heads[1], d, k.shape[1],
+                                       tables.shape[1], q.device.index, None)
+    return paged_attn_kernel_call(q, k, v, tables, q_pos, k_scale=k_scale, v_scale=v_scale,
+                                  plan=plan)
 
 
 # The one-pass fused STE backward (kernel 5) is the default; False takes the

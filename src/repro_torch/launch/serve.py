@@ -46,17 +46,31 @@ For the encoder-decoder family the launcher makes the stub frontend's
 frame embeddings, (batch-size, 16, d_model) = 0.1 x a normal sample from a
 torch generator seeded 1, and passes them as ``run(extra_batch={"frames":
 ...})``: the engine trims them to each packed group.
-Tensor parallelism's flags are not ported yet and are not accepted.
+
+Tensor parallelism: ``--tp N`` serves on a (1, N) ("data", "model") mesh,
+``--mesh-shape d,m`` on a (d, m) one (a "data" axis larger than 1 is
+refused: data parallelism comes with the training slice). The launcher
+builds the kernels once, then spawns one rank a card (NCCL; with
+``--device cpu``, gloo ranks on the CPU), joined through a ``FileStore`` in
+a temporary directory; every rank serves the same requests on its shard
+(``distributed.tp``) and rank 0 prints. The lm family without experts or a
+window is served so; ``--arrival-rate`` and ``--spec-draft`` are refused
+with a mesh.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --tp 2
 """
 from __future__ import annotations
 
 import argparse
+import shutil
+import tempfile
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke
 from repro_torch.device import resolve_device
+from repro_torch.distributed import comm
 from repro_torch.models import build_model
 from repro_torch.obs import MetricsRegistry, Tracer, profile_trace, set_tracer
 from repro_torch.serve.engine import Request, ServeEngine
@@ -123,7 +137,15 @@ def main(argv=None) -> int:
                     help="phase-time every Nth scheduler tick (0 = off)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (default; raises without a GPU) or cpu (plain versions)")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor-parallel size: serve on a (1, tp) data x model mesh, one "
+                         "rank a card (0 = one process)")
+    ap.add_argument("--mesh-shape", default="",
+                    help="explicit 'data,model' mesh shape (overrides --tp)")
     args = ap.parse_args(argv)
+    shape = _mesh_shape(args)
+    if shape is not None:
+        return _serve_ranks(args, shape)
     device = resolve_device(args.device)
     tracer = Tracer(capacity=args.trace_capacity) if args.trace_out else None
     prev_tracer = set_tracer(tracer) if tracer is not None else None
@@ -134,7 +156,65 @@ def main(argv=None) -> int:
             set_tracer(prev_tracer)
 
 
-def _serve(args, device, tracer) -> int:
+def _mesh_shape(args):
+    """(data, model) from ``--mesh-shape`` or ``--tp``; None for one process."""
+    if args.mesh_shape:
+        shape = tuple(int(v) for v in args.mesh_shape.split(","))
+        if len(shape) != 2 or min(shape) < 1:
+            raise SystemExit(f"--mesh-shape wants 'data,model', got {args.mesh_shape!r}")
+        return shape
+    return (1, args.tp) if args.tp > 0 else None
+
+
+def _serve_ranks(args, shape) -> int:
+    """One rank a card (NCCL) or a gloo rank each on the CPU, the kernels
+    built before any rank starts; rank 0 prints."""
+    from repro_torch.distributed.spawn import spawn_ranks
+
+    world = shape[0] * shape[1]
+    if args.arrival_rate > 0 or args.spec_draft:
+        raise SystemExit("--arrival-rate and --spec-draft are not served on a mesh: the "
+                         "ranks run one closed-loop drain in step")
+    if args.device == "cuda":
+        resolve_device("cuda")  # raises without a GPU
+        if torch.cuda.device_count() < world:
+            raise SystemExit(f"a {shape} mesh needs {world} cards, one rank a card; this "
+                             f"machine has {torch.cuda.device_count()}")
+        from repro_torch.kernels import build
+
+        build.build_all()
+    store_dir = tempfile.mkdtemp(prefix="repro-torch-serve-")
+    try:
+        spawn_ranks(_rank_serve, world, store_dir, (args, shape),
+                    backend="nccl" if args.device == "cuda" else "gloo",
+                    threads=1 if args.device == "cpu" else None)
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    return 0
+
+
+def _rank_serve(rank, world, args, shape):
+    from repro_torch.distributed.meshes import make_mesh
+
+    mesh = make_mesh(shape, ("data", "model"))
+    if rank:  # rank 0 alone prints and writes the trace, metrics and profile
+        args = argparse.Namespace(**dict(vars(args), trace_out="", metrics_out="",
+                                         profile_dir="", profile_sample=0))
+    device = resolve_device(args.device)
+    tracer = Tracer(capacity=args.trace_capacity) if args.trace_out else None
+    prev_tracer = set_tracer(tracer) if tracer is not None else None
+    try:
+        _serve(args, device, tracer, mesh=mesh, say=print if rank == 0 else _quiet)
+    finally:
+        if tracer is not None:
+            set_tracer(prev_tracer)
+
+
+def _quiet(*_args, **_kw) -> None:
+    pass
+
+
+def _serve(args, device, tracer, mesh=None, say=print) -> int:
     registry = MetricsRegistry() if (args.metrics_out or args.trace_out) else None
 
     getter = get_smoke if args.smoke else get_config
@@ -148,22 +228,26 @@ def _serve(args, device, tracer) -> int:
                   n_slots=args.n_slots or None, kv_block_size=args.kv_block_size,
                   kv_n_blocks=args.kv_n_blocks or None, prefix_cache=args.prefix_cache,
                   prefill_chunk=args.prefill_chunk, device=device, tracer=tracer,
-                  registry=registry, profile_sample=args.profile_sample)
+                  registry=registry, profile_sample=args.profile_sample, mesh=mesh)
     if args.spec_draft:
         # the trained float tree, so that the SAME weights convert through
         # the target backend and the cheaper draft backend (serve/spec.py)
         tparams = build_model(arch, phase="train").init(0, device=device)
-        print(f"[serve] {arch.name} mode={args.mode} params={_param_bytes(tparams):,} B "
-              f"device={device} spec: draft={args.spec_draft} k={args.spec_k}")
+        say(f"[serve] {arch.name} mode={args.mode} params={_param_bytes(tparams):,} B "
+            f"device={device} spec: draft={args.spec_draft} k={args.spec_k}")
         eng = ServeEngine.from_trained(tparams, arch, spec_draft=args.spec_draft,
                                        spec_k=args.spec_k, **eng_kw)
     else:
         api = build_model(arch, phase="serve")
         params = api.init(0, device=device)
-        print(f"[serve] {arch.name} mode={args.mode} params={_param_bytes(params):,} B "
-              f"device={device}")
+        say(f"[serve] {arch.name} mode={args.mode} params={_param_bytes(params):,} B "
+            f"device={device}")
         eng = ServeEngine(api, params, arch, **eng_kw)
-    print(f"[serve] engine={eng.engine}")
+    say(f"[serve] engine={eng.engine}")
+    if mesh is not None:
+        say(f"[serve] tp={eng.tp.size} mesh={tuple(mesh.shape)} backend={eng.tp.backend}: "
+            f"rank 0 holds {_param_bytes(eng.params):,} B of params")
+    comm.reset_collectives()
     rng = np.random.RandomState(0)
     extra = None
     if arch.family == "encdec":
@@ -177,8 +261,8 @@ def _serve(args, device, tracer) -> int:
         reqs.append(Request(rid=i, prompt=rng.randint(0, arch.vocab, plen).astype(np.int32),
                             max_new_tokens=args.new_tokens))
     if args.arrival_rate > 0 and eng.scheduler is None:
-        print("[serve] WARNING: --arrival-rate needs a slot-scheduler engine "
-              f"(continuous/paged); engine={eng.engine} drains closed-loop instead")
+        say("[serve] WARNING: --arrival-rate needs a slot-scheduler engine "
+            f"(continuous/paged); engine={eng.engine} drains closed-loop instead")
     window = profile_trace(args.profile_dir)
     with window:
         if args.arrival_rate > 0 and eng.scheduler is not None:
@@ -189,45 +273,47 @@ def _serve(args, device, tracer) -> int:
                 eng.submit(r)
             done = eng.run(extra_batch=extra)
     for r in sorted(done, key=lambda q: q.rid)[:4]:
-        print(f"  req {r.rid}: {[int(t) for t in r.output[:10]]}...")
-    print(f"[serve] completed {len(done)} requests")
+        say(f"  req {r.rid}: {[int(t) for t in r.output[:10]]}...")
+    say(f"[serve] completed {len(done)} requests")
+    if mesh is not None:
+        say(f"[serve] collectives: {comm.collective_counts()}")
     m = eng.metrics.summary() if eng.metrics is not None else None
     if m is not None:
-        print(f"[serve] goodput={m['goodput_tok_s']:.1f} tok/s "
-              f"occupancy={m['slot_occupancy']:.2f} "
-              f"prefill compiles={m['prefill_compiles']}")
+        say(f"[serve] goodput={m['goodput_tok_s']:.1f} tok/s "
+            f"occupancy={m['slot_occupancy']:.2f} "
+            f"prefill compiles={m['prefill_compiles']}")
         if eng.engine == "paged":
-            print(f"[serve] prefix hit rate={m['prefix_hit_rate']:.2f} "
-                  f"blocks peak={m['blocks_in_use_peak']} "
-                  f"chunks={m['prefill_chunks']} "
-                  f"deferrals={m['admission_deferrals']}")
+            say(f"[serve] prefix hit rate={m['prefix_hit_rate']:.2f} "
+                f"blocks peak={m['blocks_in_use_peak']} "
+                f"chunks={m['prefill_chunks']} "
+                f"deferrals={m['admission_deferrals']}")
         if m.get("spec_rounds"):
-            print(f"[serve] spec: rounds={m['spec_rounds']} "
-                  f"accept rate={m['spec_accept_rate']:.2f} "
-                  f"tokens/round={m['spec_tokens_per_round']:.2f}")
-        print(f"[serve] kv pool={m['kv_pool_bytes']:,} B "
-              f"({m['kv_bytes_per_token']:.0f} B/token) "
-              f"in-use peak={m['kv_bytes_in_use_peak']:,} B "
-              f"decode HBM/token={m['decode_hbm_bytes_per_token']:.0f} B")
+            say(f"[serve] spec: rounds={m['spec_rounds']} "
+                f"accept rate={m['spec_accept_rate']:.2f} "
+                f"tokens/round={m['spec_tokens_per_round']:.2f}")
+        say(f"[serve] kv pool={m['kv_pool_bytes']:,} B "
+            f"({m['kv_bytes_per_token']:.0f} B/token) "
+            f"in-use peak={m['kv_bytes_in_use_peak']:,} B "
+            f"decode HBM/token={m['decode_hbm_bytes_per_token']:.0f} B")
     if eng.profiler is not None and eng.profiler.sampled_ticks:
         ps = eng.profiler.summary()
         split = " ".join(f"{k}={v['fraction']:.0%}" for k, v in ps["phases"].items())
-        print(f"[serve] profile: {ps['sampled_ticks']}/{ps['ticks']} ticks sampled; {split}")
+        say(f"[serve] profile: {ps['sampled_ticks']}/{ps['ticks']} ticks sampled; {split}")
     if args.profile_dir:
-        print(f"[serve] torch.profiler trace -> {window.path}")
+        say(f"[serve] torch.profiler trace -> {window.path}")
     if tracer is not None:
         requests = [r.metrics.to_dict() for r in done if r.metrics is not None] or None
         tracer.write_jsonl(args.trace_out, summary=m, requests=requests)
         stem = args.trace_out[:-6] if args.trace_out.endswith(".jsonl") else args.trace_out
         tracer.write_perfetto(stem + ".perfetto.json")
-        print(f"[serve] trace: {len(tracer)} records ({tracer.dropped} dropped) -> "
-              f"{args.trace_out}")
+        say(f"[serve] trace: {len(tracer)} records ({tracer.dropped} dropped) -> "
+            f"{args.trace_out}")
     if registry is not None and args.metrics_out:
         if args.metrics_out.endswith(".json"):
             registry.write_json(args.metrics_out)
         else:
             registry.write_prometheus(args.metrics_out)
-        print(f"[serve] metrics -> {args.metrics_out}")
+        say(f"[serve] metrics -> {args.metrics_out}")
     return 0
 
 

@@ -115,6 +115,7 @@ class ArchConfig:
     remat: bool = True
     # paged serving attention: "fused" block-table kernel | "gather" oracle
     paged_attn_route: str = "fused"
+    tp_pad_heads: bool = False  # pad attention heads to the tensor-parallel group
     full_attention: bool = True  # False: sub-quadratic (SWA), runs long_500k
 
     @property
@@ -224,6 +225,9 @@ class ModelAPI(NamedTuple):
     # per-layer views (no copies), made once by an engine so that the layer
     # loop indexes nothing per call; None: the tree is used as it is
     layer_views: Optional[Callable[[Any], Any]] = None
+    # params (either phase, stacked or per-layer views) -> the same tree with
+    # each leaf's logical axes, the reference's axes_of(eval_shape(init))
+    param_axes: Optional[Callable[[Any], Any]] = None
 
 
 def views_of(api: ModelAPI, params):

@@ -166,7 +166,7 @@ def build_encdec(cfg: ArchConfig, *, phase: str = "serve") -> ModelAPI:
         """Cross-attention of one decode token against a layer's cached
         encoder K/V (read only)."""
         b = x.shape[0]
-        q = _split_heads(linear_apply(p["wq"], x, spec, phase=phase), cfg.n_heads, cfg.hd)
+        q = _split_heads(linear_apply(p["wq"], x, spec, phase=phase), cfg.hd)
         out = dot_attention(
             q, ck.to(x.dtype), cv.to(x.dtype),
             q_positions=torch.zeros((1,), dtype=torch.int32, device=x.device),

@@ -16,6 +16,15 @@ dense and bika mode alike; score math and softmax stay float32.
 
 Unlike the functional reference, cache and pool writes here are IN PLACE:
 the tensors passed in are updated and returned (the same objects).
+
+Tensor parallelism (``distributed.tp``, under an active
+``distributed.comm`` group): q/k/v hold the rank's heads where their
+weights do (the head counts are read off the projections' widths, and the
+cache holds the same heads), attention runs on them alone, and the output
+is gathered to all heads before ``wo``, whose rank's d_model columns are
+gathered in turn (``_out_proj``). ``tp_pad_heads`` pads a replicated
+attention's heads so that its score math splits over the ranks (the
+training forward ``attn_apply``, as in the reference).
 """
 from __future__ import annotations
 
@@ -25,13 +34,15 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.distributed import comm
 from repro_torch.kernels import ops as kernel_ops
-from .linear import LinearSpec, linear_apply, linear_init
+from .linear import LinearSpec, linear_apply, linear_axes, linear_init
 from .rotary import apply_rope
 
 __all__ = [
     "AttnConfig",
     "attn_apply",
+    "attn_axes",
     "attn_decode_step",
     "attn_decode_step_paged",
     "attn_init",
@@ -64,6 +75,9 @@ class AttnConfig:
     # "fused": the block-table kernel (default); "gather": paged_gather +
     # dot_attention, the bit-parity oracle
     paged_route: str = "fused"
+    # pad a replicated attention's heads to a multiple of the tensor-parallel
+    # group so that its score math splits over the ranks (smollm's 15 heads)
+    tp_pad_heads: bool = False
 
 
 def attn_init(gen, cfg: AttnConfig, spec: LinearSpec, *, phase: str = "serve", device=None):
@@ -77,8 +91,47 @@ def attn_init(gen, cfg: AttnConfig, spec: LinearSpec, *, phase: str = "serve", d
     }
 
 
-def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    return x.reshape(x.shape[:-1] + (n, hd))
+def attn_axes(params, prefix=()):
+    """Logical axes: wq ("embed", "heads"), wk/wv ("embed", "kv_heads"), wo
+    ("heads", "embed"), as the reference boxes them."""
+    names = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+             "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    return {k: linear_axes(p, names[k], prefix) for k, p in params.items()}
+
+
+def _split_heads(x: torch.Tensor, hd: int) -> torch.Tensor:
+    """(..., H * hd) -> (..., H, hd): H is what the projection holds (all
+    heads, or a tensor-parallel rank's)."""
+    return x.reshape(x.shape[:-1] + (x.shape[-1] // hd, hd))
+
+
+def _out_proj(params, out: torch.Tensor, cfg: AttnConfig, spec, phase) -> torch.Tensor:
+    """wo over the attention output (B, S, H, hd): the heads gathered to all
+    of them first, the rank's d_model columns after (no-ops without a
+    tensor-parallel group)."""
+    b, s = out.shape[:2]
+    x = comm.gather_cols(out.reshape(b, s, -1), cfg.n_heads * cfg.head_dim)
+    return comm.gather_cols(linear_apply(params["wo"], x, spec, phase=phase), cfg.d_model)
+
+
+def _attend_padded_heads(q, k, v, cfg: AttnConfig, g) -> torch.Tensor:
+    """Self-attention of a replicated attention split over the ranks by
+    padded heads (the reference's ``_maybe_pad_heads``): GQA expanded to one
+    kv head a query head, the heads zero-padded to a multiple of the group,
+    the rank's block of them attended, the blocks gathered and the pad
+    heads dropped. A pad head attends zero keys; nothing reads it."""
+    hq, hkv = q.shape[2], k.shape[2]
+    if hq // hkv > 1:
+        k = k.repeat_interleave(hq // hkv, dim=2)
+        v = v.repeat_interleave(hq // hkv, dim=2)
+    pad = (-hq) % g.size
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+    per = (hq + pad) // g.size
+    lo = g.rank * per
+    out = blockwise_attention(q[:, :, lo:lo + per], k[:, :, lo:lo + per], v[:, :, lo:lo + per],
+                              causal=cfg.causal, window=cfg.window, block_q=cfg.block_q)
+    return comm.all_gather(out, dim=2)[:, :, :hq]
 
 
 def dot_attention(
@@ -150,14 +203,19 @@ def attn_apply(params, x: torch.Tensor, cfg: AttnConfig, spec: LinearSpec, *,
     ``kv_x`` (``cross_attention``)."""
     if cfg.cross:
         return cross_attention(params, x, kv_x, cfg, spec, phase=phase)[0]
-    b, s, _ = x.shape
+    s = x.shape[1]
     q, k, v = _project_qkv(params, x, cfg, spec, phase, kv_x)
     q = apply_rope(q, torch.arange(s, dtype=torch.int32, device=x.device), cfg.rope_theta)
     k = apply_rope(k, torch.arange(k.shape[1], dtype=torch.int32, device=x.device),
                    cfg.rope_theta)
-    out = blockwise_attention(q, k, v, causal=cfg.causal, window=cfg.window,
-                              block_q=cfg.block_q)
-    return linear_apply(params["wo"], out.reshape(b, s, -1), spec, phase=phase)
+    g = comm.active()
+    if (cfg.tp_pad_heads and g is not None and g.size > 1 and q.shape[2] == cfg.n_heads
+            and (cfg.n_heads % g.size or cfg.n_kv_heads % g.size)):
+        out = _attend_padded_heads(q, k, v, cfg, g)
+    else:
+        out = blockwise_attention(q, k, v, causal=cfg.causal, window=cfg.window,
+                                  block_q=cfg.block_q)
+    return _out_proj(params, out, cfg, spec, phase)
 
 
 def cross_attention(params, x: torch.Tensor, kv_x: torch.Tensor, cfg: AttnConfig,
@@ -167,7 +225,7 @@ def cross_attention(params, x: torch.Tensor, kv_x: torch.Tensor, cfg: AttnConfig
     RoPE, every key visible (``dot_attention``, non-causal, positions
     arange). Returns (y (B, S, D), k, v (B, S_kv, Hkv, hd)): the projected
     K/V are what the encdec family's prefill keeps as its cross cache."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     q, k, v = _project_qkv(params, x, cfg, spec, phase, kv_x)
     out = dot_attention(
         q, k, v,
@@ -175,7 +233,7 @@ def cross_attention(params, x: torch.Tensor, kv_x: torch.Tensor, cfg: AttnConfig
         kv_positions=torch.arange(k.shape[1], dtype=torch.int32, device=x.device),
         causal=False,
     )
-    return linear_apply(params["wo"], out.reshape(b, s, -1), spec, phase=phase), k, v
+    return _out_proj(params, out, cfg, spec, phase), k, v
 
 
 def _quantize_kv(x: torch.Tensor):
@@ -242,7 +300,7 @@ def attn_prefill(params, x: torch.Tensor, cfg: AttnConfig, spec: LinearSpec, *,
     than L is folded in, its last L positions kept (the reference asserts S
     % L == 0, where the fold is the identity; the port rolls the slots for
     any S, and equals it there)."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
     q, k, v = _project_qkv(params, x, cfg, spec, phase)
@@ -251,7 +309,7 @@ def attn_prefill(params, x: torch.Tensor, cfg: AttnConfig, spec: LinearSpec, *,
     k = apply_rope(k, pos, cfg.rope_theta)  # the cache stores post-RoPE keys
     out = blockwise_attention(q, k, v, causal=cfg.causal, window=cfg.window,
                               block_q=cfg.block_q)
-    y = linear_apply(params["wo"], out.reshape(b, s, -1), spec, phase=phase)
+    y = _out_proj(params, out, cfg, spec, phase)
     length = ring_length(cfg, max_len)
     if s > length:  # a window's ring: slot j holds position s - L + ((j - s) mod L)
         kc = torch.roll(k[:, -length:], s % length, dims=1)
@@ -318,7 +376,7 @@ def attn_decode_step(params, x: torch.Tensor, cache, position: torch.Tensor,
         q, k_all, v_all, q_positions=pos, kv_positions=kv_positions, causal=True,
         window=cfg.window, kv_valid_len=valid_len,
     )
-    y = linear_apply(params["wo"], out.reshape(b, 1, -1), spec, phase=phase)
+    y = _out_proj(params, out, cfg, spec, phase)
     return y, cache
 
 
@@ -336,7 +394,7 @@ def attn_verify_step(params, x: torch.Tensor, cache, position: torch.Tensor,
     (B, C) outputs are those of C sequential ``attn_decode_step`` calls."""
     if cfg.window is not None:
         raise ValueError("speculative verify does not support sliding windows")
-    b, c, _ = x.shape
+    c = x.shape[1]
     q, k, v = _project_qkv(params, x, cfg, spec, phase)
     position = torch.as_tensor(position, dtype=torch.int32, device=x.device)
     lp = position[:, None] + torch.arange(c, dtype=torch.int32, device=x.device)  # (B, C)
@@ -350,7 +408,7 @@ def attn_verify_step(params, x: torch.Tensor, cache, position: torch.Tensor,
         kv_positions=torch.arange(cache_len, dtype=torch.int32, device=x.device),
         causal=True,
     )
-    y = linear_apply(params["wo"], out.reshape(b, c, -1), spec, phase=phase)
+    y = _out_proj(params, out, cfg, spec, phase)
     return y, cache
 
 
@@ -366,9 +424,9 @@ def _project_qkv(params, x, cfg: AttnConfig, spec, phase, kv_x=None):
     from x."""
     hd = cfg.head_dim
     src = x if kv_x is None else kv_x
-    q = _split_heads(linear_apply(params["wq"], x, spec, phase=phase), cfg.n_heads, hd)
-    k = _split_heads(linear_apply(params["wk"], src, spec, phase=phase), cfg.n_kv_heads, hd)
-    v = _split_heads(linear_apply(params["wv"], src, spec, phase=phase), cfg.n_kv_heads, hd)
+    q = _split_heads(linear_apply(params["wq"], x, spec, phase=phase), hd)
+    k = _split_heads(linear_apply(params["wk"], src, spec, phase=phase), hd)
+    v = _split_heads(linear_apply(params["wv"], src, spec, phase=phase), hd)
     return q, k, v
 
 
@@ -392,6 +450,7 @@ def _attend(q, cache, table, q_pos, cfg: AttnConfig, dtype, kv_valid_len=None):
         return kernel_ops.paged_attention(
             q, cache["k"], cache["v"], table, q_pos,
             k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+            heads=(cfg.n_heads, cfg.n_kv_heads),
         )
     if "k_scale" in cache:
         k_all = _dequantize_kv(paged_gather(cache["k"], table),
@@ -417,7 +476,6 @@ def attn_decode_step_paged(params, x: torch.Tensor, cache, position: torch.Tenso
     their whole table at the parking block. Writes the pool in place."""
     if cfg.window is not None:
         raise ValueError("paged decode does not support sliding-window caches")
-    b = x.shape[0]
     q, k, v = _project_qkv(params, x, cfg, spec, phase)
     position = position.to(torch.int32)
     pos = position[:, None]  # (B, 1) per-row RoPE / mask positions
@@ -428,7 +486,7 @@ def attn_decode_step_paged(params, x: torch.Tensor, cache, position: torch.Tenso
     off = (position % bs).long()
     _write_pool(cache, blk, off, k[:, 0], v[:, 0])
     out = _attend(q, cache, table, pos, cfg, x.dtype, kv_valid_len=position + 1)
-    y = linear_apply(params["wo"], out.reshape(b, 1, -1), spec, phase=phase)
+    y = _out_proj(params, out, cfg, spec, phase)
     return y, cache
 
 
@@ -442,7 +500,7 @@ def attn_prefill_chunk(params, x: torch.Tensor, cache, table: torch.Tensor,
     the future of every real query. Writes the pool in place."""
     if cfg.window is not None:
         raise ValueError("paged prefill does not support sliding-window caches")
-    b, c, _ = x.shape
+    c = x.shape[1]
     q, k, v = _project_qkv(params, x, cfg, spec, phase)
     start = start.to(torch.int32)
     lp = start[:, None] + torch.arange(c, dtype=torch.int32, device=x.device)  # (B, C)
@@ -456,5 +514,5 @@ def attn_prefill_chunk(params, x: torch.Tensor, cache, table: torch.Tensor,
     keep = lp < max_len  # the out-of-range drop of the reference's scatter
     _write_pool(cache, blk[keep], (lp % bs).long()[keep], k[keep], v[keep])
     out = _attend(q, cache, table, lp, cfg, x.dtype)
-    y = linear_apply(params["wo"], out.reshape(b, c, -1), spec, phase=phase)
+    y = _out_proj(params, out, cfg, spec, phase)
     return y, cache

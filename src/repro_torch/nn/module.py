@@ -1,8 +1,10 @@
 """Parameter-tree sizes (port of ``repro/nn/module.py``: ``count_params``
 and ``param_bytes``) and ``stack_trees``. The port's parameters are plain
 tensors in nested dicts and lists, with no logical-axis boxes, so the
-reference's ``P``, ``unbox``, ``axes_of`` and ``boxed_like`` have no
-counterpart."""
+reference's ``P``, ``unbox`` and ``boxed_like`` have no counterpart; a
+tree of the same structure holds each leaf's logical axes instead
+(``ModelAPI.param_axes``, the reference's ``axes_of`` of a boxed tree),
+read by ``distributed.sharding``."""
 from __future__ import annotations
 
 import torch

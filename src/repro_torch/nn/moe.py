@@ -42,11 +42,11 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from .linear import LinearSpec, linear_apply, linear_init
-from .mlp import mlp_apply, mlp_init
+from .linear import LinearSpec, linear_apply, linear_axes, linear_init
+from .mlp import mlp_apply, mlp_axes, mlp_init
 from .module import stack_trees
 
-__all__ = ["MoEConfig", "moe_init", "moe_apply"]
+__all__ = ["MoEConfig", "moe_axes", "moe_init", "moe_apply"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +59,14 @@ class MoEConfig:
     capacity_factor: float = 1.25
     gated: bool = True
     activation: str = "silu"
+
+
+def moe_axes(params, prefix=()):
+    """Logical axes: the router ("embed", None); the experts' MLP axes after
+    the expert axis, unnamed as the reference's default (TP inside each
+    expert)."""
+    return {"router": linear_axes(params["router"], ("embed", None), prefix),
+            "experts": mlp_axes(params["experts"], prefix + (None,))}
 
 
 def moe_init(gen, d_model: int, d_ff: int, cfg: MoEConfig, spec: LinearSpec, *,

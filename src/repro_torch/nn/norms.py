@@ -4,7 +4,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["rmsnorm_init", "rmsnorm_apply", "layernorm_init", "layernorm_apply"]
+__all__ = ["layernorm_apply", "layernorm_init", "norm_axes", "rmsnorm_apply", "rmsnorm_init"]
+
+
+def norm_axes(params, prefix=()):
+    """Logical axes of a norm's leaves: ("embed",) after ``prefix``."""
+    return {name: prefix + ("embed",) for name in params}
 
 
 def rmsnorm_init(d: int, dtype=torch.float32, device=None):

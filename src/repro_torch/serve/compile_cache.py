@@ -9,6 +9,10 @@ the distinct shapes run (each bucket once; 0 for the chunk loop, whose one
 shape has no program to build), so the bucketed count matches the
 reference's compile count (CUDA graphs of these shapes come in a later
 slice).
+
+With ``mesh=`` (+ ``rules=``) each call runs under the mesh's
+tensor-parallel group (``distributed.tp``): the params and the pool must
+be this rank's, as the scheduler places them.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ from typing import Optional, Set
 import numpy as np
 import torch
 
+from repro_torch.distributed import comm
+from repro_torch.distributed.tp import tp_group
 from repro_torch.obs.trace import NULL_TRACER
 
 __all__ = ["BucketedPrefill", "ChunkedPrefill", "bucket_for"]
@@ -39,12 +45,14 @@ class BucketedPrefill:
     cache covers the pool's full ``max_len`` (leaves ``(L, 1, max_len,
     ...)``), so the slot splice has one shape."""
 
-    def __init__(self, api, *, max_len: int, quantized: bool = False, tracer=None):
+    def __init__(self, api, *, max_len: int, quantized: bool = False, tracer=None,
+                 mesh=None, rules=None):
         self.api = api
         self.max_len = max_len
         self.quantized = quantized
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self._buckets: Set[int] = set()
+        self._tp = tp_group(mesh, rules)
 
     @property
     def misses(self) -> int:
@@ -68,11 +76,12 @@ class BucketedPrefill:
         toks[0, :plen] = prompt  # right-pad: exact under causal attention
         dev = params["embed"]["table"].device
         t0 = self.tracer.clock() if self.tracer.enabled else 0.0
-        out = self.api.prefill(
-            params, {"tokens": torch.from_numpy(toks).to(dev)}, max_len=self.max_len,
-            quantized=self.quantized,
-            last_index=torch.tensor([plen - 1], dtype=torch.int32, device=dev),
-        )
+        with comm.use(self._tp):
+            out = self.api.prefill(
+                params, {"tokens": torch.from_numpy(toks).to(dev)}, max_len=self.max_len,
+                quantized=self.quantized,
+                last_index=torch.tensor([plen - 1], dtype=torch.int32, device=dev),
+            )
         if self.tracer.enabled and first:
             self.tracer.add_span("compile", "scheduler", t0, self.tracer.clock(),
                                  kind="prefill_bucket", bucket=bucket, batch=1)
@@ -85,13 +94,14 @@ class ChunkedPrefill:
     chunks see earlier chunks' (and any shared prefix's) cached KV; the
     final chunk is right-padded, exact under causal attention."""
 
-    def __init__(self, api, *, chunk: int, max_len: int, tracer=None):
+    def __init__(self, api, *, chunk: int, max_len: int, tracer=None, mesh=None, rules=None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.api = api
         self.chunk = chunk
         self.max_len = max_len
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        self._tp = tp_group(mesh, rules)
         self.misses = 0  # programs compiled: none, the chunk loop runs eagerly
         self._ran = False  # the first chunk ever run (the trace's compile span)
 
@@ -121,11 +131,12 @@ class ChunkedPrefill:
             toks[0, : end - start] = prompt[start:end]
             last = (plen - 1 - start) if end == plen else (self.chunk - 1)
             t0 = tracer.clock() if trace else 0.0
-            logits, cache = self.api.prefill_chunk(
-                params, torch.from_numpy(toks).to(dev), cache, table,
-                torch.tensor([start], dtype=torch.int32, device=dev),
-                torch.tensor([last], dtype=torch.int32, device=dev),
-            )
+            with comm.use(self._tp):
+                logits, cache = self.api.prefill_chunk(
+                    params, torch.from_numpy(toks).to(dev), cache, table,
+                    torch.tensor([start], dtype=torch.int32, device=dev),
+                    torch.tensor([last], dtype=torch.int32, device=dev),
+                )
             if trace:
                 t1 = tracer.clock()
                 tracer.add_span("prefill_chunk", trace_track, t0, t1,

@@ -50,6 +50,17 @@ batch 4 gives both groups ``frames[:4]``), kept on purpose for token
 parity with the reference. A family that reads no extra key ignores it.
 A slot engine refuses ``extra_batch``.
 
+``mesh=`` (+ optional ``rules=``) serves as one rank of a tensor-parallel
+mesh (``distributed.tp``, on ``torch.distributed``): the params are placed
+once from the full serve tree, each rank keeping its shard (q/k/v by
+heads, gate/up by ffn columns, wo and down by d_model columns, the tied
+embedding by vocab rows), the KV caches hold the rank's kv heads, and
+every model call runs under the rank's group. Every rank runs the same
+engine on the same requests; outputs are token for token those of one
+process. The lm family without experts or a window is served so, on all
+three engines; another architecture, speculation and a mesh whose "data"
+axis is larger than 1 raise (ROADMAP Queue 1).
+
 The engine runs on CUDA unless ``device="cpu"`` is passed; without a GPU
 and without that request it raises.
 """
@@ -62,6 +73,8 @@ import torch
 
 from repro_torch.core.convert import tree_to_serve
 from repro_torch.device import resolve_device
+from repro_torch.distributed import comm
+from repro_torch.distributed.tp import shard_serve_params, tp_group
 from repro_torch.models import build_model
 from repro_torch.models.base import ArchConfig, ModelAPI, views_of
 from repro_torch.obs.profile import StepTimer
@@ -110,6 +123,8 @@ class ServeEngine:
         spec_draft=None,
         spec_k: int = 1,
         device=None,
+        mesh=None,
+        rules=None,
     ):
         if engine not in ("auto", "static", "continuous", "paged"):
             raise ValueError(f"unknown engine {engine!r}")
@@ -121,6 +136,8 @@ class ServeEngine:
                 f"got engine={engine!r}"
             )
         self.device = resolve_device(device)
+        self.mesh, self.rules = mesh, rules
+        self.tp = tp_group(mesh, rules)
         self.api = api
         self.arch = arch
         self.batch_size = batch_size
@@ -131,7 +148,8 @@ class ServeEngine:
         # shared NULL_TIMER)
         self.profiler = (StepTimer(profile_sample, tracer=tracer)
                          if profile_sample and profile_sample > 0 else None)
-        self.params = views_of(api, _to_device(params, self.device))
+        self.params = views_of(api, shard_serve_params(_to_device(params, self.device), arch,
+                                                       self.tp))
         self.queue: List[Request] = []  # the static engine's
         if spec_draft is not None:
             dapi, dparams, darch = spec_draft
@@ -139,7 +157,7 @@ class ServeEngine:
         common = dict(n_slots=n_slots or batch_size, max_len=max_len,
                       quantized_kv=quantized_kv, device=self.device, tracer=tracer,
                       registry=registry, profiler=self.profiler, spec_draft=spec_draft,
-                      spec_k=spec_k)
+                      spec_k=spec_k, mesh=mesh, rules=rules)
         self.scheduler = None
         if engine == "paged":
             self.scheduler = PagedSlotScheduler(
@@ -216,7 +234,12 @@ class ServeEngine:
         ``_slice_extra`` and moved to the engine's device. The host loop
         stops as soon as every row is finished (EOS or its budget), and
         decoding stops at the cache end (positions s .. max_len - 1) instead
-        of overwriting its last row."""
+        of overwriting its last row. Under a mesh it runs under the rank's
+        group."""
+        with comm.use(self.tp):
+            return self._step_batch(reqs, extra_batch)
+
+    def _step_batch(self, reqs: Sequence[Request], extra_batch: Optional[Dict]):
         tokens, s = self._pack(reqs)
         batch = {"tokens": tokens}
         if extra_batch:

@@ -12,6 +12,12 @@ request slots:
 - ``write_prefill(slot, prefill_cache)``: splice a batch-1 prefill cache
   (leaves ``(n_layers, 1, max_len, ...)``) into the slot row, in place.
 
+With ``mesh=`` (+ ``rules=``) the pool holds this tensor-parallel rank's
+kv heads, per the layout contract's ``kv_heads`` axis
+(``distributed.sharding.kv_cache_shardings``: a head count that does not
+divide the model axis keeps every head, replicated): the slot splice and
+per-row writes stay local to the rank.
+
 Runs on CUDA unless ``device="cpu"`` is passed; raises without a GPU.
 """
 from __future__ import annotations
@@ -20,6 +26,8 @@ import heapq
 from typing import List, Optional
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import comm
+from repro_torch.distributed.tp import tp_group
 from repro_torch.models.base import KVCacheLayout, kv_cache_layout
 
 __all__ = ["KVSlotManager"]
@@ -27,12 +35,14 @@ __all__ = ["KVSlotManager"]
 
 class KVSlotManager:
     def __init__(self, api, *, n_slots: int, max_len: int, quantized: bool = False,
-                 device=None):
+                 device=None, mesh=None, rules=None):
         self.n_slots = n_slots
         self.max_len = max_len
         self.quantized = quantized
         self.device = resolve_device(device)
-        self.cache = api.init_cache(n_slots, max_len, quantized=quantized, device=self.device)
+        with comm.use(tp_group(mesh, rules)):
+            self.cache = api.init_cache(n_slots, max_len, quantized=quantized,
+                                        device=self.device)
         self.layout: KVCacheLayout = kv_cache_layout(self.cache)
         assert self.layout.n_slots == n_slots and self.layout.max_len == max_len, self.layout
         self._free_heap: List[int] = list(range(n_slots))
@@ -46,6 +56,7 @@ class KVSlotManager:
 
     @property
     def pool_bytes(self) -> int:
+        """Bytes of the pool this process holds (a rank's heads under a mesh)."""
         return sum(leaf.numel() * leaf.element_size() for leaf in self.cache.values())
 
     def alloc(self) -> Optional[int]:

@@ -25,6 +25,10 @@ and a copy-on-write a ``cow_copy`` event, as in the reference.
 
 Physical block ``n_phys - 1`` is the reserved parking block that inactive
 decode rows write junk into.
+
+With ``mesh=`` (+ ``rules=``) the pool holds this tensor-parallel rank's kv
+heads, exactly as the dense contract shards (``serve/kv.py``); the block
+tables and every host decision are the same on every rank.
 """
 from __future__ import annotations
 
@@ -36,6 +40,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import comm
+from repro_torch.distributed.tp import tp_group
 from repro_torch.models.base import PagedKVLayout, paged_kv_layout
 from repro_torch.obs.trace import NULL_TRACER
 
@@ -74,6 +80,8 @@ class PagedKVManager:
         quantized: bool = False,
         device=None,
         tracer=None,
+        mesh=None,
+        rules=None,
     ):
         if max_len % block_size:
             raise ValueError(f"max_len {max_len} must be a multiple of block_size {block_size}")
@@ -92,8 +100,9 @@ class PagedKVManager:
         self.tracer = tracer if tracer is not None else NULL_TRACER
         # +1 physical row: the reserved parking block for inactive decode rows
         self.parking_block = self.n_blocks
-        self.cache = api.init_cache(self.n_blocks + 1, block_size, quantized=quantized,
-                                    device=device)
+        with comm.use(tp_group(mesh, rules)):
+            self.cache = api.init_cache(self.n_blocks + 1, block_size, quantized=quantized,
+                                        device=device)
         self.layout: PagedKVLayout = paged_kv_layout(self.cache)
         assert self.layout.n_phys_blocks == self.n_blocks + 1, self.layout
         assert self.layout.block_size == block_size, self.layout

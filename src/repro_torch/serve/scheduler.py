@@ -42,7 +42,16 @@ Spans are host-clock, so a ``decode`` phase or span holds the device time
 of the tick because it ends after that barrier. ``replay_arrivals`` drives
 a scheduler open-loop from timed arrivals.
 
-Left for later slices: meshes.
+Tensor parallelism: ``mesh=`` (+ ``rules=``) runs the scheduler as one
+rank of the mesh's "model" axis (``distributed.tp``). Every rank runs the
+same host loop on the same requests; its params are placed once from the
+full serve tree (each rank keeps its shard), its pool holds its kv heads,
+and every tick runs under the group, whose collectives give every rank
+the same whole logits, so the ranks take the same decisions. Speculation
+under a mesh raises, as in the reference; so does a mesh whose "data" axis
+is larger than 1 (data parallelism comes with the training slice). Open-
+loop arrivals (``replay_arrivals``) read each rank's clock, so they do not
+keep ranks in step: drive a mesh scheduler closed loop (``run``).
 
 Like the engine, a scheduler runs on CUDA unless ``device="cpu"`` is
 passed, and raises without a GPU.
@@ -57,6 +66,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import comm
+from repro_torch.distributed.tp import shard_serve_params, tp_group
 from repro_torch.models.base import ArchConfig, ModelAPI
 from repro_torch.obs.profile import NULL_TIMER, StepTimer
 from repro_torch.obs.trace import Tracer, get_tracer
@@ -119,6 +130,8 @@ class SlotScheduler:
         profiler: Optional[StepTimer] = None,
         spec_draft=None,
         spec_k: int = 1,
+        mesh=None,
+        rules=None,
     ):
         if not scheduler_supports(arch):
             raise ValueError(
@@ -128,6 +141,11 @@ class SlotScheduler:
             )
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        if spec_draft is not None and spec_k > 1 and mesh is not None:
+            raise ValueError("speculative decoding under a mesh is not implemented (the "
+                             "draft pool and the verify round are not sharded)")
+        self.mesh, self.rules = mesh, rules
+        self.tp = tp_group(mesh, rules)
         self.api = api
         self.arch = arch
         self.n_slots = n_slots
@@ -139,7 +157,7 @@ class SlotScheduler:
         self.profiler = profiler if profiler is not None else NULL_TIMER
         self._tick_ran = False  # the first tick carries the trace's compile span
         self.device = resolve_device(device)
-        self.params = params
+        self.params = shard_serve_params(params, arch, self.tp)  # a placed tree passes
         self._init_kv_prefill(api, quantized_kv)
         self.metrics = RunMetrics(n_slots=n_slots)
         if registry is not None:
@@ -161,9 +179,10 @@ class SlotScheduler:
 
     def _init_kv_prefill(self, api, quantized_kv: bool) -> None:
         self.kv = KVSlotManager(api, n_slots=self.n_slots, max_len=self.max_len,
-                                quantized=quantized_kv, device=self.device)
+                                quantized=quantized_kv, device=self.device, mesh=self.mesh,
+                                rules=self.rules)
         self.prefill = BucketedPrefill(api, max_len=self.max_len, quantized=quantized_kv,
-                                       tracer=self.tracer)
+                                       tracer=self.tracer, mesh=self.mesh, rules=self.rules)
 
     @property
     def _slots_available(self) -> int:
@@ -434,7 +453,12 @@ class SlotScheduler:
         speculative round) over the slot batch. Returns False when there was
         nothing to do. The profiler samples every Nth tick into admit (queue
         + prefill), decode (the device step, up to its barrier) and host
-        (emit + EOS bookkeeping) phases."""
+        (emit + EOS bookkeeping) phases. Under a mesh the whole tick runs
+        under the rank's tensor-parallel group."""
+        with comm.use(self.tp):
+            return self._tick()
+
+    def _tick(self) -> bool:
         if self._spec_api is not None:
             return self._spec_tick()
         prof = self.profiler
@@ -511,10 +535,10 @@ class PagedSlotScheduler(SlotScheduler):
             api, n_slots=self.n_slots, max_len=self.max_len,
             block_size=self.block_size, n_blocks=self._n_blocks_arg,
             prefix_cache=self.prefix_enabled, quantized=quantized_kv, device=self.device,
-            tracer=self.tracer,
+            tracer=self.tracer, mesh=self.mesh, rules=self.rules,
         )
         self.prefill = ChunkedPrefill(api, chunk=self.chunk, max_len=self.max_len,
-                                      tracer=self.tracer)
+                                      tracer=self.tracer, mesh=self.mesh, rules=self.rules)
 
     @property
     def _slots_available(self) -> int:

@@ -198,7 +198,9 @@ def test_port_imports_neither_jax_nor_reference():
                    "obs/trace.py", "obs/registry.py", "obs/profile.py", "nn/ssm.py",
                    "nn/xlstm_blocks.py", "models/hybrid.py", "models/xlstm.py",
                    "configs/zamba2_27b.py", "configs/xlstm_125m.py", "models/encdec.py",
-                   "configs/seamless_m4t_large_v2.py"):
+                   "configs/seamless_m4t_large_v2.py", "distributed/sharding.py",
+                   "distributed/constraints.py", "distributed/meshes.py", "distributed/comm.py",
+                   "distributed/tp.py", "distributed/spawn.py", "launch/mesh.py"):
         assert module in rel, module
     for path in files:
         with open(path, encoding="utf-8") as fh:

@@ -56,7 +56,13 @@ loss, both gathers, the experts' kernels) repeats bit for bit. The plan
 autotuner resolves, with no cache, to every card_* plan function; its
 measured search holds every candidate's output and a second resolution
 returns the stored winner; and a tuned cluster size reaches kernels 3 and
-5 alike, so a tuned split step's gradients equal a tuned fused step's."""
+5 alike, so a tuned split step's gradients equal a tuned fused step's.
+Tensor parallelism: kernels 1, 7 and 10 on each tp = 2 rank's column
+block of nemotron-4-15b's four projections equal the whole call's
+columns; kernel 11 on a rank's heads (Hq = 24, Hkv = 4, D = 128) at the
+unsharded call's plan equals the whole call's heads bit for bit; and a
+SMOKE nemotron drain under a (1, 2) gloo mesh sharing the card, and under
+a one-rank NCCL mesh, equals the single-process drain."""
 import os
 
 import numpy as np
@@ -1024,3 +1030,114 @@ def test_tuned_split_step_equals_tuned_fused_step_on_card(cuda, tune_cache, m, k
         grads[fused] = (xs.grad, ws.grad, bs.grad)
     for a, b in zip(grads[True], grads[False]):
         assert bits_equal(a, b)
+
+
+# nemotron-4-15b's projections on a rank of tp = 2, (K, N/2) of its (K, N):
+# q/o, k/v, up, down
+TP2_NEMOTRON_KN = [(6144, 6144), (6144, 1024), (6144, 24576), (24576, 6144)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", TP2_NEMOTRON_KN)
+def test_column_blocks_equal_the_whole_call_on_card(cuda, k, n):
+    """Kernels 1, 7 and 10 on each tp = 2 rank's column block (K, N/2) at
+    decode (M = 4): bit-exact against the plain version and equal to the
+    same columns of the whole (K, N) call, so a sharded projection gathers
+    to the single-process output bit for bit."""
+    rng = np.random.default_rng(k + n)
+    x, tau, s = cac_case(rng, 4, k, n)
+    xf, w, _ = bnn_case(rng, 4, k, n)
+    xq, wq, ws = qnn_case(rng, 4, k, n)
+    sp = pack_signs(torch.from_numpy(s))
+    wp = pack_signs(sign(torch.from_numpy(w)).to(torch.int8))
+    calls = (
+        (cac_matmul_kernel_call, cac_matmul_plain,
+         lambda c: (torch.from_numpy(x), torch.from_numpy(tau)[:, c], sp[:, c])),
+        (bnn.bnn_packed_matmul_kernel_call, bnn.bnn_packed_matmul_plain,
+         lambda c: (torch.from_numpy(xf), wp[:, c])),
+        (qnn.qnn_matmul_kernel_call, qnn.qnn_matmul_plain,
+         lambda c: (torch.from_numpy(xq), torch.from_numpy(wq)[:, c], torch.from_numpy(ws)[c],
+                    0.05)),
+    )
+    half = n // 2
+    for fn, plain, operands in calls:
+        def on_card(c):
+            return [a.contiguous().to(cuda) if torch.is_tensor(a) else a for a in operands(c)]
+
+        whole = fn(*on_card(slice(None)))
+        for r in range(2):
+            cols = slice(r * half, (r + 1) * half)
+            got = fn(*on_card(cols))
+            torch.cuda.synchronize()
+            assert torch.equal(got, whole[:, cols]), (fn, r)
+            np.testing.assert_array_equal(got.cpu().numpy(), plain(*operands(cols)).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("b,c,t", [(4, 1, 8), (1, 32, 8), (4, 1, 24)], ids=["decode", "chunk",
+                                                                            "long-decode"])
+def test_paged_attention_head_blocks_equal_the_whole_call_on_card(cuda, b, c, t, quantized):
+    """Kernel 11 on each tp = 2 rank's heads of nemotron-4-15b (Hq = 24 of
+    48, Hkv = 4 of 8, D = 128, G = 6), given the unsharded head counts:
+    the unsharded call's plan, so each head equals the whole call's bit for
+    bit; and that plan is what the whole call takes."""
+    from repro_torch.kernels import autotune, ops
+
+    rng = np.random.default_rng(b * c + t)
+    q, k, v, tables, q_pos, ks, vs = (None if a is None else torch.from_numpy(a).to(cuda)
+                                      for a in paged_case(rng, b, c, 48, 8, 128, 16, t,
+                                                          quantized))
+    whole = paged_attn_kernel_call(q, k, v, tables, q_pos, k_scale=ks, v_scale=vs)
+    plan = autotune.get_paged_plan(b, c, 48, 8, 128, 16, t, cuda.index)
+    for r in range(2):
+        hq, hk = slice(24 * r, 24 * r + 24), slice(4 * r, 4 * r + 4)
+        block = [None if a is None else a[:, :, hk].contiguous() for a in (k, v, ks, vs)]
+        before = paged_attn_kernel_call.launches
+        got = ops.paged_attention(q[:, :, hq].contiguous(), block[0], block[1], tables, q_pos,
+                                  k_scale=block[2], v_scale=block[3], heads=(48, 8))
+        torch.cuda.synchronize()
+        assert paged_attn_kernel_call.launches == before + 1
+        assert torch.equal(got, whole[:, :, hq]), (r, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
+def test_tp_smoke_drain_on_card(cuda, tmp_path, backend, world):
+    """The SMOKE nemotron-4-15b (6 heads, 2 kv heads) in bika on the paged
+    engine under a (1, world) mesh on the card: two gloo ranks sharing the
+    card, or a one-rank NCCL group running the same collectives. Tokens
+    and the first logits equal the single-process drain's, and each rank
+    launches kernels 1 and 11 as often as one process."""
+    import _torch_tp_ranks as ranks_mod
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.convert import tree_to_serve
+    from repro_torch.models import build_model
+
+    arch = get_smoke("nemotron-4-15b", compute_mode="bika", pack_signs=True, remat=False)
+    train = build_model(arch, phase="train").init(3, device="cpu")
+    serve_np = _np_tree(tree_to_serve(train, arch.linear_spec()))
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, arch.vocab, int(rng.randint(3, 20))).astype(np.int32)
+               for _ in range(4)]
+    case = {"arch": arch, "engine": "paged", "prompts": prompts, "new_tokens": 6,
+            "device": "cuda", "engine_kw": dict(max_len=64, n_slots=2, kv_block_size=16,
+                                                prefill_chunk=16)}
+    single = ranks_mod.serve_case(case, serve_np)
+    got = ranks_mod.spawn(ranks_mod.serve_cases, world, tmp_path, [(case, serve_np)],
+                          backend=backend)
+    for rank in got:
+        res = rank["cases"][0]
+        assert res["tokens"] == single["tokens"]
+        for kind in ("prefill", "decode"):
+            for a, b in zip(res[kind], single[kind]):
+                np.testing.assert_array_equal(a, b)
+        for name in ("cac_hw", "paged_attn"):
+            assert res["launches"][name] == single["launches"][name] > 0, name
+        assert res["collectives"]["all_gather"] > 0 and res["collectives"]["all_reduce"] > 0
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return tree.numpy()
